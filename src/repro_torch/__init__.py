@@ -1,0 +1,22 @@
+"""GoFFish temporal graph analytics on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of the JAX/Pallas package ``repro`` that mirrors its module names:
+``repro_torch.core.engine`` is the counterpart of ``repro.core.engine``,
+``repro_torch.kernels.semiring_spmm`` of ``repro.kernels.semiring_spmm``,
+and so on.  It imports ``torch`` and numpy only.
+
+What is here so far:
+
+* the numpy base — graph model, generator, partitioner, blocked layout
+  (``configs``, ``core.{graph,generator,partition,blocked}``);
+* the semirings, the stacked comm backends and the BSP superstep
+  drivers (``core.{semiring,comm,superstep}``);
+* the stacked ``TemporalEngine`` (``core.engine``);
+* two hand-written CUDA kernels for ``sm_90a`` — the blocked semiring
+  SpMV and the fused superstep stage (``kernels/``), each beside its
+  plain PyTorch version.
+
+Entry points (``TemporalEngine``, ``device_graph``) run on the card by
+default and raise when CUDA is absent unless the caller passes
+``device="cpu"``, where every kernel wrapper runs its plain version.
+"""

@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
+PyTorch version.
+
+Each kernel ships ``kernel.py`` (the ctypes wrapper with its launch
+counter and source note), ``ops.py`` (dispatch) and ``ref.py`` (the plain
+version); the CUDA sources live in ``csrc/`` and are built at first use by
+``_build.py``.
+
+* ``semiring_spmm``      — blocked min-plus / plus-mul SpMV.
+* ``semiring_superstep`` — fused sweep + semiring combine + halt vote.
+"""

@@ -1,0 +1,168 @@
+"""Card-only tests of the port: each CUDA kernel against its plain version,
+and the engine on the card against the engine on the CPU.
+
+This file imports nothing of the JAX package, so it also runs on a machine
+with the card and no JAX (the repository's ``conftest.py`` imports the JAX
+package, hence ``--noconftest``)::
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Without a card every test skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.goffish_tr import TR_TINY
+from repro_torch.core import engine as T
+from repro_torch.core.algorithms.pagerank import edge_weights_for_instances
+from repro_torch.core.blocked import build_blocked
+from repro_torch.core.generator import generate_collection
+from repro_torch.core.partition import partition_graph
+from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL
+from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+from repro_torch.kernels.semiring_spmm.ref import spmv_blocked_ref
+from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
+from repro_torch.kernels.semiring_superstep.ref import fused_step_ref
+
+TOL = 2e-5  # tests/test_kernels.py:46
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors: one intra-op thread, so that parallel test workers do
+    not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; chip_smoke.py "
+                    "holds the same comparisons)")
+    return torch.device("cuda")
+
+
+def _agree(got, want, semiring):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape
+    if semiring is MIN_PLUS:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin)
+        torch.testing.assert_close(got[fin], want[fin], rtol=TOL, atol=TOL)
+
+
+def _inputs(rng, sr, shape, B, P=3, nvb=4, nbb=5, T_=6):
+    """Random blocked structure (sorted valid columns, padding last) and
+    states for one fused call shape."""
+    nvb_in = nbb if shape == "consume" else nvb
+    tiles = np.full((P, T_, B, B), sr.zero, np.float32)
+    rows = np.full((P, T_), -1, np.int32)
+    cols = np.full((P, T_), -1, np.int32)
+    for p in range(P):
+        n = int(rng.integers(0, T_ + 1)) if p else T_
+        cols[p, :n] = np.sort(rng.integers(0, nvb, n))
+        rows[p, :n] = rng.integers(0, nvb_in, n)
+        m = rng.random((n, B, B)) < 0.4
+        blk = tiles[p, :n]
+        blk[m] = rng.random(int(m.sum()))
+    x = rng.random((P, nvb, B)).astype(np.float32)
+    if shape == "consume":
+        x_in = rng.random((1, nbb, B)).astype(np.float32)
+        x_comb, x_ref = x, rng.random((P, nvb, B)).astype(np.float32)
+    elif shape == "sweep":
+        x_in = x_comb = x_ref = x
+    else:  # plain spmv: combine with the semiring zero
+        x_in, x_ref, x_comb = x, x, np.full_like(x, sr.zero)
+    vmask = rng.random((P, nvb, B)) < 0.9
+    return tiles, rows, cols, x_in, x_comb, x_ref, vmask
+
+
+@pytest.mark.parametrize("B", [32, 64, 128])
+@pytest.mark.parametrize("sr", [MIN_PLUS, PLUS_MUL], ids=lambda s: s.name)
+@pytest.mark.parametrize("shape", ["sweep", "consume", "spmv"])
+def test_kernels_match_plain(cuda, B, sr, shape):
+    rng = np.random.default_rng(B + len(shape))
+    args = [torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+            for a in _inputs(rng, sr, shape, B)]
+    ko, kc = fused_step_cuda(*args, sr)
+    po, pc = fused_step_ref(*args, sr)
+    _agree(ko, po, sr)
+    assert torch.equal(kc, pc)
+    # no vote, with and without the combine (PageRank's step)
+    for comb in (args[4], None):
+        part = args[:4] + [comb, None, None]
+        ko, kc = fused_step_cuda(*part, sr, n_out_blocks=args[4].shape[1])
+        po, pc = fused_step_ref(*part, sr, n_out_blocks=args[4].shape[1])
+        assert kc is None and pc is None
+        _agree(ko, po, sr)
+    tiles, rows, cols, x_in, x_comb = args[:5]
+    x = x_in.reshape(x_in.shape[0], -1)
+    nnz = (cols >= 0).sum(1).to(torch.int32)
+    for kw in ({}, {"nnz": nnz}, {"nnz": (nnz - 1).clamp_min(0)}):
+        k = spmv_blocked_cuda(tiles, rows, cols, x, sr,
+                              n_out_blocks=x_comb.shape[1], **kw)
+        p = spmv_blocked_ref(tiles, rows, cols, x, sr,
+                             n_out_blocks=x_comb.shape[1], **kw)
+        _agree(k, p, sr)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    tiles = torch.zeros(1, 2, 8, 8, device=cuda)
+    idx = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    x = torch.zeros(1, 8, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        spmv_blocked_cuda(tiles, idx.long(), idx, x, MIN_PLUS)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmv_blocked_cuda(tiles.transpose(2, 3), idx, idx, x, MIN_PLUS)
+    with pytest.raises(ValueError, match="one device"):
+        spmv_blocked_cuda(tiles, idx.cpu(), idx, x, MIN_PLUS)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        spmv_blocked_cuda(torch.zeros(1, 2, 6, 6, device=cuda), idx, idx,
+                          torch.zeros(1, 6, device=cuda), MIN_PLUS)
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_engine_on_card_matches_cpu(cuda, layout):
+    """TR_TINY through the engine on the card (both kernel modes) ==
+    the same engine on the CPU (plain versions): bitwise for min-plus,
+    within 2e-5 for PageRank; the kernels were launched."""
+    col = generate_collection(TR_TINY)
+    t = col.template
+    bg = build_blocked(t, partition_graph(t, TR_TINY.num_partitions),
+                       TR_TINY.block_size)
+    lat = np.stack([col.edge_values(i, "latency") for i in range(len(col))])
+    act = np.stack([col.edge_values(i, "active") for i in range(len(col))])
+    prw = edge_weights_for_instances(t.src, act, t.num_vertices)
+    sssp = T.min_plus_program("sssp", init=T.source_init(0))
+    pr = T.pagerank_program(t.num_vertices, iters=8)
+    cpu = T.TemporalEngine(bg, device="cpu", layout=layout)
+    want = cpu.run(sssp, lat, pattern="sequential")
+    want_pr = cpu.run(pr, prw, pattern="independent")
+    before = (spmv_blocked_cuda.launches, fused_step_cuda.launches)
+    for mode in ("spmv", "fused"):
+        eng = T.TemporalEngine(bg, layout=layout, use_pallas=mode)
+        got = eng.run(sssp, lat, pattern="sequential")
+        assert np.array_equal(got.values, want.values)
+        for k in ("supersteps", "local_sweeps"):
+            assert np.array_equal(got.stats[k], want.stats[k])
+        got_pr = eng.run(pr, prw, pattern="independent")
+        np.testing.assert_allclose(got_pr.values, want_pr.values, rtol=TOL,
+                                   atol=TOL)
+    assert spmv_blocked_cuda.launches > before[0]
+    assert fused_step_cuda.launches > before[1]
+
+
+def test_default_mode_on_card_is_spmv_and_off_raises(cuda):
+    col = generate_collection(TR_TINY)
+    t = col.template
+    bg = build_blocked(t, partition_graph(t, TR_TINY.num_partitions),
+                       TR_TINY.block_size)
+    assert T.TemporalEngine(bg).kernel_mode == "spmv"
+    with pytest.raises(ValueError, match="test oracles"):
+        T.TemporalEngine(bg, use_pallas="off")
