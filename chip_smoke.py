@@ -7,30 +7,53 @@ Phases (any failure exits non-zero before the result lines):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. every kernel against its plain PyTorch version on the card, both
-   semirings, B in {32, 64, 128}, padding, an empty structure, ``nnz`` and
-   the fused call shapes (with and without the combine and the vote):
-   min-plus bitwise (same inf pattern), plus-mul within the limit of
-   :func:`plus_mul_limit`, halt votes exactly equal;
-4. the main path at TR_SMALL (16,384 vertices, 48 instances, 8
+3. the graph kernels against their plain PyTorch versions on the card,
+   both semirings, B in {32, 64, 128}, padding, an empty structure,
+   ``nnz`` and the fused call shapes (with and without the combine and
+   the vote): min-plus bitwise (same inf pattern), plus-mul within the
+   limit of :func:`plus_mul_limit`, halt votes exactly equal;
+4. the attention kernels against theirs on FLASH_CASES and DECODE_CASES
+   (the sweeps of ``tests/test_kernels.py`` plus ragged tails, G = 9,
+   windows past the sequence, length-1 caches, many splits), within
+   :func:`attn_limit` (the reference's 2e-5 float32 / 2e-2 bf16, with
+   the absolute part scaled to each output row);
+5. the graph main path at TR_SMALL (16,384 vertices, 48 instances, 8
    partitions, B=64), dense layout, through ``TemporalEngine.run``:
    sequential SSSP in ``spmv`` and ``fused`` mode (bitwise equal, and
    equal to the numpy oracle), independent PageRank (10 iterations) in both
    modes (within :func:`plus_mul_limit` of each other, and within 1e-4
    relative of the float64 oracle), one eventually/``merge="mean"`` run
-   and one sparse-layout run on a few instances.  Kernel launch counts are
-   zeroed before and read after;
-5. each kernel at the main path's shapes: device time (20 calls replayed
+   and one sparse-layout run on a few instances;
+6. each graph kernel at that path's shapes: device time (20 calls replayed
    from one CUDA graph) and eager-call time, the plain version's device
-   time, the bound (bytes over the card's HBM bandwidth) and, for
-   plus-mul, one PyTorch call computing the same function (a dense
-   batched product), printed as one JSON line;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   time, the bound and, for plus-mul, one PyTorch call computing the
+   same function (a dense batched product);
+7. the LM serving path: starcoder2-7b at full width and depth, random
+   weights, ``BatchedServer`` answering 4 prompts of 8,192 tokens with 32
+   new tokens each (finite logits, no padded-vocab token, a second run
+   giving the same tokens), then a ``torch.profiler`` breakdown of one
+   prefill and four decode steps;
+8. teacher forcing at S = 8,192: prefill S + 1 against prefill S then
+   decode 1, logits within 5e-2;
+9. each attention kernel at the serving run's layer-0 shapes and at the
+   ``prefill_32k`` / ``decode_32k`` shapes: held against the plain
+   version, with controls (the plain version with the window edge or the
+   causal edge one key off, or a 32-key block dropped) that must fail the
+   same limit; device, eager, plain, bound and SDPA (memory-efficient
+   backend, a yardstick only) times, and the decode kernel's split-count
+   sweep; then the ``kernels`` JSON line for all four kernels;
+10. the card's line again and the last line: ``{"ok": true, "device":
+    {...}}``.
+
+Each main path (graph, serving) runs with every kernel's launch count
+set to 0 just before it and read just after; a kernel of the path that
+was not launched fails the smoke.
 
 It imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -564,6 +587,576 @@ def kernel_report(keep, launches, card, rate):
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM serving (starcoder2-7b): the attention kernels
+# ---------------------------------------------------------------------------
+
+# bf16 dense tensor-core peak of the one card on record (H100 SXM data
+# sheet), FLOP/s
+BF16_RATE = 989e12
+# tol of attn_limit: the reference tests' rtol (tests/test_kernels.py:150
+# and :197).  A bf16 output rounded one ulp apart differs by at most 2^-7
+# of its value, well inside 2e-2; the absolute part scales with each row
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (B, Sq, Skv, H, K, d, causal, window, q_offset, dtype): FLASH_SWEEP of
+# tests/test_kernels.py:127-136, then ragged Sq/Skv tails, G = 9 with
+# starcoder2's d, windows longer than the sequence, one query row, a
+# prefill continuing a cache (q_offset > 0)
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0, 0, "float32"),
+    (1, 128, 128, 8, 8, 64, True, 0, 0, "float32"),
+    (2, 32, 32, 4, 1, 16, False, 0, 0, "float32"),
+    (1, 64, 64, 2, 2, 32, True, 24, 0, "float32"),
+    (1, 32, 96, 4, 2, 32, True, 0, 64, "float32"),
+    (1, 64, 64, 4, 2, 32, True, 0, 0, "bfloat16"),
+    (1, 128, 128, 2, 2, 128, True, 0, 0, "float32"),
+    (1, 50, 50, 9, 1, 32, True, 16, 0, "float32"),
+    (2, 37, 81, 4, 2, 64, True, 200, 44, "float32"),
+    (1, 129, 129, 4, 2, 128, True, 50, 0, "float32"),
+    (1, 300, 300, 36, 4, 128, True, 128, 0, "bfloat16"),
+    (2, 100, 612, 36, 4, 128, True, 256, 512, "bfloat16"),
+    (1, 77, 130, 8, 2, 64, False, 0, 0, "bfloat16"),
+    (3, 1, 33, 4, 1, 16, True, 8, 32, "bfloat16"),
+    (1, 200, 200, 16, 1, 128, True, 5000, 0, "bfloat16"),
+]
+# (B, S, H, K, d, window, dtype): DECODE_SWEEP of tests/test_kernels.py:
+# 178-183, then G = 9, G = 16, windows longer than the cache, and caches
+# long enough for many splits; every case has a sequence of length 1
+DECODE_CASES = [
+    (2, 128, 4, 2, 32, 0, "float32"),
+    (1, 256, 8, 1, 64, 0, "float32"),
+    (3, 128, 4, 4, 32, 48, "float32"),
+    (2, 128, 8, 2, 64, 0, "bfloat16"),
+    (3, 100, 9, 1, 128, 0, "float32"),
+    (2, 77, 18, 2, 64, 500, "bfloat16"),
+    (4, 300, 36, 4, 128, 64, "bfloat16"),
+    (2, 1000, 16, 1, 128, 0, "bfloat16"),
+    (1, 4096, 36, 4, 128, 0, "bfloat16"),
+    (4, 5000, 36, 4, 128, 4096, "bfloat16"),
+    (2, 3000, 36, 4, 128, 0, "float32"),
+]
+# the serving run: starcoder2-7b at full width and depth
+SERVE_ARCH, SERVE_REQUESTS, SERVE_BATCH = "starcoder2-7b", 4, 4
+SERVE_PROMPT, SERVE_NEW = 8192, 32
+PARITY_S = 8192  # teacher-forcing prompt, batch 1
+PARITY_TOL, PARITY_MARGIN = 5e-2, 2e-2  # tests/test_arch_smoke.py:103-109
+
+
+def attn_limit(ref, tol):
+    """Elementwise limit on |kernel - plain| for attention outputs (last
+    dim the head dim): ``tol * (|ref| + min(1, 2 * row mean |ref|))``, a
+    row being one query's output of one head.  The rounding of ``p`` and
+    of the output scales with the row's magnitude: of order 1 where a row
+    sees a few keys (the sweep's short sequences, where this is at most
+    the reference tests' rtol = atol = ``tol``), near 0.03 where it sees
+    thousands (the main path's).  A fixed atol of 2e-2 would pass a kernel
+    that drops a key block there; the controls of :func:`attn_controls`
+    show that such defects fail this limit."""
+    a = ref.abs()
+    return tol * (a + (2.0 * a.mean(dim=-1, keepdim=True)).clamp(max=1.0))
+
+
+def attn_compare(kern, plain, tol: float, what: str):
+    """Hold an attention kernel's output against its plain version within
+    :func:`attn_limit`.  Returns (max abs error, largest share of the limit
+    that any entry used, mean |plain|, max |plain|)."""
+    import torch
+
+    k, p = kern.float(), plain.float()
+    need(k.shape == p.shape, f"{what}: shape {tuple(k.shape)} vs "
+                             f"{tuple(p.shape)}")
+    need(bool(torch.isfinite(k).all()), f"{what}: non-finite output")
+    err = (k - p).abs()
+    used = float((err / attn_limit(p, tol)).max())
+    need(used <= 1.0, f"{what}: max abs error {float(err.max())} is "
+                      f"{used:.3g}x the limit of attn_limit (tol {tol})")
+    return float(err.max()), used, float(p.abs().mean()), float(p.abs().max())
+
+
+def attn_controls(plain_out, controls, tol: float, what: str):
+    """Deliberately wrong outputs (the plain version with the window edge
+    one key off, the window's first 32-key block dropped, the causal edge
+    one key off or the newest key lost) must each exceed :func:`attn_limit`: proof that the check sees
+    such defects at this shape.  Returns {control: share of the limit}."""
+    import torch
+
+    lim = attn_limit(plain_out.float(), tol)
+    out = {}
+    for name, fn in controls.items():
+        used = float(((fn().float() - plain_out.float()).abs() / lim).max())
+        need(used > 1.0, f"{what}: the control '{name}' stays within the "
+                         f"limit ({used:.3g}x); the check is too weak here")
+        out[name] = used
+    torch.cuda.empty_cache()
+    return out
+
+
+SWEEP_KEYS = ("max_abs_err", "limit_used", "mean_abs_plain", "max_abs_plain")
+
+
+def attention_sweep(device="cuda", seed=1, log=print):
+    """Both attention kernels against their plain versions on every case
+    of FLASH_CASES and DECODE_CASES.  K/V are slices of a longer buffer,
+    strided as the KV cache is.  Returns the number of comparisons."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, dt))
+
+    n = 0
+    for case in FLASH_CASES:
+        B, Sq, Skv, H, K, d, causal, window, qoff, dt = case
+        q = randn(B, Sq, H, d, dt=dt)
+        k = randn(B, Skv + 5, K, d, dt=dt)[:, :Skv]
+        v = randn(B, Skv + 5, K, d, dt=dt)[:, :Skv]
+        kw = dict(causal=causal, window=window, q_offset=qoff)
+        got = attn_compare(flash_attention_cuda(q, k, v, **kw),
+                           mha_ref(q, k, v, **kw), ATTN_TOL[dt],
+                           f"flash {case}")
+        log(f"  flash {case}: " + json.dumps(dict(zip(SWEEP_KEYS, got))))
+        n += 1
+    for case in DECODE_CASES:
+        B, S, H, K, d, window, dt = case
+        q = randn(B, H, d, dt=dt)
+        k = randn(B, S + 3, K, d, dt=dt)[:, :S]
+        v = randn(B, S + 3, K, d, dt=dt)[:, :S]
+        lens = rng.integers(1, S + 1, B).astype(np.int32)
+        lens[0] = 1
+        lens[-1] = S if B > 1 else lens[-1]
+        lt = torch.as_tensor(lens, device=device)
+        got = attn_compare(decode_attention_cuda(q, k, v, lt, window=window),
+                           decode_ref(q, k, v, lt, window=window),
+                           ATTN_TOL[dt], f"decode {case} lengths "
+                                         f"{lens.tolist()}")
+        log(f"  decode {case}: " + json.dumps(dict(zip(SWEEP_KEYS, got))))
+        n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def attn_counters():
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+
+    return flash_attention_cuda, decode_attention_cuda
+
+
+@contextlib.contextmanager
+def capture_layer0():
+    """While the serving path runs, record what the attention kernels are
+    given at their first call of each kind: layer 0 of the prefill and of
+    the first decode step (lengths copied, since the cache's grow in
+    place)."""
+    from repro_torch.models import attention
+
+    got = {}
+    flash, decode = attention.flash_attention_cuda, attention.decode_attention_cuda
+
+    def flash_rec(q, k, v, **kw):
+        got.setdefault("flash", (q, k, v, kw["window"], kw["q_offset"]))
+        return flash(q, k, v, **kw)
+
+    def decode_rec(q, k, v, lengths, **kw):
+        got.setdefault("decode", (q, k, v, lengths.clone(), kw["window"]))
+        return decode(q, k, v, lengths, **kw)
+
+    attention.flash_attention_cuda = flash_rec
+    attention.decode_attention_cuda = decode_rec
+    try:
+        yield got
+    finally:
+        attention.flash_attention_cuda = flash
+        attention.decode_attention_cuda = decode
+
+
+def serve_path(device="cuda", log=print):
+    """The LM main path: starcoder2-7b at full width and depth, random
+    weights from a seeded generator on the card, ``BatchedServer``
+    answering SERVE_REQUESTS prompts of SERVE_PROMPT tokens with SERVE_NEW
+    new tokens each, at batch SERVE_BATCH.  A second run must give the
+    same tokens.  Returns what the later phases need."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import init_model_params
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = init_model_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase serve_init: {json.dumps({'seconds': time.perf_counter() - t0, 'arch': cfg.name, 'layers': cfg.num_layers, 'd_model': cfg.d_model, 'params': n_params, 'weights_GB': torch.cuda.memory_allocated() / 1e9})}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+
+    def run():
+        srv = BatchedServer(model, batch_size=SERVE_BATCH,
+                            max_len=SERVE_PROMPT + SERVE_NEW + 8)
+        done = srv.serve([Request(rid=i, tokens=p, max_new=SERVE_NEW)
+                          for i, p in enumerate(prompts)])
+        return srv, [r.out for r in done]
+
+    flash, decode = attn_counters()
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = decode.launches = 0
+    with capture_layer0() as shapes:
+        srv, outs = run()
+    launches = {"flash_attention_cuda": flash.launches,
+                "decode_attention_cuda": decode.launches}
+    st = srv.stats
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+           "tokens": st["tokens"],
+           "tokens_per_s": st["tokens"] / (st["prefill_s"] + st["decode_s"]),
+           "decode_tokens_per_s": SERVE_REQUESTS * (SERVE_NEW - 1)
+           / st["decode_s"],
+           "prompt_tokens_per_s": SERVE_REQUESTS * SERVE_PROMPT
+           / st["prefill_s"], "peak_GB": peak, "launches": launches}
+    log(f"phase serve: {json.dumps(rec)}")
+    need(len(outs) == SERVE_REQUESTS, "serve: requests lost")
+    need(all(len(o) == SERVE_NEW for o in outs), "serve: token counts")
+    need(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+         "serve: a padded vocab entry won")
+    need(st["finite"], "serve: non-finite logits")
+    for k, v in launches.items():
+        need(v > 0, f"{k} was not launched on the serving path")
+    srv2, outs2 = run()
+    need(outs2 == outs, "serve: a second run gave other tokens")
+    log(f"phase serve_repeat: {json.dumps({'prefill_s': srv2.stats['prefill_s'], 'decode_s': srv2.stats['decode_s'], 'identical_tokens': True})}")
+    log(f"  first tokens: {[o[:8] for o in outs]}")
+    return {"cfg": cfg, "model": model, "prompts": prompts, "outs": outs,
+            "launches": launches, "serve": rec, "shapes": shapes}
+
+
+def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
+    """Where the serving time goes: ``torch.profiler`` over one prefill of
+    the SERVE_BATCH prompts and over ``n_decode`` decode steps.  Prints,
+    for each window, the host wall time, the device time the profiler saw
+    (the sum of the kernels' own times), the device's idle share of the
+    wall time, and the kernels that took the most device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, init_serve_cache, prefill
+
+    cfg, model = lm["cfg"], lm["model"]
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    toks = np.stack(lm["prompts"][:B])
+    nxt = np.array([[o[0]] for o in lm["outs"][:B]], np.int32)
+    cache = init_serve_cache(cfg, B, S + n_decode + 8, device=device)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side entries only (kernels, copies): the host ops that
+        # launched them carry the same time again
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        busy = sum(r[0] for r in rows)
+        rec = {"wall_ms": wall * 1e3, "device_ms": busy,
+               "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
+               "device_launches": sum(r[1] for r in rows),
+               "top": [{"ms": ms, "calls": n, "name": k[:90]}
+                       for ms, n, k in rows[:top]]}
+        out[name] = rec
+        log(f"phase serve_profile {name}: {json.dumps(rec)}")
+        if not busy:
+            log("  the profiler saw no device time")
+
+    def run_prefill():
+        nonlocal cache
+        _, cache = prefill(model, {"tokens": toks, "cache": cache})
+
+    def run_decode():
+        nonlocal cache
+        for i in range(n_decode):
+            _, cache = decode_step(model, {
+                "tokens": nxt, "pos": np.full(B, S + i, np.int32),
+                "cache": cache})
+
+    window("prefill", run_prefill)
+    window(f"decode x{n_decode}", run_decode)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def teacher_forcing(lm, device="cuda", log=print):
+    """Prefilling S + 1 tokens and prefilling S then decoding one must give
+    the same last-token logits (tests/test_arch_smoke.py:67-109): the
+    flash kernel against the decode kernel over all layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, init_serve_cache, prefill
+
+    cfg, model = lm["cfg"], lm["model"]
+    S, V = PARITY_S, cfg.vocab_size
+    toks = np.random.default_rng(1).integers(0, V, (1, S + 1)).astype(
+        np.int32)
+    t0 = time.perf_counter()
+    cache = init_serve_cache(cfg, 1, S + 9, device=device)
+    la, _ = prefill(model, {"tokens": toks, "cache": cache})
+    cache = init_serve_cache(cfg, 1, S + 9, device=device)
+    _, cache = prefill(model, {"tokens": toks[:, :S], "cache": cache})
+    lb, _ = decode_step(model, {"tokens": toks[:, S:],
+                                "pos": np.array([S], np.int32),
+                                "cache": cache})
+    del cache
+    va = la[:, -1, :V].float().cpu().numpy()
+    vb = lb[:, -1, :V].float().cpu().numpy()
+    need(np.isfinite(va).all() and np.isfinite(vb).all(),
+         "teacher forcing: non-finite logits")
+    err = float(np.abs(va - vb).max())
+    need(np.allclose(va, vb, rtol=PARITY_TOL, atol=PARITY_TOL),
+         f"teacher forcing: logits differ by {err} beyond {PARITY_TOL}")
+    top2 = np.sort(va[0])[-2:]
+    margin = float(top2[1] - top2[0])
+    if margin > PARITY_MARGIN:
+        need(va[0].argmax() == vb[0].argmax(), "teacher forcing: top-1 "
+                                               "differs")
+    log(f"phase teacher_forcing: {json.dumps({'seconds': time.perf_counter() - t0, 'S': S, 'max_abs_err': err, 'logit_std': float(va.std()), 'top2_margin': margin, 'top1_equal': bool(va[0].argmax() == vb[0].argmax())})}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def split_sweep(decode_k, args, log=print, counts=(1, 2, 4, 8, 16, 32)):
+    """Device ms of the decode kernel at one shape for several split
+    counts (the wrapper's own choice is ``num_splits``)."""
+    from repro_torch.kernels.decode_attention import kernel
+
+    q, k, v, lengths, window = args
+    chosen = kernel.num_splits
+    out = {}
+    try:
+        for n in counts:
+            kernel.num_splits = lambda *a, n=n: n
+            out[n] = cuda_ms(lambda: decode_k(q, k, v, lengths,
+                                              window=window))
+    finally:
+        kernel.num_splits = chosen
+    log(f"  decode split sweep (ms by split count): {json.dumps(out)}")
+    return out
+
+
+def visible_pairs(Sq, Skv, q_offset, window):
+    """(query, key) pairs the causal window mask lets through, per head
+    and sequence."""
+    import numpy as np
+
+    qpos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, Skv - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(qpos)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_report(shapes, launches, card, rate, device="cuda",
+                     log=print):
+    """Each attention kernel timed at the serving run's shapes (layer 0,
+    as ``capture_layer0`` recorded them)
+    and at the repo's named 32k shapes: device ms (CUDA-graph replay),
+    eager ms, plain ms, one PyTorch library call (SDPA, memory-efficient
+    backend) as a yardstick, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import DECODE_32K, PREFILL_32K, get_config
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    flash_k, decode_k = attn_counters()
+    calls = {"flash_attention_cuda": [], "decode_attention_cuda": []}
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def library(fn, plain_out, what):
+        """Time the yardstick, or say why it could not run (it is never on
+        the port's path)."""
+        try:
+            out = fn()
+        except RuntimeError as e:  # a backend that refuses these inputs
+            log(f"  {what}: library call unavailable: {str(e)[:300]}")
+            return None, str(e)[:200]
+        attn_compare(out, plain_out, ATTN_TOL["bfloat16"],
+                     what + " library call")
+        return cuda_ms(fn), None
+
+    def finish(kernel, name, kfn, pfn, lfn, moved, ops, controls):
+        kout, pout = kfn(), pfn()
+        err, used, mean_p, max_p = attn_compare(kout, pout,
+                                                ATTN_TOL["bfloat16"], name)
+        ctl = attn_controls(pout, controls, ATTN_TOL["bfloat16"], name)
+        lib_ms, lib_note = library(lfn, pout, name)
+        t_bytes, t_ops = moved / rate, ops / BF16_RATE
+        rec = {"call": name, "ms": cuda_ms(kfn),
+               "eager_ms": cuda_ms(kfn, graph=False),
+               "plain_ms": cuda_ms(pfn), "library_ms": lib_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": moved, "flop": ops, "max_abs_err": err,
+               "limit_used": used, "mean_abs_plain": mean_p,
+               "max_abs_plain": max_p, "controls_limit_used": ctl}
+        if lib_note:
+            rec["library_note"] = lib_note
+        calls[kernel].append(rec)
+        log(f"  {kernel} {name}: " + json.dumps(rec))
+        del kout, pout
+        torch.cuda.empty_cache()
+
+    def flash_call(name, q, k, v, window, q_offset):
+        B, Sq, H, d = q.shape
+        Skv, K = k.shape[1], k.shape[2]
+        G = H // K
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        kx = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vx = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+
+        def lfn():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kx, vx, attn_mask=mask).transpose(1, 2)
+
+        pairs = B * visible_pairs(Sq, Skv, q_offset, window)
+        need(window > 32, f"{name}: the controls need a window, got {window}")
+        controls = {
+            "window edge one key off": lambda: mha_ref(
+                q, k, v, causal=True, window=window - 1, q_offset=q_offset),
+            "window's first 32 keys dropped": lambda: mha_ref(
+                q, k, v, causal=True, window=window - 32, q_offset=q_offset),
+            "causal edge one key off": lambda: mha_ref(
+                q, k, v, causal=True, window=window, q_offset=q_offset - 1),
+        }
+        finish("flash_attention_cuda", name,
+               lambda: flash_k(q, k, v, **kw), lambda: mha_ref(q, k, v, **kw),
+               lfn, nbytes(q, q) + 2 * B * Skv * K * d * k.element_size(),
+               4 * d * H * pairs, controls)
+
+    def decode_call(name, q, k, v, lengths, window):
+        B, H, d = q.shape
+        S, K = k.shape[1], k.shape[2]
+        G = H // K
+        kx = k.transpose(1, 2).contiguous()
+        vx = v.transpose(1, 2).contiguous()
+        pos = torch.arange(S, device=q.device)[None]
+        lens = lengths[:, None].long()
+        mask = pos < lens
+        if window:
+            mask &= pos > lens - 1 - window
+        mask = mask[:, None, None, :].expand(B, K, G, S)
+
+        def lfn():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    q.reshape(B, K, G, d), kx, vx,
+                    attn_mask=mask).reshape(B, H, d)
+
+        span = lengths.long().clamp(0, S)
+        keys = int((span.clamp(max=window) if window else span).sum())
+        need(window > 32, f"{name}: the controls need a window, got {window}")
+        shorter = (lengths - 1).clamp(min=1)
+        controls = {
+            "window edge one key off": lambda: decode_ref(
+                q, k, v, lengths, window=window - 1),
+            "window's first 32 keys dropped": lambda: decode_ref(
+                q, k, v, lengths, window=window - 32),
+            "newest key lost": lambda: decode_ref(
+                q, k, v, shorter, window=window - 1),
+        }
+        finish("decode_attention_cuda", name,
+               lambda: decode_k(q, k, v, lengths, window=window),
+               lambda: decode_ref(q, k, v, lengths, window=window), lfn,
+               2 * keys * K * d * k.element_size() + nbytes(q, q, lengths),
+               4 * d * H * keys, controls)
+
+    t0 = time.perf_counter()
+    flash_call("serve prefill, layer 0", *shapes["flash"])
+    decode_call("serve decode step 1, layer 0", *shapes["decode"])
+    calls["decode_attention_cuda"][-1]["split_sweep_ms"] = split_sweep(
+        decode_k, shapes["decode"], log)
+    shapes.clear()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=device).manual_seed(2)
+    dt = getattr(torch, cfg.dtype)
+    H, K, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # prefill_32k's sequence (configs/base.py:34), one prompt
+    S = PREFILL_32K.seq_len
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dt)
+
+    flash_call(f"prefill_32k sequence (B=1, S={S})", randn(1, S, H, d),
+               randn(1, S, K, d), randn(1, S, K, d), cfg.sliding_window, 0)
+    torch.cuda.empty_cache()
+    # decode_32k's cache (configs/base.py:35), one layer
+    Bd, S = DECODE_32K.global_batch, DECODE_32K.seq_len
+    lengths = torch.randint(1, S + 1, (Bd,), generator=gen, device=device,
+                            dtype=torch.int32)
+    decode_call(f"decode_32k cache (B={Bd}, S={S})", randn(Bd, H, d),
+                randn(Bd, S, K, d), randn(Bd, S, K, d), lengths,
+                cfg.sliding_window)
+    torch.cuda.empty_cache()
+    log(f"phase attention_timing: {json.dumps({'seconds': time.perf_counter() - t0})}")
+
+    meta = {
+        "flash_attention_cuda": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:86"),
+        "decode_attention_cuda": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:83"),
+    }
+    out = []
+    for kernel, recs in calls.items():
+        hot = recs[0]  # the serving run's shape
+        out.append({
+            "name": kernel, "route": "cuda", "source": meta[kernel][0],
+            "replaces": meta[kernel][1], "launches": launches[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "limit_used": max(r["limit_used"] for r in recs),
+            "ms": hot["ms"], "eager_ms": hot["eager_ms"],
+            "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
+            "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
+            "hot_call": hot["call"], "calls": recs, "card": card,
+        })
+    return out
+
+
+
 def main() -> int:
     try:
         import torch
@@ -607,13 +1200,19 @@ def main() -> int:
     n = kernel_sweep("cuda")
     print(f"phase kernel_sweep: {json.dumps({'seconds': time.perf_counter() - t0, 'comparisons': n})}")
 
-    # 4. the main path, launches counted
+    # 4. the attention kernels against their plain versions
+    t0 = time.perf_counter()
+    n = attention_sweep("cuda")
+    print(f"phase attention_sweep: {json.dumps({'seconds': time.perf_counter() - t0, 'comparisons': n})}")
+
+    # 5. the graph main path, launches counted
     from repro_torch.configs.goffish_tr import TR_SMALL
     from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
     from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
 
-    spmv_blocked_cuda.launches = 0
-    fused_step_cuda.launches = 0
+    flash, decode = attn_counters()
+    for k in (spmv_blocked_cuda, fused_step_cuda, flash, decode):
+        k.launches = 0
     keep = main_path(TR_SMALL, "cuda")
     launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
                 "fused_step_cuda": fused_step_cuda.launches}
@@ -625,10 +1224,24 @@ def main() -> int:
     print(f"peak device memory GB: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
-    # 5. kernels at the main path's shapes
+    # 6. the graph kernels at the main path's shapes
     t0 = time.perf_counter()
     report = kernel_report(keep, launches, card, rate)
     print(f"phase kernel_timing: {json.dumps({'seconds': time.perf_counter() - t0})}")
+    del keep
+    torch.cuda.empty_cache()
+
+    # 7. the LM serving path, launches counted (inside serve_path)
+    lm = serve_path("cuda")
+    launches.update(lm["launches"])
+    serve_profile(lm, "cuda")
+    # 8. teacher forcing: the flash kernel against the decode kernel
+    teacher_forcing(lm, "cuda")
+    # 9. the attention kernels at the serving run's and the 32k shapes
+    shapes = lm.pop("shapes")
+    lm.clear()
+    torch.cuda.empty_cache()
+    report += attention_report(shapes, launches, card, rate)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": report}))
     print(card)
@@ -636,7 +1249,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

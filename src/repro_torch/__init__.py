@@ -1,4 +1,5 @@
-"""GoFFish temporal graph analytics on PyTorch and CUDA (NVIDIA Hopper).
+"""GoFFish temporal graph analytics, and its dense LM serving stack, on
+PyTorch and CUDA (NVIDIA Hopper).
 
 A port of the JAX/Pallas package ``repro`` that mirrors its module names:
 ``repro_torch.core.engine`` is the counterpart of ``repro.core.engine``,
@@ -12,11 +13,16 @@ What is here so far:
 * the semirings, the stacked comm backends and the BSP superstep
   drivers (``core.{semiring,comm,superstep}``);
 * the stacked ``TemporalEngine`` (``core.engine``);
-* two hand-written CUDA kernels for ``sm_90a`` — the blocked semiring
-  SpMV and the fused superstep stage (``kernels/``), each beside its
-  plain PyTorch version.
+* the dense LM serving path: configs, ``models`` (``DecoderLM``,
+  prefill and decode over a KV cache), ``dist.sharding`` (embed and head
+  on one device), ``train.serve_step`` and ``launch.serve``
+  (``BatchedServer``);
+* four hand-written CUDA kernels for ``sm_90a`` — the blocked semiring
+  SpMV, the fused superstep stage, flash attention (prefill) and decode
+  attention (``kernels/``), each beside its plain PyTorch version.
 
-Entry points (``TemporalEngine``, ``device_graph``) run on the card by
-default and raise when CUDA is absent unless the caller passes
+Entry points (``TemporalEngine``, ``device_graph``,
+``init_model_params``, ``params_from_numpy``, ``init_serve_cache``) run
+on the card by default and raise when CUDA is absent unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain version.
 """

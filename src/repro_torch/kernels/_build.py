@@ -1,8 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one object each
-(all compiles started together), links them into one shared library with a
-plain C interface, and the library is loaded with ``ctypes``.  The build
+One shared library holds all four kernels: the semiring SpMV and fused
+superstep of the graph engine, and the flash (prefill) and decode
+attention of the LM serving path.  At first use, ``nvcc`` compiles every
+``csrc/*.cu`` into one object each (all compiles started together), links
+them into the library with a plain C interface, and the library is loaded
+with ``ctypes``.  The build
 lands in ``kernels/build/<hash>/``, keyed by the sources and flags, so an
 edited source rebuilds and an unchanged one loads at once.  Nothing is
 built when this module is imported.
@@ -26,7 +29,7 @@ from typing import Optional
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD = HERE / "build"
-LIB_NAME = "libsemiring_kernels.so"
+LIB_NAME = "librepro_torch_kernels.so"
 # semiring argument of the C entry points
 SEMIRING_CODES = {"min_plus": 0, "plus_mul": 1}
 NVCC_FLAGS = (
@@ -126,6 +129,14 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     lib.fused_step_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                    i32, i32, i64, i32, i32, vp]
     lib.fused_step_f32.restype = i32
+    f32 = ctypes.c_float
+    lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, *[i32] * 6,
+                                        *[i64] * 8, i32, i32, i32, f32, i32,
+                                        vp]
+    lib.flash_attention_fwd.restype = i32
+    lib.decode_attention_fwd.argtypes = [vp] * 7 + [i32] * 5 + [i64] * 6 + [
+        i32, i32, f32, i32, vp]
+    lib.decode_attention_fwd.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

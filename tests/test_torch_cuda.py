@@ -166,3 +166,133 @@ def test_default_mode_on_card_is_spmv_and_off_raises(cuda):
     assert T.TemporalEngine(bg).kernel_mode == "spmv"
     with pytest.raises(ValueError, match="test oracles"):
         T.TemporalEngine(bg, use_pallas="off")
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the attention kernels and the model on the card
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels.py
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, K, d, causal, window, q_offset, dtype)
+    (2, 64, 64, 4, 2, 32, True, 0, 0, torch.float32),
+    (2, 32, 32, 4, 1, 16, False, 0, 0, torch.float32),
+    (1, 32, 96, 4, 2, 32, True, 0, 64, torch.float32),
+    (1, 50, 50, 9, 1, 128, True, 16, 0, torch.float32),
+    (1, 64, 64, 4, 2, 32, True, 0, 0, torch.bfloat16),
+    (2, 100, 612, 36, 4, 128, True, 256, 512, torch.bfloat16),
+    (1, 77, 130, 8, 2, 64, False, 0, 0, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    B, Sq, Skv, H, K, d, causal, window, qoff, dt = case
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    q = torch.randn(B, Sq, H, d, generator=g, device=cuda).to(dt)
+    kv = torch.randn(2, B, Skv + 3, K, d, generator=g, device=cuda).to(dt)
+    k, v = kv[0, :, :Skv], kv[1, :, :Skv]  # strided, as cache slices are
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, **kw)
+    assert flash_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v, **kw).float(),
+                               rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+
+
+@pytest.mark.parametrize("case", [
+    # (B, S, H, K, d, window, dtype)
+    (2, 128, 4, 2, 32, 0, torch.float32),
+    (3, 128, 4, 4, 32, 48, torch.float32),
+    (3, 100, 9, 1, 128, 0, torch.float32),
+    (2, 128, 8, 2, 64, 0, torch.bfloat16),
+    (4, 5000, 36, 4, 128, 4096, torch.bfloat16),
+    (2, 1000, 16, 1, 128, 0, torch.bfloat16),
+])
+def test_decode_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+
+    B, S, H, K, d, window, dt = case
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn(B, H, d, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, S, K, d, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, S, K, d, generator=g, device=cuda).to(dt)
+    lens = torch.randint(1, S + 1, (B,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    lens[0] = 1
+    got = decode_attention_cuda(q, k, v, lens, window=window)
+    torch.testing.assert_close(
+        got.float(), decode_ref(q, k, v, lens, window=window).float(),
+        rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+
+
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+
+    q = torch.zeros(1, 8, 4, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q[..., :24].contiguous(), q[..., :24], q[..., :24])
+    with pytest.raises(ValueError, match="share"):
+        flash_attention_cuda(q, q.half(), q.half())
+    spread = torch.zeros(1, 8, 32, 4, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="packed heads"):
+        flash_attention_cuda(q, spread, spread)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention_cuda(q[:, 0], q, q, lens.long())
+    with pytest.raises(ValueError, match="at most 16"):
+        decode_attention_cuda(torch.zeros(1, 17, 32, device=cuda),
+                              q[:, :, :1], q[:, :, :1], lens)
+
+
+@pytest.mark.parametrize("arch,dtype,tol", [
+    ("starcoder2-7b", "float32", 1e-4),
+    ("starcoder2-7b", "bfloat16", 5e-2),
+    ("glm4-9b", "bfloat16", 5e-2),
+])
+def test_reduced_model_on_card_matches_cpu(cuda, arch, dtype, tol):
+    """The reduced model's prefill and decode on the card (through the
+    kernels) == the same model on the CPU (plain versions), over a prompt
+    longer than the reduced window; both kernels were launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.models import (
+        decode_step, init_model_params, init_serve_cache, prefill)
+
+    cfg = get_config(arch).reduced().with_overrides(dtype=dtype)
+    cpu = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = init_model_params(cfg, torch.Generator().manual_seed(0),
+                             "cpu").to(cuda)
+    cdt = getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 90)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 3)).astype(np.int32)
+    before = (flash_attention_cuda.launches, decode_attention_cuda.launches)
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        cache = init_serve_cache(cfg, 2, 100, dtype=cdt, device=dev)
+        logits, cache = prefill(model, {"tokens": toks, "cache": cache})
+        steps = [logits.cpu()]
+        for i in range(3):
+            logits, cache = decode_step(model, {
+                "tokens": nxt[:, i:i + 1], "pos": np.full(2, 90 + i, np.int32),
+                "cache": cache})
+            steps.append(logits.cpu())
+        out.append(steps)
+    for a, b in zip(*out):
+        torch.testing.assert_close(b[..., :cfg.vocab_size],
+                                   a[..., :cfg.vocab_size], rtol=tol,
+                                   atol=tol)
+    assert flash_attention_cuda.launches == before[0] + cfg.num_layers
+    assert decode_attention_cuda.launches == before[1] + 3 * cfg.num_layers
