@@ -23,11 +23,15 @@ Phases (any failure exits non-zero before the result lines):
    equal to the numpy oracle), independent PageRank (10 iterations) in both
    modes (within :func:`plus_mul_limit` of each other, and within 1e-4
    relative of the float64 oracle), one eventually/``merge="mean"`` run
-   and one sparse-layout run on a few instances;
-6. each graph kernel at that path's shapes: device time (20 calls replayed
-   from one CUDA graph) and eager-call time, the plain version's device
-   time, the bound and, for plus-mul, one PyTorch call computing the
-   same function (a dense batched product);
+   and one sparse-layout run on a few instances; the graph kernels'
+   launches are counted by call shape (:func:`call_shapes`);
+6. each graph kernel at that path's shapes, with the engine's walk
+   plans: device time (20 calls replayed from one CUDA graph) and
+   eager-call time, the plain version's device time, the bound and its
+   share, and, for plus-mul, one PyTorch call computing the same
+   function (a dense batched product); then a skewed control, partition
+   0's boundary runs gathered into one output block, held against plain
+   and timed;
 7. the LM serving path: starcoder2-7b at full width and depth, random
    weights, ``BatchedServer`` answering 4 prompts of 8,192 tokens with 32
    new tokens each (finite logits, no padded-vocab token, a second run
@@ -398,6 +402,49 @@ def main_path(cfg, device="cuda", n_sparse=4, log=print):
     return keep
 
 
+@contextlib.contextmanager
+def call_shapes():
+    """Count the graph kernels' launches by call shape while the block
+    runs: yields a dict {(kernel, call): launches}, ``call`` named as in
+    :func:`kernel_report` ("local sweep min_plus", "consume plus_mul",
+    "sweep min_plus", "spmv plus_mul", ...).  It wraps the names through
+    which the engine reaches the wrappers; the wrappers' own counts move
+    as before, and the shapes' counts sum to them."""
+    from repro_torch.kernels.semiring_spmm import ops as spmm_ops
+    from repro_torch.kernels.semiring_superstep import ops as step_ops
+
+    counts = {}
+    real_spmv, real_fused = spmm_ops.spmv_blocked_cuda, \
+        step_ops.fused_step_cuda
+
+    def add(kernel, call, before, after):
+        key = (kernel, call)
+        counts[key] = counts.get(key, 0) + after - before
+
+    def spmv(tiles, rows, cols, x, sr, **kw):
+        n = real_spmv.launches
+        out = real_spmv(tiles, rows, cols, x, sr, **kw)
+        shape = "consume" if x.shape[0] == 1 else "local sweep"
+        add("spmv_blocked_cuda", f"{shape} {sr.name}", n, real_spmv.launches)
+        return out
+
+    def fused(tiles, rows, cols, x_in, x_comb, *args, **kw):
+        n = real_fused.launches
+        out = real_fused(tiles, rows, cols, x_in, x_comb, *args, **kw)
+        sr = args[2]
+        shape = "consume" if x_in.shape[0] == 1 else (
+            "sweep" if x_comb is not None else "spmv")
+        add("fused_step_cuda", f"{shape} {sr.name}", n, real_fused.launches)
+        return out
+
+    spmm_ops.spmv_blocked_cuda, step_ops.fused_step_cuda = spmv, fused
+    try:
+        yield counts
+    finally:
+        spmm_ops.spmv_blocked_cuda = real_spmv
+        step_ops.fused_step_cuda = real_fused
+
+
 # ---------------------------------------------------------------------------
 # phase 5: kernels at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -446,10 +493,11 @@ def dense_operator(tiles, rows, cols, nvb_out, nvb_in):
     return m.permute(0, 1, 3, 2, 4).reshape(P, nvb_out * B, nvb_in * B)
 
 
-def kernel_report(keep, launches, card, rate):
+def kernel_report(keep, launches, shape_launches, card, rate):
     """One JSON record per kernel: the top-level numbers are its hot
     main-path call (the min-plus local sweep of the SSSP fixpoint); every
-    main-path call shape is listed under ``calls``."""
+    main-path call shape is listed under ``calls``, with its launches on
+    the main path (``shape_launches``, from :func:`call_shapes`)."""
     import torch
 
     from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL
@@ -458,9 +506,12 @@ def kernel_report(keep, launches, card, rate):
     from repro_torch.kernels.semiring_spmm.ref import spmv_blocked_ref
     from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
     from repro_torch.kernels.semiring_superstep.ref import fused_step_ref
+    from repro_torch.kernels.walk_plan import (
+        default_chunk, to_device, walk_plan)
 
     bg, eng = keep["bg"], keep["eng"]
     rows, cols, brows, bcols = eng._index
+    plan, bplan = eng._plans["plan"], eng._plans["bplan"]
     vmask = eng._tail[3]
     P, Vp, B = bg.n_parts, bg.vp, bg.block_size
     nvb, nbb = Vp // B, bg.num_boundary // B
@@ -492,6 +543,7 @@ def kernel_report(keep, launches, card, rate):
                     name + " library call")
         rec = {
             "call": name, "semiring": sr.name,
+            "launches": shape_launches.get((kernel, name), 0),
             "ms": cuda_ms(kfn), "eager_ms": cuda_ms(kfn, graph=False),
             "plain_ms": cuda_ms(pfn),
             "library_ms": None if lfn is None else cuda_ms(lfn),
@@ -501,6 +553,7 @@ def kernel_report(keep, launches, card, rate):
             "bytes": moved, "max_abs_err": err, "limit_used": used,
             "max_abs_plain": float(pout.abs().max()),
         }
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         calls[kernel].append(rec)
 
     # -- spmv: local sweep and consume, both semirings --------------------
@@ -516,13 +569,13 @@ def kernel_report(keep, launches, card, rate):
             lib_bound = lambda: torch.matmul(a_bnd, bs)  # noqa: E731
         moved = n_local * tile_b + nbytes(rows, cols, x) + P * Vp * 4
         record("spmv_blocked_cuda", f"local sweep {sr.name}", sr,
-               lambda: spmv_blocked_cuda(tl, rows, cols, x, sr),
+               lambda: spmv_blocked_cuda(tl, rows, cols, x, sr, plan=plan),
                lambda: spmv_blocked_ref(tl, rows, cols, x, sr),
                lib_local, moved, 2 * n_local * B * B)
         moved = (n_bound * tile_b + nbytes(brows, bcols, bnd) + P * Vp * 4)
         record("spmv_blocked_cuda", f"consume {sr.name}", sr,
                lambda: spmv_blocked_cuda(btl, brows, bcols, bnd[None], sr,
-                                         n_out_blocks=nvb),
+                                         n_out_blocks=nvb, plan=bplan),
                lambda: spmv_blocked_ref(btl, brows, bcols, bnd[None], sr,
                                         n_out_blocks=nvb),
                lib_bound, moved, 2 * n_bound * B * B)
@@ -542,6 +595,7 @@ def kernel_report(keep, launches, card, rate):
                       "consume": (btl, brows, bcols, b3, None, None, a_bnd)}
         for name, (tt, rr, cc, xin, comb, xref, a) in shapes.items():
             n_t = n_local if tt is tl else n_bound
+            pl = plan if tt is tl else bplan
             vm = None if xref is None else vm3
             lfn = None
             if a is not None:  # plus-mul, no combine
@@ -555,12 +609,41 @@ def kernel_report(keep, launches, card, rate):
             moved = n_t * tile_b + nbytes(rr, cc, xin) + states
             record("fused_step_cuda", f"{name} {sr.name}", sr,
                    lambda tt=tt, rr=rr, cc=cc, xin=xin, comb=comb,
-                   xref=xref, vm=vm: fused_step_cuda(
-                       tt, rr, cc, xin, comb, xref, vm, sr, n_out_blocks=nvb),
+                   xref=xref, vm=vm, pl=pl: fused_step_cuda(
+                       tt, rr, cc, xin, comb, xref, vm, sr, n_out_blocks=nvb,
+                       plan=pl),
                    lambda tt=tt, rr=rr, cc=cc, xin=xin, comb=comb,
                    xref=xref, vm=vm: fused_step_ref(
                        tt, rr, cc, xin, comb, xref, vm, sr, n_out_blocks=nvb),
                    lfn, moved, 2 * n_t * B * B)
+
+    # skewed control: partition 0's boundary runs gathered into one output
+    # block, so one run holds all its tiles (the walk plan spreads it over
+    # many CTAs); min-plus, held against plain and timed like the rest
+    skew = bcols.clone()
+    skew[0][skew[0] >= 0] = 0
+    splan = to_device(walk_plan(skew.cpu().numpy(), nvb,
+                                chunk=default_chunk(B)), skew.device)
+    btl, b3 = keep["sssp_btiles"], b_mp.reshape(1, nbb, B)
+    xs3 = x_mp.reshape(P, nvb, B)
+    xref = torch.flip(xs3, (2,)).contiguous()
+    vm3 = vmask.reshape(P, nvb, B)
+    name = "consume min_plus, skewed control (partition 0 in one block)"
+    record("spmv_blocked_cuda", name, MIN_PLUS,
+           lambda: spmv_blocked_cuda(btl, brows, skew, b_mp[None], MIN_PLUS,
+                                     n_out_blocks=nvb, plan=splan),
+           lambda: spmv_blocked_ref(btl, brows, skew, b_mp[None], MIN_PLUS,
+                                    n_out_blocks=nvb),
+           None, n_bound * tile_b + nbytes(brows, skew, b_mp) + P * Vp * 4,
+           2 * n_bound * B * B)
+    record("fused_step_cuda", name, MIN_PLUS,
+           lambda: fused_step_cuda(btl, brows, skew, b3, xs3, xref, vm3,
+                                   MIN_PLUS, plan=splan),
+           lambda: fused_step_ref(btl, brows, skew, b3, xs3, xref, vm3,
+                                  MIN_PLUS),
+           None, n_bound * tile_b + nbytes(brows, skew, b3, xs3, xs3, xref,
+                                           vm3) + P * 4,
+           2 * n_bound * B * B)
 
     meta = {
         "spmv_blocked_cuda": (
@@ -573,6 +656,7 @@ def kernel_report(keep, launches, card, rate):
     out = []
     for kernel, recs in calls.items():
         hot = recs[0]  # min-plus local sweep
+        pm = [r for r in recs if r["library_ms"] is not None]
         out.append({
             "name": kernel, "route": "cuda", "source": meta[kernel][0],
             "replaces": meta[kernel][1], "launches": launches[kernel],
@@ -582,6 +666,10 @@ def kernel_report(keep, launches, card, rate):
             "plain_ms": hot["plain_ms"],
             "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
             "library_ms": hot["library_ms"], "hot_call": hot["call"],
+            "bound_share": hot["bound_share"],
+            # the plus-mul calls, which have a library yardstick
+            "plus_mul": {r["call"]: {k: r[k] for k in (
+                "ms", "library_ms", "bound_ms", "bound_share")} for r in pm},
             "calls": recs, "card": card,
         })
     return out
@@ -1213,10 +1301,16 @@ def main() -> int:
     flash, decode = attn_counters()
     for k in (spmv_blocked_cuda, fused_step_cuda, flash, decode):
         k.launches = 0
-    keep = main_path(TR_SMALL, "cuda")
+    with call_shapes() as shape_launches:
+        keep = main_path(TR_SMALL, "cuda")
     launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
                 "fused_step_cuda": fused_step_cuda.launches}
     print(f"main path launches: {json.dumps(launches)}")
+    print("main path launches by call shape: " + json.dumps(
+        {f"{k} {c}": n for (k, c), n in sorted(shape_launches.items())}))
+    for k, v in launches.items():
+        need(sum(n for (kk, _), n in shape_launches.items() if kk == k)
+             == v, f"{k}: launches by call shape do not sum to {v}")
     print(f"main path cuts: {json.dumps(keep['cut'])} (dense phases run "
           f"all {TR_SMALL.num_instances} instances)")
     for k, v in launches.items():
@@ -1226,7 +1320,7 @@ def main() -> int:
 
     # 6. the graph kernels at the main path's shapes
     t0 = time.perf_counter()
-    report = kernel_report(keep, launches, card, rate)
+    report = kernel_report(keep, launches, shape_launches, card, rate)
     print(f"phase kernel_timing: {json.dumps({'seconds': time.perf_counter() - t0})}")
     del keep
     torch.cuda.empty_cache()

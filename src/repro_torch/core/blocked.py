@@ -44,6 +44,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.graph import GraphTemplate
+from repro_torch.kernels.walk_plan import (
+    WalkPlan, default_chunk, stack_plans, walk_plan)
 
 INF = float(np.inf)  # min-plus semiring zero (numpy-side copy)
 
@@ -395,6 +397,14 @@ class BlockedGraph:
             total_tiles=int(self.n_tiles.sum()),
             total_btiles=int(self.n_btiles.sum()),
         )
+
+    def packed_plans(self, cols: np.ndarray, nnz: np.ndarray) -> WalkPlan:
+        """Walk plans of a packed (I, P, K) column index with valid counts
+        (I, P), one per instance, stacked on a leading instance axis."""
+        nvb = self.vp // self.block_size
+        chunk = default_chunk(self.block_size)
+        return stack_plans(walk_plan(c, nvb, nnz=n, chunk=chunk)
+                           for c, n in zip(cols, nnz))
 
     # ------------------------------------------------------------- vertex io
     def scatter_vertex(self, values: np.ndarray, pad: float) -> np.ndarray:

@@ -55,10 +55,12 @@ from repro_torch.core.semiring import INF, MIN_PLUS, PLUS_MUL, Semiring
 from repro_torch.core.superstep import (
     DeviceGraph,
     bsp_fixpoint,
+    graph_plans,
     kernel_mode,
     pagerank_step,
     resolve_device,
 )
+from repro_torch.kernels.walk_plan import to_device
 
 PATTERNS = ("sequential", "independent", "eventually")
 
@@ -353,10 +355,13 @@ class TemporalEngine:
         )
         self._tail = (put(bg.out_slot), put(bg.out_local), put(out_mask),
                       put(bg.global_of >= 0))
+        # the kernels' walk plans of the template index, built once; the
+        # sparse layout walks the plans staged with each packed batch
+        self._plans = graph_plans(bg, self.device)
         # staged-batch device cache: host-array identity (weakly held) ->
         # device tensors, so repeated runs over one staged batch upload
         # once without extending the batch's lifetime
-        self._staged_device: "OrderedDict[Tuple[int, ...], Tuple[Tuple[weakref.ref, ...], Tuple[torch.Tensor, ...]]]" = OrderedDict()
+        self._staged_device: "OrderedDict[Tuple[int, ...], Tuple[Tuple[weakref.ref, ...], Tuple[Any, ...]]]" = OrderedDict()
 
     # ------------------------------------------------------------ staging
     def stage(
@@ -380,7 +385,8 @@ class TemporalEngine:
         return self.bg.stage_sparse(instance_weights, zero=zero_fill)
 
     # ------------------------------------------------------- instance step
-    def _device_graph(self, tiles_l, btiles_l, index) -> DeviceGraph:
+    def _device_graph(self, tiles_l, btiles_l, index,
+                      plans=None) -> DeviceGraph:
         rows, cols, brows, bcols = index
         out_slot, out_local, out_mask, vmask = self._tail
         return DeviceGraph(
@@ -389,6 +395,7 @@ class TemporalEngine:
             brows=brows, bcols=bcols, btiles=btiles_l,
             out_slot=out_slot, out_local=out_local,
             out_mask=out_mask, vmask=vmask,
+            **(self._plans if plans is None else plans),
         )
 
     def _run_instance(self, program: SemiringProgram, x, dg: DeviceGraph):
@@ -410,15 +417,16 @@ class TemporalEngine:
     def _scan_instances(self, program: SemiringProgram, pattern: str,
                         merge: Optional[str], x0: torch.Tensor,
                         tiles: torch.Tensor, btiles: torch.Tensor,
-                        idx=None, warm: bool = False):
+                        idx=None, plans=None, warm: bool = False):
         """Loop over the instance axis.  Returns (xs (I, P, Vp), final,
         merged, stats).
 
-        ``idx=None`` (dense): every instance walks the template tile index.
-        Sparse: ``idx`` is the per-instance (rows, cols, brows, bcols)
-        packed index, walked alongside the tile values.  ``warm=True``
-        seeds each instance's fixpoint from the previous instance's
-        converged state rather than ``x0``."""
+        ``idx=None`` (dense): every instance walks the template tile index
+        and its plans.  Sparse: ``idx`` is the per-instance (rows, cols,
+        brows, bcols) packed index, walked alongside the tile values, and
+        ``plans`` the per-instance walk plans (leading instance axis).
+        ``warm=True`` seeds each instance's fixpoint from the previous
+        instance's converged state rather than ``x0``."""
         n = int(tiles.shape[0])
         xs = torch.empty((n,) + tuple(x0.shape), dtype=x0.dtype,
                          device=x0.device)
@@ -426,7 +434,9 @@ class TemporalEngine:
         carry = x0
         for i in range(n):
             index = self._index if idx is None else tuple(a[i] for a in idx)
-            dg = self._device_graph(tiles[i], btiles[i], index)
+            plans_i = None if plans is None else {
+                k: v.select(i) for k, v in plans.items()}
+            dg = self._device_graph(tiles[i], btiles[i], index, plans_i)
             seed = carry if (pattern == "sequential" or warm) else x0
             x, ss, lsw, syncs = self._run_instance(program, seed, dg)
             counts[:, i] = (ss, lsw, syncs)
@@ -440,9 +450,11 @@ class TemporalEngine:
                  "host_syncs": counts[2]}
         return xs, carry, merged, stats
 
-    def _cached_device(self, host_arrays: Tuple[Any, ...]
-                       ) -> Tuple[torch.Tensor, ...]:
-        """Device tensors for one staged batch, uploaded once per identity.
+    def _cached_device(self, host_arrays: Tuple[Any, ...],
+                       extra: Optional[Callable[[], Any]] = None
+                       ) -> Tuple[Any, ...]:
+        """Device tensors for one staged batch, uploaded once per identity,
+        followed by ``extra()`` (made once, with the upload) when given.
 
         Keyed on the ``id`` of every host array (verified against weak
         references, so id reuse cannot alias) and LRU-bounded to
@@ -459,6 +471,8 @@ class TemporalEngine:
             self._staged_device.move_to_end(key)
             return hit[1]
         dev = tuple(_device_put(a, self.device) for a in host_arrays)
+        if extra is not None:
+            dev += (extra(),)
         self._staged_device[key] = (
             tuple(weakref.ref(a) for a in host_arrays), dev,
         )
@@ -563,11 +577,12 @@ class TemporalEngine:
                     "need instance_weights or a SparseBlocked batch"
                 sparse = self.stage_sparse(instance_weights, zero_fill)
             occ = sparse.occupancy()
-            tiles, btiles, *idx = self._cached_device(
+            tiles, btiles, *idx, plans = self._cached_device(
                 (sparse.tiles, sparse.btiles, sparse.rows, sparse.cols,
-                 sparse.brows, sparse.bcols))
+                 sparse.brows, sparse.bcols),
+                extra=lambda: self._sparse_plans(sparse))
         else:
-            idx = None
+            idx = plans = None
             if tiles is None or btiles is None:
                 assert instance_weights is not None, \
                     "need instance_weights, tiles+btiles, or sparse"
@@ -582,10 +597,19 @@ class TemporalEngine:
             self._wrap_result(
                 s.pattern, self._scan_instances(
                     s.program, s.pattern, s.merge, x0, tiles, btiles,
-                    idx=idx, warm=s.effective_warm()),
+                    idx=idx, plans=plans, warm=s.effective_warm()),
                 occ, warm=s.effective_warm())
             for s, x0 in zip(specs, x0s)
         ]
+
+    def _sparse_plans(self, sparse: SparseBlocked) -> Dict[str, Any]:
+        """The packed batch's walk plans (leading instance axis) on the
+        device, counters zeroed.  Built with the batch's upload, once per
+        staged batch, never per kernel call."""
+        return {"plan": to_device(self.bg.packed_plans(
+                    sparse.cols, sparse.nnz), self.device),
+                "bplan": to_device(self.bg.packed_plans(
+                    sparse.bcols, sparse.bnnz), self.device)}
 
     def _wrap_result(self, pattern: str, out, occ: Optional[float],
                      warm: bool = False) -> EngineResult:

@@ -29,6 +29,8 @@ from repro_torch.core.comm import CommBackend, DenseAllReduce
 from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL, Semiring
 from repro_torch.kernels.semiring_spmm.ops import spmv_blocked
 from repro_torch.kernels.semiring_superstep.ops import fused_step
+from repro_torch.kernels.walk_plan import (
+    WalkPlan, default_chunk, to_device, walk_plan)
 
 #: Engine kernel modes: ``"off"`` is the plain PyTorch oracle (CPU only),
 #: ``"spmv"`` the per-stage blocked SpMV kernel, ``"fused"`` the
@@ -93,6 +95,10 @@ class DeviceGraph:
     out_local: torch.Tensor  # (P, O) int32
     out_mask: torch.Tensor  # (P, O) bool
     vmask: torch.Tensor  # (P, Vp) bool valid-vertex mask
+    # the kernels' walk plans of (rows, cols) and (brows, bcols), built
+    # once per tile index (kernels/walk_plan.py)
+    plan: WalkPlan
+    bplan: WalkPlan
 
     @property
     def n_parts(self) -> int:
@@ -134,7 +140,18 @@ def device_graph(
         out_local=put(bg.out_local),
         out_mask=put(out_mask),
         vmask=put(bg.global_of >= 0),
+        **graph_plans(bg, dev),
     )
+
+
+def graph_plans(bg: BlockedGraph, device) -> Dict[str, WalkPlan]:
+    """``plan`` and ``bplan`` of ``bg``'s local and boundary tile index,
+    built on the host and put on ``device``."""
+    nvb, chunk = bg.vp // bg.block_size, default_chunk(bg.block_size)
+    return {"plan": to_device(walk_plan(bg.tiles_rc[:, :, 1], nvb,
+                                        chunk=chunk), device),
+            "bplan": to_device(walk_plan(bg.btiles_rc[:, :, 1], nvb,
+                                         chunk=chunk), device)}
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +171,7 @@ def _fused_sweep_vote(
     vote vs the pre-sweep state, in one launch."""
     xs = _blocks(x, dg)
     xo, changed = fused_step(dg.tiles, dg.rows, dg.cols, xs, xs, xs,
-                             _blocks(dg.vmask, dg), sr)
+                             _blocks(dg.vmask, dg), sr, plan=dg.plan)
     return xo.reshape(x.shape), changed
 
 
@@ -168,7 +185,7 @@ def _fused_consume_vote(
     xo, changed = fused_step(
         dg.btiles, dg.brows, dg.bcols,
         boundary.reshape(1, -1, dg.block_size), xs, _blocks(x_ref, dg),
-        _blocks(dg.vmask, dg), sr)
+        _blocks(dg.vmask, dg), sr, plan=dg.bplan)
     return xo.reshape(x.shape), changed
 
 
@@ -179,7 +196,7 @@ def _local_sweep(
     if mode == "fused":
         return _fused_sweep_vote(x, dg, sr)[0]
     y = spmv_blocked(dg.tiles, dg.rows, dg.cols, x, sr,
-                     use_kernel=mode == "spmv")
+                     use_kernel=mode == "spmv", plan=dg.plan)
     return sr.add(x, y)
 
 
@@ -193,10 +210,10 @@ def _spmv_only(
         # the vote, to the same values)
         xs = _blocks(x, dg)
         xo, _ = fused_step(dg.tiles, dg.rows, dg.cols, xs, None, None, None,
-                           sr, n_out_blocks=xs.shape[1])
+                           sr, n_out_blocks=xs.shape[1], plan=dg.plan)
         return xo.reshape(x.shape)
     return spmv_blocked(dg.tiles, dg.rows, dg.cols, x, sr,
-                        use_kernel=mode == "spmv")
+                        use_kernel=mode == "spmv", plan=dg.plan)
 
 
 def _local_converge(
@@ -249,11 +266,11 @@ def _consume(
             dg.btiles, dg.brows, dg.bcols,
             boundary.reshape(1, -1, dg.block_size),
             _blocks(x, dg) if combine else None, None, None, sr,
-            n_out_blocks=dg.vp // dg.block_size)
+            n_out_blocks=dg.vp // dg.block_size, plan=dg.bplan)
         return xo.reshape(x.shape)
     y = spmv_blocked(dg.btiles, dg.brows, dg.bcols, boundary.reshape(1, -1),
                      sr, n_out_blocks=dg.vp // dg.block_size,
-                     use_kernel=mode == "spmv")
+                     use_kernel=mode == "spmv", plan=dg.bplan)
     return sr.add(x, y) if combine else y
 
 

@@ -15,18 +15,25 @@ semiring zero and ``x_ref=None`` skips the vote: no zero state is built
 and no state is read for a vote nobody reads.
 
 What bounds it on this card: memory, as for the SpMV (0.5 operation per
-tile byte).  The least time is the tile bytes plus the four (P, Vp)
-states over HBM bandwidth: about 32 us for the TR_SMALL local sweep and
-106 us for its boundary consume on an H100 SXM at 3.35 TB/s.
+tile byte).  The least time is the valid tiles' bytes plus the states it
+reads and writes over HBM bandwidth: 0.0245 ms for the TR_SMALL local
+sweep (82 MB) and 0.0553 ms for its boundary consume (185 MB) on an H100
+SXM at 3.35 TB/s.  (Counting the padded ``t_max`` x P tiles instead of
+the valid ones, as an earlier note did, gives 32 and 106 us; the kernel
+reads only valid tiles.)
 
 What the design does about it: the TPU kernel walks (P, T) in order with
 a double-buffered tile DMA and the partition state resident in VMEM.
-Here one CTA owns one (partition, output block) for EVERY block of the
-partition — blocks without tiles copy ``x_comb`` and still vote — and
-streams its run's tiles as 16-byte loads in a fixed fold order.  The
-vote is a block-wide OR (``__syncthreads_or``) and one ``atomicOr`` per
-voting CTA into a ``changed`` buffer zeroed before the launch; the state
-itself takes no atomics.
+Here the SpMV's walk (``csrc/blocked_walk.cuh``) does the fold: one CTA
+per chunk of the walk plan (``kernels/walk_plan.py``), a TMA-fed ring of
+shared-memory stages, and the chunks of a run combined in chunk order by
+the CTA that finishes the run.  That CTA applies the combine and votes,
+for EVERY block of the partition — a block with an empty run has one
+empty chunk, copies ``x_comb`` and still votes.  The vote is a
+block-wide OR (``__syncthreads_or``) and one ``atomicOr`` per voting CTA
+into a ``changed`` buffer zeroed before the launch; the state itself
+takes no atomics.  Both kernels fold in the same order, so the fused
+and the SpMV mode agree bitwise, plus-mul included.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises.
@@ -40,11 +47,16 @@ import torch
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import _build
 from repro_torch.kernels.semiring_superstep.ref import fused_step_ref
+from repro_torch.kernels.walk_plan import WalkPlan, kernel_plan
 
 
-def _need(cond: bool, msg: str) -> None:
+def _need(cond: bool, msg) -> None:
+    """Raise unless ``cond``.  ``msg`` is a string, or a function that
+    makes one: these checks run on every launch, and a formatted message
+    is built only when one fails."""
     if not cond:
-        raise ValueError(f"fused_step_cuda: {msg}")
+        text = msg() if callable(msg) else msg
+        raise ValueError(f"fused_step_cuda: {text}")
 
 
 def fused_step_cuda(
@@ -58,33 +70,37 @@ def fused_step_cuda(
     sr: Semiring,
     *,
     n_out_blocks: Optional[int] = None,  # NVB, when x_comb is None
+    plan: Optional[WalkPlan] = None,  # device plan of cols
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns ``(x_out (P, NVB, B), changed (P, 1) int32)``.
 
     ``x_comb=None``: x_out = y (untouched blocks get ``sr.zero``).
     ``x_ref=None``: no vote; ``vmask`` is not read and ``changed`` is
-    ``None``."""
+    ``None``.  ``plan``: the walk plan of ``cols`` for NVB output blocks
+    (:func:`~repro_torch.kernels.walk_plan.to_device`); built on the
+    device when omitted.  The plain CPU path ignores it."""
     if tiles.device.type == "cpu":
         return fused_step_ref(tiles, rows, cols, x_in, x_comb, x_ref, vmask,
                               sr, n_out_blocks=n_out_blocks)
     _need(tiles.device.type == "cuda",
-          f"tensors on {tiles.device} (need cuda, or cpu for the plain "
-          f"version)")
+          lambda: f"tensors on {tiles.device} (need cuda, or cpu for the "
+          f"plain version)")
     _need(tiles.ndim == 4 and tiles.shape[2] == tiles.shape[3],
-          f"tiles must be (P, T, B, B), got {tuple(tiles.shape)}")
+          lambda: f"tiles must be (P, T, B, B), got {tuple(tiles.shape)}")
     P, T, B, _ = tiles.shape
     _need(rows.shape == (P, T) and cols.shape == (P, T),
-          f"rows/cols must be {(P, T)}")
+          lambda: f"rows/cols must be {(P, T)}")
     nvb = n_out_blocks if x_comb is None else x_comb.shape[1]
     _need(nvb is not None, "x_comb=None needs n_out_blocks")
     states = [x_in] + [t for t in (x_comb, x_ref) if t is not None]
     _need(all(t.shape == (P, nvb, B) for t in states[1:]),
-          f"x_comb and x_ref must be {(P, nvb, B)}")
+          lambda: f"x_comb and x_ref must be {(P, nvb, B)}")
     _need(x_ref is None or (vmask is not None
                             and vmask.shape == x_ref.shape),
           "the vote needs vmask of x_ref's shape")
     _need(x_in.ndim == 3 and x_in.shape[0] in (1, P) and x_in.shape[2] == B,
-          f"x_in must be (P or 1, NVBin, B), got {tuple(x_in.shape)}")
+          lambda: f"x_in must be (P or 1, NVBin, B), got "
+          f"{tuple(x_in.shape)}")
     _need(all(t.dtype == torch.float32 for t in [tiles] + states),
           "tiles and states must be float32")
     _need(rows.dtype == torch.int32 and cols.dtype == torch.int32,
@@ -96,7 +112,9 @@ def fused_step_cuda(
           "all tensors must be on one device")
     _need(all(t.is_contiguous() for t in ts),
           "all tensors must be contiguous")
-    _need(B % 4 == 0, f"block size {B} must be a multiple of 4")
+    _need(B % 4 == 0 and B <= 1024,
+          lambda: f"block size {B} must be a multiple of 4, at most "
+          f"1024")
     _need(all(t.data_ptr() % 16 == 0 for t in [tiles] + states[1:])
           and (vm is None or vm.data_ptr() % 4 == 0),
           "tiles and states must be 16-byte aligned, vmask 4-byte")
@@ -109,11 +127,14 @@ def fused_step_cuda(
         return None if t is None else t.data_ptr()
 
     if x_out.numel():
+        plan, partials = kernel_plan(plan, cols, nvb, None, B, _need)
         lib = _build.library()
         code = lib.fused_step_f32(
-            tiles.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-            x_in.data_ptr(), ptr(x_comb), ptr(x_ref), ptr(vm),
-            x_out.data_ptr(), ptr(changed), P, T, B,
+            tiles.data_ptr(), rows.data_ptr(), x_in.data_ptr(), ptr(x_comb),
+            ptr(x_ref), ptr(vm), x_out.data_ptr(), ptr(changed),
+            plan.chunks.data_ptr(), plan.first.data_ptr(),
+            plan.count.data_ptr(), plan.counters.data_ptr(),
+            partials.data_ptr(), T, B, plan.chunks.shape[0], plan.chunk,
             0 if x_in.shape[0] == 1 else x_in.shape[1] * B, nvb,
             _build.SEMIRING_CODES[sr.name],
             torch.cuda.current_stream(tiles.device).cuda_stream)

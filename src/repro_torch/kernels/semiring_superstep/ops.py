@@ -6,7 +6,8 @@ kernel for CUDA tensors, plain version for CPU tensors);
 ``use_kernel=False`` runs the plain version directly.  ``vmask`` may be
 bool or a 0/1 float mask, as in the reference; the kernel takes bool.
 ``x_comb=None`` (with ``n_out_blocks``) and ``x_ref=None`` drop the
-combine and the vote, as the kernel wrapper describes.
+combine and the vote, as the kernel wrapper describes; ``plan`` is the
+kernel's walk plan (``kernels/walk_plan.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
 from repro_torch.kernels.semiring_superstep.ref import fused_step_ref
+from repro_torch.kernels.walk_plan import WalkPlan
 
 
 def fused_step(
@@ -31,10 +33,13 @@ def fused_step(
     *,
     n_out_blocks: Optional[int] = None,
     use_kernel: bool = True,
+    plan: Optional[WalkPlan] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One fused sweep/consume stage.  Returns ``(x_out, changed)``."""
     if vmask is not None and vmask.dtype != torch.bool:
         vmask = vmask != 0
-    fn = fused_step_cuda if use_kernel else fused_step_ref
-    return fn(tiles, rows, cols, x_in, x_comb, x_ref, vmask, sr,
-              n_out_blocks=n_out_blocks)
+    if use_kernel:
+        return fused_step_cuda(tiles, rows, cols, x_in, x_comb, x_ref, vmask,
+                               sr, n_out_blocks=n_out_blocks, plan=plan)
+    return fused_step_ref(tiles, rows, cols, x_in, x_comb, x_ref, vmask, sr,
+                          n_out_blocks=n_out_blocks)

@@ -169,6 +169,135 @@ def test_default_mode_on_card_is_spmv_and_off_raises(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the graph kernels' walk: skewed runs, determinism, CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _skewed(sr, rng, B=64, nvb=6, nbb=5):
+    """Partition 0: every tile in one output block (225 tiles, 29 chunks
+    at B = 64); partition 1: runs of 1, 7, 8, 9 and 200 tiles; partition
+    2: all padding; partition 3: one run of 30 tiles.  States for the
+    sweep (x per partition) and the consume (x shared)."""
+    P, T_ = 4, 225
+    cols = np.full((P, T_), -1, np.int32)
+    cols[0] = 4
+    cols[1] = np.repeat([0, 1, 2, 3, 5], [1, 7, 8, 9, 200])
+    cols[3, :30] = 2
+    tiles = np.full((P, T_, B, B), sr.zero, np.float32)
+    live = (rng.random((P, T_, B, B)) < 0.3) & (cols >= 0)[..., None, None]
+    tiles[live] = rng.random(int(live.sum()))
+    x = rng.random((P, nvb, B)).astype(np.float32)
+    xb = rng.random((1, nbb, B)).astype(np.float32)
+    rows = np.where(cols >= 0, rng.integers(0, nvb, (P, T_)), -1)
+    brows = np.where(cols >= 0, rng.integers(0, nbb, (P, T_)), -1)
+    vm = rng.random((P, nvb, B)) < 0.9
+    return [np.ascontiguousarray(a) for a in (
+        tiles, rows.astype(np.int32), brows.astype(np.int32), cols, x, xb,
+        vm)]
+
+
+@pytest.mark.parametrize("sr", [MIN_PLUS, PLUS_MUL], ids=lambda s: s.name)
+def test_kernels_on_skewed_runs(cuda, sr):
+    """Both kernels against their plain versions on skewed runs, with the
+    x of each partition and a shared x; a plan built on the host gives
+    the same output as the one each wrapper builds on the device."""
+    from repro_torch.kernels.walk_plan import (
+        default_chunk, to_device, walk_plan)
+
+    tiles, rows, brows, cols, x, xb, vm = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(
+            sr, np.random.default_rng(3))]
+    P, _, B, _ = tiles.shape
+    nvb = x.shape[1]
+    plan = to_device(walk_plan(cols.cpu().numpy(), nvb,
+                               chunk=default_chunk(B)), cuda)
+    assert int(plan.count.max()) > 1  # runs of several chunks
+    for r, xin, xref in ((rows, x, x), (brows, xb, x.flip(2).contiguous())):
+        flat = xin.reshape(xin.shape[0], -1)
+        k = spmv_blocked_cuda(tiles, r, cols, flat, sr, n_out_blocks=nvb)
+        _agree(k, spmv_blocked_ref(tiles, r, cols, flat, sr,
+                                   n_out_blocks=nvb), sr)
+        assert torch.equal(k, spmv_blocked_cuda(
+            tiles, r, cols, flat, sr, n_out_blocks=nvb, plan=plan))
+        ko, kc = fused_step_cuda(tiles, r, cols, xin, x, xref, vm, sr,
+                                 plan=plan)
+        po, pc = fused_step_ref(tiles, r, cols, xin, x, xref, vm, sr)
+        _agree(ko, po, sr)
+        assert torch.equal(kc, pc)
+        ko, _ = fused_step_cuda(tiles, r, cols, xin, None, None, None, sr,
+                                n_out_blocks=nvb)
+        assert torch.equal(ko.reshape(k.shape), k)  # one walk, one order
+
+
+def test_plus_mul_launches_repeat_bitwise(cuda):
+    tiles, rows, brows, cols, x, xb, vm = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(
+            PLUS_MUL, np.random.default_rng(4))]
+    flat = xb.reshape(1, -1)
+    a = spmv_blocked_cuda(tiles, brows, cols, flat, PLUS_MUL,
+                          n_out_blocks=x.shape[1])
+    b = spmv_blocked_cuda(tiles, brows, cols, flat, PLUS_MUL,
+                          n_out_blocks=x.shape[1])
+    assert torch.equal(a, b)
+    fa, _ = fused_step_cuda(tiles, rows, cols, x, x, None, None, PLUS_MUL)
+    fb, _ = fused_step_cuda(tiles, rows, cols, x, x, None, None, PLUS_MUL)
+    assert torch.equal(fa, fb)
+
+
+@pytest.mark.parametrize("kernel", ["spmv", "fused"])
+def test_cuda_graph_replays_match_eager(cuda, kernel):
+    """20 launches captured in one CUDA graph and replayed: each gives the
+    eager output (the run counters of the multi-chunk combine reset
+    themselves), and the fused vote is right every time."""
+    from repro_torch.kernels.walk_plan import (
+        default_chunk, to_device, walk_plan)
+
+    tiles, rows, brows, cols, x, xb, vm = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(
+            PLUS_MUL, np.random.default_rng(5))]
+    nvb, B = x.shape[1], x.shape[2]
+    plan = to_device(walk_plan(cols.cpu().numpy(), nvb,
+                               chunk=default_chunk(B)), cuda)
+    xref = x + 1
+
+    def call():
+        if kernel == "spmv":
+            return spmv_blocked_cuda(tiles, brows, cols, xb.reshape(1, -1),
+                                     PLUS_MUL, n_out_blocks=nvb, plan=plan),
+        return fused_step_cuda(tiles, brows, cols, xb, x, xref, vm,
+                               PLUS_MUL, plan=plan)
+
+    eager = call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(g):
+        for _ in range(20):
+            outs.append(call())
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            for got, want in zip(out, eager):
+                assert torch.equal(got, want)
+    assert int(plan.counters.abs().sum()) == 0
+
+
+def test_spmv_and_fused_pagerank_bitwise(cuda):
+    """Both kernel modes run one walk in one order: PageRank's ranks are
+    bitwise equal between them."""
+    col = generate_collection(TR_TINY)
+    t = col.template
+    bg = build_blocked(t, partition_graph(t, TR_TINY.num_partitions),
+                       TR_TINY.block_size)
+    act = np.stack([col.edge_values(i, "active") for i in range(len(col))])
+    prw = edge_weights_for_instances(t.src, act, t.num_vertices)
+    pr = T.pagerank_program(t.num_vertices, iters=8)
+    got = [T.TemporalEngine(bg, use_pallas=m).run(
+        pr, prw, pattern="independent").values for m in ("spmv", "fused")]
+    assert np.array_equal(got[0], got[1])
+
+
+# ---------------------------------------------------------------------------
 # LM serving: the attention kernels and the model on the card
 # ---------------------------------------------------------------------------
 
