@@ -35,8 +35,9 @@ Phases (any failure exits non-zero before the result lines):
 7. the LM serving path: starcoder2-7b at full width and depth, random
    weights, ``BatchedServer`` answering 4 prompts of 8,192 tokens with 32
    new tokens each (finite logits, no padded-vocab token, a second run
-   giving the same tokens), then a ``torch.profiler`` breakdown of one
-   prefill and four decode steps;
+   giving the same tokens, every prefill flash launch on the bf16 wgmma
+   route), then a ``torch.profiler`` breakdown of one prefill and four
+   decode steps;
 8. teacher forcing at S = 8,192: prefill S + 1 against prefill S then
    decode 1, logits within 5e-2;
 9. each attention kernel at the serving run's layer-0 shapes and at the
@@ -44,8 +45,10 @@ Phases (any failure exits non-zero before the result lines):
    version, with controls (the plain version with the window edge or the
    causal edge one key off, or a 32-key block dropped) that must fail the
    same limit; device, eager, plain, bound and SDPA (memory-efficient
-   backend, a yardstick only) times, and the decode kernel's split-count
-   sweep; then the ``kernels`` JSON line for all four kernels;
+   backend, and for flash also the cuDNN backend where it takes these
+   inputs; yardsticks only) times, and the decode kernel's split-count
+   sweep; then the ``kernels`` JSON line for all four kernels (flash's
+   with its launches by route);
 10. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
@@ -727,6 +730,8 @@ DECODE_CASES = [
 SERVE_ARCH, SERVE_REQUESTS, SERVE_BATCH = "starcoder2-7b", 4, 4
 SERVE_PROMPT, SERVE_NEW = 8192, 32
 PARITY_S = 8192  # teacher-forcing prompt, batch 1
+# the flash route of the serving prefill (bf16, d = 128)
+SERVE_FLASH_ROUTE = "bf16_wgmma"
 PARITY_TOL, PARITY_MARGIN = 5e-2, 2e-2  # tests/test_arch_smoke.py:103-109
 
 
@@ -902,13 +907,17 @@ def serve_path(device="cuda", log=print):
                           for i, p in enumerate(prompts)])
         return srv, [r.out for r in done]
 
+    from repro_torch.kernels.flash_attention.kernel import reset_launches
+
     flash, decode = attn_counters()
     torch.cuda.reset_peak_memory_stats()
-    flash.launches = decode.launches = 0
+    reset_launches()
+    decode.launches = 0
     with capture_layer0() as shapes:
         srv, outs = run()
     launches = {"flash_attention_cuda": flash.launches,
                 "decode_attention_cuda": decode.launches}
+    flash_routes = dict(flash.launches_by_route)
     st = srv.stats
     peak = torch.cuda.max_memory_allocated() / 1e9
     rec = {"prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
@@ -917,7 +926,8 @@ def serve_path(device="cuda", log=print):
            "decode_tokens_per_s": SERVE_REQUESTS * (SERVE_NEW - 1)
            / st["decode_s"],
            "prompt_tokens_per_s": SERVE_REQUESTS * SERVE_PROMPT
-           / st["prefill_s"], "peak_GB": peak, "launches": launches}
+           / st["prefill_s"], "peak_GB": peak, "launches": launches,
+           "flash_launches_by_route": flash_routes}
     log(f"phase serve: {json.dumps(rec)}")
     need(len(outs) == SERVE_REQUESTS, "serve: requests lost")
     need(all(len(o) == SERVE_NEW for o in outs), "serve: token counts")
@@ -926,12 +936,17 @@ def serve_path(device="cuda", log=print):
     need(st["finite"], "serve: non-finite logits")
     for k, v in launches.items():
         need(v > 0, f"{k} was not launched on the serving path")
+    need(flash_routes[SERVE_FLASH_ROUTE] == launches["flash_attention_cuda"]
+         == cfg.num_layers, f"serve: the prefill's flash launches took the "
+                            f"routes {flash_routes}, not all "
+                            f"{cfg.num_layers} {SERVE_FLASH_ROUTE}")
     srv2, outs2 = run()
     need(outs2 == outs, "serve: a second run gave other tokens")
     log(f"phase serve_repeat: {json.dumps({'prefill_s': srv2.stats['prefill_s'], 'decode_s': srv2.stats['decode_s'], 'identical_tokens': True})}")
     log(f"  first tokens: {[o[:8] for o in outs]}")
     return {"cfg": cfg, "model": model, "prompts": prompts, "outs": outs,
-            "launches": launches, "serve": rec, "shapes": shapes}
+            "launches": launches, "flash_routes": flash_routes, "serve": rec,
+            "shapes": shapes}
 
 
 def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
@@ -1065,7 +1080,7 @@ def visible_pairs(Sq, Skv, q_offset, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def attention_report(shapes, launches, card, rate, device="cuda",
+def attention_report(shapes, launches, routes, card, rate, device="cuda",
                      log=print):
     """Each attention kernel timed at the serving run's shapes (layer 0,
     as ``capture_layer0`` recorded them)
@@ -1086,24 +1101,37 @@ def attention_report(shapes, launches, card, rate, device="cuda",
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def library(fn, plain_out, what):
+    def library(fn, plain_out, what, strict=True):
         """Time the yardstick, or say why it could not run (it is never on
-        the port's path)."""
+        the port's path).  A yardstick that disagrees with the plain
+        version fails the smoke, or with ``strict=False`` (the second
+        yardstick) is reported and not timed."""
         try:
             out = fn()
         except RuntimeError as e:  # a backend that refuses these inputs
             log(f"  {what}: library call unavailable: {str(e)[:300]}")
             return None, str(e)[:200]
-        attn_compare(out, plain_out, ATTN_TOL["bfloat16"],
-                     what + " library call")
+        try:
+            attn_compare(out, plain_out, ATTN_TOL["bfloat16"],
+                         what + " library call")
+        except SmokeFailure as e:
+            if strict:
+                raise
+            log(f"  {what}: library call disagrees, not timed: {e}")
+            return None, f"disagrees with plain: {e}"[:200]
+        del out
         return cuda_ms(fn), None
 
-    def finish(kernel, name, kfn, pfn, lfn, moved, ops, controls):
+    def finish(kernel, name, kfn, pfn, lfn, moved, ops, controls,
+               cudnn_fn=None):
         kout, pout = kfn(), pfn()
         err, used, mean_p, max_p = attn_compare(kout, pout,
                                                 ATTN_TOL["bfloat16"], name)
         ctl = attn_controls(pout, controls, ATTN_TOL["bfloat16"], name)
         lib_ms, lib_note = library(lfn, pout, name)
+        if cudnn_fn is not None:
+            cudnn_ms, cudnn_note = library(cudnn_fn, pout, name + " (cuDNN)",
+                                           strict=False)
         t_bytes, t_ops = moved / rate, ops / BF16_RATE
         rec = {"call": name, "ms": cuda_ms(kfn),
                "eager_ms": cuda_ms(kfn, graph=False),
@@ -1115,6 +1143,10 @@ def attention_report(shapes, launches, card, rate, device="cuda",
                "max_abs_plain": max_p, "controls_limit_used": ctl}
         if lib_note:
             rec["library_note"] = lib_note
+        if cudnn_fn is not None:
+            rec["cudnn_ms"] = cudnn_ms
+            if cudnn_note:
+                rec["cudnn_note"] = cudnn_note
         calls[kernel].append(rec)
         log(f"  {kernel} {name}: " + json.dumps(rec))
         del kout, pout
@@ -1133,10 +1165,16 @@ def attention_report(shapes, launches, card, rate, device="cuda",
         if window:
             mask &= kpos > qpos - window
 
-        def lfn():
-            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        def sdpa(backend):
+            with sdpa_kernel([backend]):
                 return F.scaled_dot_product_attention(
                     q.transpose(1, 2), kx, vx, attn_mask=mask).transpose(1, 2)
+
+        def lfn():
+            return sdpa(SDPBackend.EFFICIENT_ATTENTION)
+
+        def cudnn_fn():
+            return sdpa(SDPBackend.CUDNN_ATTENTION)
 
         pairs = B * visible_pairs(Sq, Skv, q_offset, window)
         need(window > 32, f"{name}: the controls need a window, got {window}")
@@ -1151,7 +1189,7 @@ def attention_report(shapes, launches, card, rate, device="cuda",
         finish("flash_attention_cuda", name,
                lambda: flash_k(q, k, v, **kw), lambda: mha_ref(q, k, v, **kw),
                lfn, nbytes(q, q) + 2 * B * Skv * K * d * k.element_size(),
-               4 * d * H * pairs, controls)
+               4 * d * H * pairs, controls, cudnn_fn)
 
     def decode_call(name, q, k, v, lengths, window):
         B, H, d = q.shape
@@ -1241,6 +1279,9 @@ def attention_report(shapes, launches, card, rate, device="cuda",
             "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
             "hot_call": hot["call"], "calls": recs, "card": card,
         })
+        if kernel == "flash_attention_cuda":
+            out[-1]["launches_by_route"] = routes
+            out[-1]["serve_route"] = SERVE_FLASH_ROUTE
     return out
 
 
@@ -1280,7 +1321,8 @@ def main() -> int:
     _build.library(verbose=True)
     print(f"phase build: {json.dumps({'seconds': _build.build_seconds})}")
     for line in _build.build_log.splitlines():
-        if "Used" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                   "warning")):
             print("  ptxas:", line.strip())
 
     # 3. kernels against plain versions
@@ -1299,8 +1341,11 @@ def main() -> int:
     from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
 
     flash, decode = attn_counters()
-    for k in (spmv_blocked_cuda, fused_step_cuda, flash, decode):
+    from repro_torch.kernels.flash_attention.kernel import reset_launches
+
+    for k in (spmv_blocked_cuda, fused_step_cuda, decode):
         k.launches = 0
+    reset_launches()
     with call_shapes() as shape_launches:
         keep = main_path(TR_SMALL, "cuda")
     launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
@@ -1333,9 +1378,10 @@ def main() -> int:
     teacher_forcing(lm, "cuda")
     # 9. the attention kernels at the serving run's and the 32k shapes
     shapes = lm.pop("shapes")
+    flash_routes = lm.pop("flash_routes")
     lm.clear()
     torch.cuda.empty_cache()
-    report += attention_report(shapes, launches, card, rate)
+    report += attention_report(shapes, launches, flash_routes, card, rate)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": report}))
     print(card)

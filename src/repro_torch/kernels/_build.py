@@ -132,7 +132,7 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     f32 = ctypes.c_float
     lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, *[i32] * 6,
                                         *[i64] * 8, i32, i32, i32, f32, i32,
-                                        vp]
+                                        ctypes.POINTER(i32), vp]
     lib.flash_attention_fwd.restype = i32
     lib.decode_attention_fwd.argtypes = [vp] * 7 + [i32] * 5 + [i64] * 6 + [
         i32, i32, f32, i32, vp]

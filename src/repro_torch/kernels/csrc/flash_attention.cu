@@ -7,25 +7,540 @@
 // q (B, Sq, H, d), k/v (B, Skv, K, d) with G = H / K; k/v are read in place
 // through their batch and row strides (the KV cache's slots [0, Skv)), and
 // query head h reads KV head h / G: no repeated or transposed copy.
+// Online softmax with float32 (acc, m, l); p is rounded to bf16 before p.v
+// and l sums the unrounded p; the output is acc / max(l, 1e-30), in q's
+// type.  Replaces the TPU kernel flash_attention_pallas
+// (src/repro/kernels/flash_attention/kernel.py:86).
 //
-// Grid (query block, head, batch).  Key blocks wholly outside the mask of
-// the query block are never visited.  Online softmax with float32 (acc, m,
-// l); the output is acc / max(l, 1e-30), in q's type.
+// Three routes, picked by (dtype, d) alone (flash_route below):
 //
-// bfloat16: 64 query rows per CTA, 16 per warp; both products on tensor
-// cores (mma.sync m16n8k16, float32 accumulators), p rounded to bf16
-// before p.v as the reference does; K/V blocks of 64 keys double-buffered
-// in shared memory by cp.async.
-// float32: 32 query rows per CTA, four threads per row, CUDA-core FMAs in
-// full float32 (no TF32).
+// * bfloat16, d in {64, 128}: flash_fwd_bf16_wgmma, the serving path's
+//   kernel.  What bounds it: operations.  A visible (query, key) pair costs
+//   4 d FLOP on K/V bytes that every query block of a window re-reads, so
+//   at the serving shape the work is ~1.86 TFLOP a layer against ~0.3 GB
+//   of inputs: the tensor cores, not HBM, set the floor.  Only wgmma runs
+//   them at full rate, and only if the operands arrive without spending
+//   the consumers' issue slots on loads.  So:
+//   - a CTA owns 128 query rows of one head: two consumer warpgroups of 64
+//     rows, plus one producer warpgroup (384 threads, one CTA per SM);
+//   - the producer's one thread loads Q once and then K/V blocks of 128
+//     keys with TMA (4-D tensor maps over the tensors as they lie,
+//     128-byte swizzle, rows past Sq/Skv zero-filled) into a ring of
+//     three stages guarded by full/empty mbarriers; it drops to 24
+//     registers (setmaxnreg) and the consumers rise to 240;
+//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K is K-major as the cache holds it); O += P V is wgmma m64n{d}k16
+//     with P from registers (the S accumulator repacked as bf16 pairs) and
+//     V from shared memory through the transposed-B bit: no copy of V;
+//   - the key-block range of a query block and its mask-free sub-range
+//     come from (q block, q_offset, window, Skv) (block_schedule in
+//     kernels/flash_attention/schedule.py computes the same): only the
+//     edge blocks, at most two of about 33 at the serving shape, evaluate
+//     the per-element mask; exp2 with scale * log2(e) folded into one FMA;
+//   - launch order: the G query heads of one KV head next to each other,
+//     then neighbouring query blocks, longest (last) query block first, so
+//     that CTAs resident together share their K/V blocks in L2.
+//   - inside a warpgroup, Q K^T of block j and P V of block j - 1 are
+//     issued together, and the softmax of block j runs while P V is in
+//     flight; so the consumers hold two stages at once, and the third
+//     stage lets the producer load block j + 1 meanwhile.
+//   The two consumer warpgroups are not ordered against each other: the
+//   warp schedulers interleave one's softmax with the other's products.
+// * bfloat16, d in {16, 32}: flash_fwd_bf16_small, 64 query rows per CTA,
+//   16 per warp, mma.sync m16n8k16, K/V blocks of 64 keys double-buffered
+//   by cp.async.  wgmma's 128-byte swizzle wants rows of at least 64 bf16.
+// * float32: flash_fwd_f32, 32 query rows per CTA, four threads per row,
+//   CUDA-core FMAs in full float32 (no TF32).
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
+
 #include "attn_common.cuh"
 
 namespace attn_kernels {
 
-constexpr int FA_THREADS = 128;  // 4 warps
+constexpr int FA_THREADS = 128;  // 4 warps (small bf16 and float32 routes)
 
 // ---------------------------------------------------------------------------
-// bfloat16, tensor cores
+// bfloat16, d in {64, 128}: wgmma, TMA ring, warp-specialised producer
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int BM = 128;  // query rows per CTA: two consumer warpgroups of 64
+constexpr int BN = 128;  // keys per block
+constexpr int kStages = 3;
+constexpr int kThreads = 384;  // 2 consumer warpgroups + 1 producer
+constexpr int kHalfQ = BM * 128;   // bytes of a 64-column half of the Q tile
+constexpr int kHalfKV = BN * 128;  // the same of a K or V tile
+
+template <int D>
+struct Layout {  // byte offsets from a 1024-byte aligned base
+  static constexpr int kTileQ = BM * D * 2;
+  static constexpr int kTileKV = BN * D * 2;
+  static constexpr int kK = kTileQ;
+  static constexpr int kV = kK + kStages * kTileKV;
+  static constexpr int kBars = kV + kStages * kTileKV;
+  // bar_q, full_k[kStages], full_v[kStages], empty[kStages]
+  static constexpr int kBytes = kBars + (1 + 3 * kStages) * 8;
+  static constexpr size_t kSmem = kBytes + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted on ``bar``
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all >> 4), layout type 1 in bits 62-63.
+// K-major tiles (Q, K: rows of 64 bf16 = 128 bytes): the stride between
+// 8-row groups is 1024 bytes; the leading offset is unused.  MN-major
+// (V read as B = V[key][dim] with dims contiguous): the leading offset
+// steps to the next 64 dims (the next half tile), the stride to the next
+// 8 keys.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of accumulator and
+// operand registers across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define FA_D8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FA_D32 FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+#define FA_D64 FA_D32, FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
+#define FA_ACC32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define FA_ACC64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+  "%57, %58, %59, %60, %61, %62, %63}"
+
+// S (64 x 128, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem,
+// K-major); ``accumulate`` 0 overwrites S
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_ACC64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FA_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// O (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_ACC64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// O (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef FA_D8
+#undef FA_D32
+#undef FA_D64
+#undef FA_ACC32
+#undef FA_ACC64
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one thread's share of a 64 x 128 logit block: rows
+// qp0 - q_offset and that + 8 (the accumulator layout of wgmma m64n128:
+// s[4c + e] is row + 8 * (e >> 1), key 8c + 2t + (e & 1)), float32 (m, l).
+struct Softmax {
+  float m0, m1, l0, l1, corr0, corr1, sl2;
+  int qp0, t2, Skv, causal, window;
+
+  __device__ __forceinline__ void init(int qpos, int t, int skv, int cz,
+                                       int win, float scale_log2) {
+    m0 = m1 = NEG_INF;
+    l0 = l1 = 0.f;  // this thread's share; summed over the quad at the end
+    qp0 = qpos;
+    t2 = 2 * t;
+    Skv = skv;
+    causal = cz;
+    window = win;
+    sl2 = scale_log2;
+  }
+  // mask (edge blocks only), new maxima, correction factors, and p in
+  // place of the logits; l takes the unrounded p
+  __device__ __forceinline__ void step(float (&s)[64], int n0, bool edge) {
+    if (edge) {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = n0 + t2 + c * 8 + (e & 1);
+          const int qp = qp0 + 4 * (e & 2);
+          bool ok = kpos < Skv;
+          if (causal) {
+            ok = ok && kpos <= qp;
+            if (window > 0) ok = ok && kpos > qp - window;
+          }
+          if (!ok) s[c * 4 + e] = NEG_INF;
+        }
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      mx0 = fmaxf(mx0, fmaxf(s[c * 4], s[c * 4 + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[c * 4 + 2], s[c * 4 + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // logits and maxima stay unscaled: p = 2^(s sl2 - m sl2), one FMA.  A
+    // row that has seen only masked keys (max -1e30) gets p = 1 on them,
+    // as exp(-1e30 - -1e30) in the reference, and the next block with a
+    // visible key wipes it (corr = 0).
+    corr0 = ex2((m0 - mx0) * sl2);
+    corr1 = ex2((m1 - mx1) * sl2);
+    m0 = mx0;
+    m1 = mx1;
+    const float a0 = mx0 <= NEG_INF ? 0.f : sl2;
+    const float a1 = mx1 <= NEG_INF ? 0.f : sl2;
+    const float b0 = mx0 <= NEG_INF ? 0.f : -mx0 * sl2;
+    const float b1 = mx1 <= NEG_INF ? 0.f : -mx1 * sl2;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      s[c * 4] = ex2(fmaf(s[c * 4], a0, b0));
+      s[c * 4 + 1] = ex2(fmaf(s[c * 4 + 1], a0, b0));
+      s[c * 4 + 2] = ex2(fmaf(s[c * 4 + 2], a1, b1));
+      s[c * 4 + 3] = ex2(fmaf(s[c * 4 + 3], a1, b1));
+      ls0 += s[c * 4] + s[c * 4 + 1];
+      ls1 += s[c * 4 + 2] + s[c * 4 + 3];
+    }
+    l0 = l0 * corr0 + ls0;
+    l1 = l1 * corr1 + ls1;
+  }
+  // O *= corr, row by row (the accumulator layout of wgmma m64n{D})
+  template <int D>
+  __device__ __forceinline__ void rescale(float (&acc)[D / 2]) const {
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      acc[c * 4] *= corr0;
+      acc[c * 4 + 1] *= corr0;
+      acc[c * 4 + 2] *= corr1;
+      acc[c * 4 + 3] *= corr1;
+    }
+  }
+  // p rounded to bf16 pairs as the A operand of P V: k-step kk takes keys
+  // 16kk..16kk+15, i.e. the S accumulator's column chunks 2kk and 2kk + 1
+  __device__ __forceinline__ static void pack(const float (&s)[64],
+                                              uint32_t (&pa)[8][4]) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      pa[c >> 1][(c & 1) * 2] = pack_bf16x2(s[c * 4], s[c * 4 + 1]);
+      pa[c >> 1][(c & 1) * 2 + 1] = pack_bf16x2(s[c * 4 + 2], s[c * 4 + 3]);
+    }
+  }
+};
+
+}  // namespace wg
+
+// Grid: one CTA per (batch, KV head, query block, head of the group), in
+// that order from the slowest to the fastest index, query blocks from the
+// last one down.
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, 1) flash_fwd_bf16_wgmma(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, uint16_t* __restrict__ o,
+    int Sq, int Skv, int Kh, int G, int nqb, long long o_bs, long long o_rs,
+    int causal, int window, int q_offset, float sl2) {
+  using namespace wg;
+  using L = Layout<D>;
+  constexpr int HALVES = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBars;
+  auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
+  auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
+
+  int rest = blockIdx.x;
+  const int g = rest % G;
+  rest /= G;
+  const int qb = nqb - 1 - rest % nqb;
+  rest /= nqb;
+  const int kvh = rest % Kh, b = rest / Kh;
+  const int h = kvh * G + g;
+  const int m0 = qb * BM, m1 = min(m0 + BM, Sq);
+
+  // Key blocks [jb_lo, jb_hi) that hold a visible key for some row of the
+  // query block, and the sub-range [jf_lo, jf_hi) where every (row, key)
+  // pair is visible, so no mask is evaluated (schedule.py:block_schedule).
+  int kv_lo = 0, kv_hi = Skv;
+  if (causal) {
+    kv_hi = min(Skv, m1 + q_offset);
+    if (window > 0) kv_lo = max(0, m0 + q_offset - window + 1);
+  }
+  const int jb_lo = kv_lo / BN;
+  const int jb_hi = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN : jb_lo;
+  int jf_lo = (causal && window > 0)
+                  ? (max(0, m1 + q_offset - window) + BN - 1) / BN
+                  : 0;
+  int jf_hi = (causal ? min(Skv, m0 + q_offset + 1) : Skv) / BN;
+  jf_lo = min(max(jf_lo, jb_lo), jb_hi);
+  jf_hi = max(min(jf_hi, jb_hi), jf_lo);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_k))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_v))
+                   : "memory");
+      mbar_expect_tx(bar_q, L::kTileQ);
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh)
+        tma_load_4d(sQ + hh * kHalfQ, &tm_q, bar_q, hh * 64, h, m0, b);
+      for (int j = jb_lo, i = 0; j < jb_hi; ++j, ++i) {
+        const int s = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        mbar_wait(empty(s), ph ^ 1);  // the first round passes at once
+        mbar_expect_tx(full_k(s), L::kTileKV);
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh)
+          tma_load_4d(sK + s * L::kTileKV + hh * kHalfKV, &tm_k, full_k(s),
+                      hh * 64, kvh, j * BN, b);
+        mbar_expect_tx(full_v(s), L::kTileKV);
+#pragma unroll
+        for (int hh = 0; hh < HALVES; ++hh)
+          tma_load_4d(sV + s * L::kTileKV + hh * kHalfKV, &tm_v, full_v(s),
+                      hh * 64, kvh, j * BN, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wgi = threadIdx.x >> 7;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const int r0 = m0 + wgi * 64 + warp * 16 + gq;  // rows r0 and r0 + 8
+    const uint32_t sQw = sQ + wgi * 64 * 128;  // this warpgroup's rows
+    Softmax sm;
+    sm.init(r0 + q_offset, t, Skv, causal, window, sl2);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    uint32_t pa[8][4];
+
+    // S = Q K^T of the block in stage s
+    auto issue_qk = [&](int s) {
+      const uint32_t sKs = sK + s * L::kTileKV;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n128(sc,
+                      desc_sw128(sQw + (kk >> 2) * kHalfQ + (kk & 3) * 32, 16,
+                                 1024),
+                      desc_sw128(sKs + (kk >> 2) * kHalfKV + (kk & 3) * 32,
+                                 16, 1024),
+                      kk > 0 ? 1 : 0);
+      wgmma_commit();
+    };
+    // O += P V of the block in stage s
+    auto issue_pv = [&](int s) {
+      const uint32_t sVs = sV + s * L::kTileKV;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t dv = desc_sw128(sVs + kk * 16 * 128, kHalfKV, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc, pa[kk], dv);
+        else
+          wgmma_rs_n64(acc, pa[kk], dv);
+      }
+      wgmma_commit();
+    };
+    auto fence_all = [&]() {
+      fence_regs(acc);
+      fence_regs(sc);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    };
+
+    mbar_wait(bar_q, 0);
+    const int n = jb_hi - jb_lo;
+    if (n > 0) {
+      // block 0: Q K^T alone
+      mbar_wait(full_k(0), 0);
+      fence_all();
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      sm.step(sc, jb_lo * BN, jb_lo < jf_lo || jb_lo >= jf_hi);
+      sm.pack(sc, pa);
+      // block i: Q K^T of block i and P V of block i - 1 issued together;
+      // the softmax of block i runs while P V is in flight
+      for (int i = 1; i < n; ++i) {
+        const int j = jb_lo + i;
+        const int s = i % kStages, sp = (i - 1) % kStages;
+        mbar_wait(full_k(s), (i / kStages) & 1);
+        mbar_wait(full_v(sp), ((i - 1) / kStages) & 1);
+        fence_all();
+        wgmma_fence();
+        issue_qk(s);
+        issue_pv(sp);
+        wgmma_wait<1>();  // Q K^T done
+        fence_regs(sc);
+        sm.step(sc, j * BN, j < jf_lo || j >= jf_hi);
+        wgmma_wait<0>();  // P V done: stage sp is free, O may be rescaled
+        fence_all();
+        if (lane == 0) mbar_arrive(empty(sp));
+        sm.rescale<D>(acc);
+        sm.pack(sc, pa);
+      }
+      // the last block's P V
+      const int sp = (n - 1) % kStages;
+      mbar_wait(full_v(sp), ((n - 1) / kStages) & 1);
+      fence_all();
+      wgmma_fence();
+      issue_pv(sp);
+      wgmma_wait<0>();
+      fence_all();
+      if (lane == 0) mbar_arrive(empty(sp));
+    }
+    float l_r0 = sm.l0, l_r1 = sm.l1;
+    l_r0 += __shfl_xor_sync(0xffffffffu, l_r0, 1);
+    l_r0 += __shfl_xor_sync(0xffffffffu, l_r0, 2);
+    l_r1 += __shfl_xor_sync(0xffffffffu, l_r1, 1);
+    l_r1 += __shfl_xor_sync(0xffffffffu, l_r1, 2);
+    l_r0 = fmaxf(l_r0, 1e-30f);
+    l_r1 = fmaxf(l_r1, 1e-30f);
+    // acc[4c + e]: row r0 + 8 * (e >> 1), dim 8c + 2t + (e & 1)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = r0 + rr * 8;
+      if (r >= Sq) continue;
+      const float l = rr ? l_r1 : l_r0;
+      uint16_t* orow = o + b * o_bs + (long long)r * o_rs + (long long)h * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + c * 8 + 2 * t) = pack_bf16x2(
+            acc[c * 4 + 2 * rr] / l, acc[c * 4 + 2 * rr + 1] / l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, d in {16, 32}: mma.sync tensor cores
 // ---------------------------------------------------------------------------
 constexpr int BM = 64;  // query rows per CTA
 constexpr int BN = 64;  // keys per block
@@ -54,7 +569,7 @@ __device__ __forceinline__ void load_kv_block(uint16_t* sK, uint16_t* sV,
 }
 
 template <int D>
-__global__ void __launch_bounds__(FA_THREADS) flash_fwd_bf16(
+__global__ void __launch_bounds__(FA_THREADS) flash_fwd_bf16_small(
     const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int Sq, int Skv,
     int G, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
@@ -324,6 +839,95 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_f32(
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+enum FlashRoute { ROUTE_F32 = 0, ROUTE_BF16_SMALL = 1, ROUTE_BF16_WGMMA = 2 };
+
+inline int flash_route(int dtype, int D) {
+  if (dtype == 0) return ROUTE_F32;
+  return (D == 64 || D == 128) ? ROUTE_BF16_WGMMA : ROUTE_BF16_SMALL;
+}
+
+// cuTensorMapEncodeTiled, taken from the driver at run time: the library
+// links only the CUDA runtime.  The signature is the driver API's
+// (cuda.h, CUDA 12).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// (B, S, heads, d) bf16 with heads packed and the given row and batch
+// strides (elements) as a 4-D map (d, heads, S, B); boxes of 64 dims x 1
+// head x ``rows`` rows, 128-byte swizzle, out-of-range rows read as zero.
+inline bool encode_heads_map(EncodeTiledFn enc, CUtensorMap* map,
+                             const void* base, int d, int heads, int S,
+                             int B, long long rs, long long bs, int rows) {
+  if (B == 1) bs = rs * S;  // unread; keeps the strides ordered
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)rs * 2,
+                                 (cuuint64_t)bs * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v,
+                               void* o, int B, int Sq, int Skv, int H, int Kh,
+                               const long long* st, int causal, int window,
+                               int q_offset, float scale, cudaStream_t s) {
+  using L = wg::Layout<D>;
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap mq, mk, mv;
+  if (!encode_heads_map(enc, &mq, q, D, H, Sq, B, st[1], st[0], wg::BM) ||
+      !encode_heads_map(enc, &mk, k, D, Kh, Skv, B, st[3], st[2], wg::BN) ||
+      !encode_heads_map(enc, &mv, v, D, Kh, Skv, B, st[5], st[4], wg::BN))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;  // per instantiation, set once
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)L::kSmem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int G = H / Kh;
+  const int nqb = (Sq + wg::BM - 1) / wg::BM;
+  const long long ctas = (long long)B * Kh * nqb * G;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  constexpr float kLog2e = 1.4426950408889634f;
+  flash_fwd_bf16_wgmma<D><<<(unsigned)ctas, wg::kThreads, L::kSmem, s>>>(
+      mq, mk, mv, (uint16_t*)o, Sq, Skv, Kh, G, nqb, st[6], st[7], causal,
+      window, q_offset, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int B, int Sq, int Skv, int H, int G,
@@ -331,17 +935,18 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int q_offset, float scale, int dtype,
                          cudaStream_t s) {
   if (dtype == 1) {
+    if constexpr (D > 32) return cudaErrorInvalidValue;  // the wgmma route
     constexpr size_t smem = flash_bf16_smem<D>();
     static bool attr_set = false;  // per instantiation, set once
     if (!attr_set) {
       cudaError_t e = cudaFuncSetAttribute(
-          flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          flash_fwd_bf16_small<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (e != cudaSuccess) return e;
       attr_set = true;
     }
     const dim3 grid((Sq + BM - 1) / BM, H, B);
-    flash_fwd_bf16<D><<<grid, FA_THREADS, smem, s>>>(
+    flash_fwd_bf16_small<D><<<grid, FA_THREADS, smem, s>>>(
         (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
         (uint16_t*)o, Sq, Skv, G, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], causal, window, q_offset, scale);
@@ -359,14 +964,15 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
 
 // C entry point (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
 // Strides are in elements: batch and row (sequence) strides of q, k, v, o;
-// the head dim is contiguous and heads are packed (stride d).
-// Returns cudaGetLastError() after the launch.
+// the head dim is contiguous and heads are packed (stride d).  ``route``
+// receives the route taken (0 float32, 1 bf16 mma.sync, 2 bf16 wgmma)
+// before the launch.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Skv, int H, int K, int D, long long q_bs, long long q_rs,
     long long k_bs, long long k_rs, long long v_bs, long long v_rs,
     long long o_bs, long long o_rs, int causal, int window, int q_offset,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int* route, void* stream) {
   using namespace attn_kernels;
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
       (dtype != 0 && dtype != 1))
@@ -374,7 +980,16 @@ extern "C" int flash_attention_fwd(
   const long long st[8] = {q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs};
   const int G = H / K;
   cudaStream_t s = (cudaStream_t)stream;
+  const int r = flash_route(dtype, D);
+  *route = r;
   cudaError_t e;
+  if (r == ROUTE_BF16_WGMMA) {
+    if (D == 128)
+      e = launch_flash_wgmma<128>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window, q_offset, scale, s);
+    else
+      e = launch_flash_wgmma<64>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window, q_offset, scale, s);
+    return (int)e;
+  }
   switch (D) {
     case 16: e = launch_flash<16>(q, k, v, o, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
     case 32: e = launch_flash<32>(q, k, v, o, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;

@@ -13,26 +13,35 @@ starcoder2-7b (4 prompts of 8,192 tokens, 36 heads, d = 128, window
 4,096) one layer sees 100.7M pairs per head: 1.86 TFLOP, or about 1.9 ms
 at 989 TFLOP/s dense bf16 (H100 SXM).
 
-What the design does about it: the TPU kernel walks a (BH, q block, kv
-block) grid in order with the accumulators in VMEM and skips masked kv
-blocks.  Here a CTA owns 64 query rows of one head (16 per warp) and
-loops over only the key blocks its causal and window mask reaches; both
-products run on the tensor cores (``mma.sync`` m16n8k16, float32
-accumulators) with the online softmax in registers, and the next K/V
-block streams into shared memory (``cp.async``, two stages) while the
-current one is used.  K/V are read in place from the KV cache, query
-head h from KV head h // G: no repeated or transposed copy.  A first,
-simple version: no ``wgmma``, TMA or warp specialisation yet.  float32
-inputs take a CUDA-core path in full float32 (no TF32).
+What the design does about it (bf16, d in {64, 128}, the serving path):
+the TPU kernel walks a (BH, q block, kv block) grid in order with the
+accumulators in VMEM and skips masked kv blocks.  Here a CTA owns 128
+query rows of one head: two consumer warpgroups run both products on
+``wgmma`` (S = Q·Kᵀ from shared memory, P·V with P from registers and V
+through the transposed-B descriptor), while one producer thread keeps
+K/V blocks of 128 keys flowing into a three-stage shared-memory ring
+with TMA tensor maps over the tensors as they lie.  So the consumers
+issue no load instructions, which set the pace of the first
+(``mma.sync``) version.  Each warpgroup issues Q·Kᵀ of one block with
+P·V of the block before and runs the softmax while P·V is in flight.
+Only the edge blocks of a query block's key range evaluate the mask
+(``schedule.py`` holds the same block schedule for the CPU tests).
+K/V are read in place from the KV cache, query head h from KV head
+h // G: no repeated or transposed copy.  bf16 with d in {16, 32} takes
+the first version's ``mma.sync`` kernel (``flash_fwd_bf16_small``);
+float32 a CUDA-core kernel in full float32 (no TF32).  The route depends
+on (dtype, d) alone and is counted in ``launches_by_route``.
 
 Rows that see no key at all (only possible when ``q_offset + Sq >
-Skv + window``, never on the serving path) get 0, as in the TPU kernel.
+Skv + window``, never on the serving path) get 0 where their whole query
+block sees none, as in the TPU kernel.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -42,6 +51,8 @@ from repro_torch.kernels.flash_attention.ref import mha_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry point's route codes (``FlashRoute`` in the source)
+ROUTES = ("f32", "bf16_mma_sync", "bf16_wgmma")
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -100,18 +111,28 @@ def flash_attention_cuda(
     o = torch.empty_like(q)
     if q.numel() == 0 or Skv == 0:
         return o.zero_()
+    route = ctypes.c_int(-1)
     code = _build.library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, Sq, Skv, H, K, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         int(causal), int(window), int(q_offset), 1.0 / math.sqrt(d),
-        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPE_CODES[q.dtype], ctypes.byref(route),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_attention_cuda")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_route[ROUTES[route.value]] += 1
     return o
 
 
+def reset_launches() -> None:
+    """Set the launch counts, in total and by route, to 0."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
 #: launches of the CUDA kernel in this process (the plain CPU path and
-#: empty inputs launch nothing and count nothing)
-flash_attention_cuda.launches = 0
+#: empty inputs launch nothing and count nothing), in total and by the
+#: route the C entry point took
+reset_launches()

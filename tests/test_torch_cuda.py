@@ -332,6 +332,85 @@ def test_flash_kernel_matches_plain(cuda, case):
                                rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
 
 
+def _cache_slices(cuda, B, Skv, K, d, dt, seed, spare=37):
+    """k, v as the serving path passes them: slices [0, Skv) of one KV
+    cache with spare slots, strided in batch and row."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cache = torch.randn(2, B, Skv + spare, K, d, generator=g,
+                        device=cuda).to(dt)
+    return cache[0, :, :Skv], cache[1, :, :Skv], g
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, K, d, causal, window, q_offset), bf16: the wgmma route
+    (1, 200, 200, 4, 2, 64, True, 50, 0),  # d = 64, ragged, window < 128
+    (2, 150, 330, 4, 1, 128, True, 200, 180),  # window > 128, q_offset > 0
+    (1, 300, 300, 36, 4, 128, True, 100, 0),  # G = 9 over K = 4
+    (1, 257, 390, 36, 4, 128, True, 0, 133),  # causal only, continued
+    (2, 129, 255, 8, 2, 64, False, 0, 0),  # no mask but the ragged tail
+    (1, 40, 1000, 9, 1, 128, True, 700, 960),  # one ragged query block
+])
+def test_flash_wgmma_matches_plain(cuda, case):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    B, Sq, Skv, H, K, d, causal, window, qoff = case
+    dt = torch.bfloat16
+    k, v, g = _cache_slices(cuda, B, Skv, K, d, dt, Sq + Skv)
+    assert k.stride(0) == (Skv + 37) * K * d  # the cache's, not Skv's
+    q = torch.randn(B, Sq, H, d, generator=g, device=cuda).to(dt)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    before = flash_attention_cuda.launches_by_route["bf16_wgmma"]
+    got = flash_attention_cuda(q, k, v, **kw)
+    assert flash_attention_cuda.launches_by_route["bf16_wgmma"] == before + 1
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v, **kw).float(),
+                               rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+
+
+def test_flash_wgmma_graph_replay_is_bitwise(cuda):
+    """Launches captured in a CUDA graph (the tensor maps are kernel
+    arguments, captured by value) give the eager call's bits, as does a
+    second eager call."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+
+    k, v, g = _cache_slices(cuda, 2, 300, 4, 128, torch.bfloat16, 11)
+    q = torch.randn(2, 300, 36, 128, generator=g, device=cuda).to(
+        torch.bfloat16)
+    kw = dict(causal=True, window=128, q_offset=0)
+    eager = flash_attention_cuda(q, k, v, **kw)
+    assert torch.equal(flash_attention_cuda(q, k, v, **kw), eager)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [flash_attention_cuda(q, k, v, **kw) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            assert torch.equal(out, eager)
+
+
+def test_flash_routes_by_dtype_and_head_dim(cuda):
+    """bf16 with d in {64, 128} takes the wgmma kernel, bf16 with d in
+    {16, 32} the mma.sync one, float32 the CUDA-core one."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+
+    for dt, d, route in ((torch.bfloat16, 128, "bf16_wgmma"),
+                         (torch.bfloat16, 64, "bf16_wgmma"),
+                         (torch.bfloat16, 32, "bf16_mma_sync"),
+                         (torch.bfloat16, 16, "bf16_mma_sync"),
+                         (torch.float32, 128, "f32")):
+        q = torch.randn(1, 70, 4, d, device=cuda).to(dt)
+        before = dict(flash_attention_cuda.launches_by_route)
+        flash_attention_cuda(q, q[:, :, :2], q[:, :, :2], window=30)
+        after = flash_attention_cuda.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}
+
+
 @pytest.mark.parametrize("case", [
     # (B, S, H, K, d, window, dtype)
     (2, 128, 4, 2, 32, 0, torch.float32),
