@@ -36,8 +36,8 @@ Phases (any failure exits non-zero before the result lines):
    weights, ``BatchedServer`` answering 4 prompts of 8,192 tokens with 32
    new tokens each (finite logits, no padded-vocab token, a second run
    giving the same tokens, every prefill flash launch on the bf16 wgmma
-   route), then a ``torch.profiler`` breakdown of one prefill and four
-   decode steps;
+   route, every decode launch on the bf16 ring route), then a
+   ``torch.profiler`` breakdown of one prefill and four decode steps;
 8. teacher forcing at S = 8,192: prefill S + 1 against prefill S then
    decode 1, logits within 5e-2;
 9. each attention kernel at the serving run's layer-0 shapes and at the
@@ -47,8 +47,11 @@ Phases (any failure exits non-zero before the result lines):
    same limit; device, eager, plain, bound and SDPA (memory-efficient
    backend, and for flash also the cuDNN backend where it takes these
    inputs; yardsticks only) times, and the decode kernel's split-count
-   sweep; then the ``kernels`` JSON line for all four kernels (flash's
-   with its launches by route);
+   sweep (1, 2, 4, 8, 16 splits and the schedule's own count).  The
+   decode times are taken with K/V out of L2 (``cold_ms``), as a decode
+   step finds them, and also back to back (``warm_ms``); then the
+   ``kernels`` JSON line for all four kernels (the attention kernels'
+   with their launches by route);
 10. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
@@ -481,6 +484,31 @@ def cuda_ms(fn, reps=20, warm=3, graph=True) -> float:
     return start.elapsed_time(end) / reps
 
 
+FLUSH_BYTES = 256 << 20  # read between cold calls: five times the L2
+
+
+def cold_ms(fn, reps=20) -> float:
+    """Device milliseconds per call of ``fn`` with its inputs out of L2: a
+    FLUSH_BYTES read before each call, the pairs replayed from one CUDA
+    graph, less the reads alone.  A decode step's attention finds its
+    layer's K/V so, after the other layers' reads; back-to-back replays
+    (:func:`cuda_ms`) of a 33.6 MB cache read much of it from the 50 MB
+    L2."""
+    import torch
+
+    flush = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    total = torch.empty((), device="cuda")
+
+    def read():
+        torch.sum(flush, dim=0, out=total)
+
+    def read_then_call():
+        read()
+        fn()
+
+    return cuda_ms(read_then_call, reps) - cuda_ms(read, reps)
+
+
 def dense_operator(tiles, rows, cols, nvb_out, nvb_in):
     """(P, nvb_out*B, nvb_in*B) dense matrix of the blocked operator
     y = A^T x (block (c, r) = W^T) — the library call's input, built
@@ -730,8 +758,10 @@ DECODE_CASES = [
 SERVE_ARCH, SERVE_REQUESTS, SERVE_BATCH = "starcoder2-7b", 4, 4
 SERVE_PROMPT, SERVE_NEW = 8192, 32
 PARITY_S = 8192  # teacher-forcing prompt, batch 1
-# the flash route of the serving prefill (bf16, d = 128)
+# the flash route of the serving prefill and the decode route of the
+# serving decode steps (bf16, d = 128)
 SERVE_FLASH_ROUTE = "bf16_wgmma"
+SERVE_DECODE_ROUTE = "bf16_ring"
 PARITY_TOL, PARITY_MARGIN = 5e-2, 2e-2  # tests/test_arch_smoke.py:103-109
 
 
@@ -848,6 +878,15 @@ def attn_counters():
     return flash_attention_cuda, decode_attention_cuda
 
 
+def reset_attn_launches():
+    """Both attention kernels' launch counts, in total and by route, to 0."""
+    from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    flash.reset_launches()
+    decode.reset_launches()
+
+
 @contextlib.contextmanager
 def capture_layer0():
     """While the serving path runs, record what the attention kernels are
@@ -907,17 +946,17 @@ def serve_path(device="cuda", log=print):
                           for i, p in enumerate(prompts)])
         return srv, [r.out for r in done]
 
-    from repro_torch.kernels.flash_attention.kernel import reset_launches
-
     flash, decode = attn_counters()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    decode.launches = 0
+    reset_attn_launches()
     with capture_layer0() as shapes:
         srv, outs = run()
     launches = {"flash_attention_cuda": flash.launches,
                 "decode_attention_cuda": decode.launches}
-    flash_routes = dict(flash.launches_by_route)
+    routes = {"flash_attention_cuda": dict(flash.launches_by_route),
+              "decode_attention_cuda": dict(decode.launches_by_route)}
+    flash_routes = routes["flash_attention_cuda"]
+    decode_routes = routes["decode_attention_cuda"]
     st = srv.stats
     peak = torch.cuda.max_memory_allocated() / 1e9
     rec = {"prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
@@ -927,7 +966,8 @@ def serve_path(device="cuda", log=print):
            / st["decode_s"],
            "prompt_tokens_per_s": SERVE_REQUESTS * SERVE_PROMPT
            / st["prefill_s"], "peak_GB": peak, "launches": launches,
-           "flash_launches_by_route": flash_routes}
+           "flash_launches_by_route": flash_routes,
+           "decode_launches_by_route": decode_routes}
     log(f"phase serve: {json.dumps(rec)}")
     need(len(outs) == SERVE_REQUESTS, "serve: requests lost")
     need(all(len(o) == SERVE_NEW for o in outs), "serve: token counts")
@@ -940,12 +980,18 @@ def serve_path(device="cuda", log=print):
          == cfg.num_layers, f"serve: the prefill's flash launches took the "
                             f"routes {flash_routes}, not all "
                             f"{cfg.num_layers} {SERVE_FLASH_ROUTE}")
+    n_decode = cfg.num_layers * (SERVE_NEW - 1) * -(-SERVE_REQUESTS
+                                                   // SERVE_BATCH)
+    need(decode_routes[SERVE_DECODE_ROUTE] == launches["decode_attention_cuda"]
+         == n_decode, f"serve: the decode launches took the routes "
+                      f"{decode_routes}, not all {n_decode} "
+                      f"{SERVE_DECODE_ROUTE}")
     srv2, outs2 = run()
     need(outs2 == outs, "serve: a second run gave other tokens")
     log(f"phase serve_repeat: {json.dumps({'prefill_s': srv2.stats['prefill_s'], 'decode_s': srv2.stats['decode_s'], 'identical_tokens': True})}")
     log(f"  first tokens: {[o[:8] for o in outs]}")
     return {"cfg": cfg, "model": model, "prompts": prompts, "outs": outs,
-            "launches": launches, "flash_routes": flash_routes, "serve": rec,
+            "launches": launches, "routes": routes, "serve": rec,
             "shapes": shapes}
 
 
@@ -954,7 +1000,9 @@ def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
     the SERVE_BATCH prompts and over ``n_decode`` decode steps.  Prints,
     for each window, the host wall time, the device time the profiler saw
     (the sum of the kernels' own times), the device's idle share of the
-    wall time, and the kernels that took the most device time."""
+    wall time, the kernels that took the most device time, and every
+    attention kernel of the port (a decode call's split kernel and its
+    combine launch, which the top rows may leave out)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -987,7 +1035,9 @@ def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
                "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
                "device_launches": sum(r[1] for r in rows),
                "top": [{"ms": ms, "calls": n, "name": k[:90]}
-                       for ms, n, k in rows[:top]]}
+                       for ms, n, k in rows[:top]],
+               "attention": [{"ms": ms, "calls": n, "name": k[:90]}
+                             for ms, n, k in rows if "attn_kernels::" in k]}
         out[name] = rec
         log(f"phase serve_profile {name}: {json.dumps(rec)}")
         if not busy:
@@ -1050,21 +1100,35 @@ def teacher_forcing(lm, device="cuda", log=print):
     return err
 
 
-def split_sweep(decode_k, args, log=print, counts=(1, 2, 4, 8, 16, 32)):
+def split_sweep(decode_k, args, log=print, counts=(1, 2, 4, 8, 16)):
     """Device ms of the decode kernel at one shape for several split
-    counts (the wrapper's own choice is ``num_splits``)."""
+    counts with K/V out of L2 (:func:`cold_ms`; back to back under
+    ``warm``), and for the schedule's own (``num_splits``, the wrapper's
+    choice) under the key ``schedule``."""
+    import torch
+
     from repro_torch.kernels.decode_attention import kernel
 
     q, k, v, lengths, window = args
+    S, K = k.shape[1], k.shape[2]
     chosen = kernel.num_splits
-    out = {}
+    out, warm = {}, {}
+
+    def call():
+        return decode_k(q, k, v, lengths, window=window)
+
     try:
         for n in counts:
             kernel.num_splits = lambda *a, n=n: n
-            out[n] = cuda_ms(lambda: decode_k(q, k, v, lengths,
-                                              window=window))
+            out[n], warm[n] = cold_ms(call), cuda_ms(call)
     finally:
         kernel.num_splits = chosen
+    out["warm"] = warm
+    out["schedule"] = {
+        "splits": chosen(q.shape[0] * K, min(S, window) if window else S,
+                         torch.cuda.get_device_properties(
+                             q.device).multi_processor_count),
+        "ms": cold_ms(call), "warm_ms": cuda_ms(call)}
     log(f"  decode split sweep (ms by split count): {json.dumps(out)}")
     return out
 
@@ -1086,7 +1150,9 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
     as ``capture_layer0`` recorded them)
     and at the repo's named 32k shapes: device ms (CUDA-graph replay),
     eager ms, plain ms, one PyTorch library call (SDPA, memory-efficient
-    backend) as a yardstick, and the bound."""
+    backend) as a yardstick, and the bound.  The decode kernel's device,
+    plain and library ms are taken with K/V out of L2 (:func:`cold_ms`),
+    as on the main path, and back to back under ``*warm_ms``."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1101,7 +1167,7 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def library(fn, plain_out, what, strict=True):
+    def library(fn, plain_out, what, strict=True, timer=cuda_ms):
         """Time the yardstick, or say why it could not run (it is never on
         the port's path).  A yardstick that disagrees with the plain
         version fails the smoke, or with ``strict=False`` (the second
@@ -1120,22 +1186,23 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
             log(f"  {what}: library call disagrees, not timed: {e}")
             return None, f"disagrees with plain: {e}"[:200]
         del out
-        return cuda_ms(fn), None
+        return timer(fn), None
 
     def finish(kernel, name, kfn, pfn, lfn, moved, ops, controls,
-               cudnn_fn=None):
+               cudnn_fn=None, cold=False):
         kout, pout = kfn(), pfn()
         err, used, mean_p, max_p = attn_compare(kout, pout,
                                                 ATTN_TOL["bfloat16"], name)
         ctl = attn_controls(pout, controls, ATTN_TOL["bfloat16"], name)
-        lib_ms, lib_note = library(lfn, pout, name)
+        timer = cold_ms if cold else cuda_ms
+        lib_ms, lib_note = library(lfn, pout, name, timer=timer)
         if cudnn_fn is not None:
             cudnn_ms, cudnn_note = library(cudnn_fn, pout, name + " (cuDNN)",
                                            strict=False)
         t_bytes, t_ops = moved / rate, ops / BF16_RATE
-        rec = {"call": name, "ms": cuda_ms(kfn),
+        rec = {"call": name, "ms": timer(kfn),
                "eager_ms": cuda_ms(kfn, graph=False),
-               "plain_ms": cuda_ms(pfn), "library_ms": lib_ms,
+               "plain_ms": timer(pfn), "library_ms": lib_ms,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": moved, "flop": ops, "max_abs_err": err,
@@ -1143,6 +1210,11 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
                "max_abs_plain": max_p, "controls_limit_used": ctl}
         if lib_note:
             rec["library_note"] = lib_note
+        if cold:
+            rec.update(timing="K/V out of L2", warm_ms=cuda_ms(kfn),
+                       plain_warm_ms=cuda_ms(pfn),
+                       library_warm_ms=None if lib_ms is None
+                       else cuda_ms(lfn))
         if cudnn_fn is not None:
             rec["cudnn_ms"] = cudnn_ms
             if cudnn_note:
@@ -1226,7 +1298,7 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
                lambda: decode_k(q, k, v, lengths, window=window),
                lambda: decode_ref(q, k, v, lengths, window=window), lfn,
                2 * keys * K * d * k.element_size() + nbytes(q, q, lengths),
-               4 * d * H * keys, controls)
+               4 * d * H * keys, controls, cold=True)
 
     t0 = time.perf_counter()
     flash_call("serve prefill, layer 0", *shapes["flash"])
@@ -1279,9 +1351,12 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
             "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
             "hot_call": hot["call"], "calls": recs, "card": card,
         })
-        if kernel == "flash_attention_cuda":
-            out[-1]["launches_by_route"] = routes
-            out[-1]["serve_route"] = SERVE_FLASH_ROUTE
+        out[-1]["launches_by_route"] = routes[kernel]
+        out[-1].update({key: hot[key] for key in ("timing", "warm_ms")
+                        if key in hot})
+        out[-1]["serve_route"] = (SERVE_FLASH_ROUTE
+                                  if kernel == "flash_attention_cuda"
+                                  else SERVE_DECODE_ROUTE)
     return out
 
 
@@ -1340,12 +1415,9 @@ def main() -> int:
     from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
     from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
 
-    flash, decode = attn_counters()
-    from repro_torch.kernels.flash_attention.kernel import reset_launches
-
-    for k in (spmv_blocked_cuda, fused_step_cuda, decode):
+    for k in (spmv_blocked_cuda, fused_step_cuda):
         k.launches = 0
-    reset_launches()
+    reset_attn_launches()
     with call_shapes() as shape_launches:
         keep = main_path(TR_SMALL, "cuda")
     launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
@@ -1378,10 +1450,10 @@ def main() -> int:
     teacher_forcing(lm, "cuda")
     # 9. the attention kernels at the serving run's and the 32k shapes
     shapes = lm.pop("shapes")
-    flash_routes = lm.pop("flash_routes")
+    routes = lm.pop("routes")
     lm.clear()
     torch.cuda.empty_cache()
-    report += attention_report(shapes, launches, flash_routes, card, rate)
+    report += attention_report(shapes, launches, routes, card, rate)
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": report}))
     print(card)

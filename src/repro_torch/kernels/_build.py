@@ -135,7 +135,7 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                                         ctypes.POINTER(i32), vp]
     lib.flash_attention_fwd.restype = i32
     lib.decode_attention_fwd.argtypes = [vp] * 7 + [i32] * 5 + [i64] * 6 + [
-        i32, i32, f32, i32, vp]
+        i32, i32, f32, i32, ctypes.POINTER(i32), vp]
     lib.decode_attention_fwd.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p

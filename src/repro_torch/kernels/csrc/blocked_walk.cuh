@@ -40,7 +40,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace semiring_kernels {
+
+using namespace hopper;  // mbarriers, bulk copies, allow_smem
 
 // (min, +).  ``add`` is a NaN-propagating min, matching jnp.minimum and
 // torch.minimum; fminf would drop a NaN operand.
@@ -118,55 +122,6 @@ struct Walk {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
-// aligned) from global to shared memory; completion is counted on ``bar``,
-// which expects it.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  // tiles are read once per launch: evict them from L2 first, so that
-  // x, the partials and the states stay
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar)),
-      "l"(policy)
-      : "memory");
-}
-
 // Fold of one chunk: tiles [t0, t1) of partition p against x (this
 // partition's x, or the shared one).  Every thread of the CTA must call
 // this (it synchronises).  The result is valid on the threads with
@@ -196,8 +151,7 @@ __device__ __forceinline__ float4 fold_chunk(
   };
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&bar[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_init_fence();
     for (int s = 0; s < min(kStages, n_stages); ++s) issue(s);
   }
   // x values of every tile row of the chunk, once
@@ -269,20 +223,6 @@ __device__ __forceinline__ bool finish_run(const Walk& wk, const Plan& plan,
     for (int k = 1; k < n; ++k) y = add4<SR>(y, __ldcg(part + (size_t)k * wk.nq));
   }
   return true;
-}
-
-// Allows ``kernel`` the dynamic shared memory ``bytes`` (above 48 KB it
-// must be asked for).  ``allowed`` is the caller's record of what this
-// kernel was allowed so far, so the attribute is set only when a launch
-// needs more (never, in particular, inside a CUDA graph capture that
-// follows a first eager call).  Returns a CUDA error code.
-template <class K>
-inline int allow_smem(K kernel, size_t bytes, size_t& allowed) {
-  if (bytes <= 48 * 1024 || bytes <= allowed) return 0;
-  const int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == 0) allowed = bytes;
-  return err;
 }
 
 }  // namespace semiring_kernels

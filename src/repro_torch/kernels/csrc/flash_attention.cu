@@ -51,9 +51,8 @@
 //   by cp.async.  wgmma's 128-byte swizzle wants rows of at least 64 bf16.
 // * float32: flash_fwd_f32, 32 query rows per CTA, four threads per row,
 //   CUDA-core FMAs in full float32 (no TF32).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
-
 #include "attn_common.cuh"
+#include "tensor_map.cuh"
 
 namespace attn_kernels {
 
@@ -115,19 +114,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       "r"(bytes)
       : "memory");
 }
-// one box of a 4-D tensor map (coordinates innermost first) into shared
-// memory; completion is counted on ``bar``
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets (all >> 4), layout type 1 in bits 62-63.
 // K-major tiles (Q, K: rows of 64 bf16 = 128 bytes): the stride between
@@ -847,53 +833,6 @@ enum FlashRoute { ROUTE_F32 = 0, ROUTE_BF16_SMALL = 1, ROUTE_BF16_WGMMA = 2 };
 inline int flash_route(int dtype, int D) {
   if (dtype == 0) return ROUTE_F32;
   return (D == 64 || D == 128) ? ROUTE_BF16_WGMMA : ROUTE_BF16_SMALL;
-}
-
-// cuTensorMapEncodeTiled, taken from the driver at run time: the library
-// links only the CUDA runtime.  The signature is the driver API's
-// (cuda.h, CUDA 12).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// (B, S, heads, d) bf16 with heads packed and the given row and batch
-// strides (elements) as a 4-D map (d, heads, S, B); boxes of 64 dims x 1
-// head x ``rows`` rows, 128-byte swizzle, out-of-range rows read as zero.
-inline bool encode_heads_map(EncodeTiledFn enc, CUtensorMap* map,
-                             const void* base, int d, int heads, int S,
-                             int B, long long rs, long long bs, int rows) {
-  if (B == 1) bs = rs * S;  // unread; keeps the strides ordered
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)rs * 2,
-                                 (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -55,9 +55,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("f32", "bf16_mma_sync", "bf16_wgmma")
 
 
-def _need(cond: bool, msg: str) -> None:
+def _need(cond: bool, msg) -> None:
+    """Raise unless ``cond``; ``msg`` is a string or a function making one
+    (formatted only on failure)."""
     if not cond:
-        raise ValueError(f"flash_attention_cuda: {msg}")
+        raise ValueError(
+            f"flash_attention_cuda: {msg() if callable(msg) else msg}")
 
 
 def _check_heads_layout(t: torch.Tensor, name: str, need) -> None:
@@ -65,12 +68,12 @@ def _check_heads_layout(t: torch.Tensor, name: str, need) -> None:
     and row strides free (a slice of the KV cache), 16-byte aligned."""
     d = t.shape[-1]
     need(t.stride(3) == 1 and t.stride(2) == d,
-         f"{name} needs a contiguous head dim and packed heads, strides "
-         f"{t.stride()}")
+         lambda: f"{name} needs a contiguous head dim and packed heads, "
+                 f"strides {t.stride()}")
     per16 = 16 // t.element_size()
     need(t.stride(0) % per16 == 0 and t.stride(1) % per16 == 0,
-         f"{name} batch/row strides must be multiples of 16 bytes")
-    need(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+         lambda: f"{name} batch/row strides must be multiples of 16 bytes")
+    need(t.data_ptr() % 16 == 0, lambda: f"{name} must be 16-byte aligned")
 
 
 def flash_attention_cuda(

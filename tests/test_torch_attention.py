@@ -209,10 +209,10 @@ def test_wrappers_reject_other_devices_and_count_nothing_on_cpu():
 
 
 @pytest.mark.parametrize("bk,span,sms,want", [
-    (16, 4096, 132, 9),  # starcoder2 serving: 4 sequences x 4 KV heads
+    (16, 4096, 132, 8),  # starcoder2 serving: 4 sequences x 4 KV heads
     (512, 4096, 132, 1),  # decode_32k: 128 x 4, already 3.9 CTAs per SM
-    (2, 100, 132, 1),  # a short cache: no split under 128 keys
-    (1, 1000, 132, 8),
+    (2, 100, 132, 2),  # a short cache: one 64-key block per split
+    (1, 1000, 132, 16),  # 16 blocks of 64 keys
     (1, 100000, 132, 132),
 ])
 def test_num_splits(bk, span, sms, want):

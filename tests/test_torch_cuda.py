@@ -439,6 +439,118 @@ def test_decode_kernel_matches_plain(cuda, case):
         rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
 
 
+@pytest.mark.parametrize("case", [
+    # (B, S, H, K, d, window, lengths), bf16: the ring route.  Lengths of
+    # 1, shorter than the window, not a multiple of 64, past the cache
+    # (clamped; with a window its start moves past the clamp), and <= 0
+    (4, 300, 36, 4, 128, 64, [1, 37, 300, 310]),  # G = 9
+    (3, 500, 16, 1, 64, 0, [0, 777, 129]),  # G = 16, d = 64
+    (2, 5000, 36, 4, 128, 4096, [5000, 4097]),  # the serving window
+    (2, 1000, 18, 2, 128, 200, [-3, 999]),
+    (1, 3000, 9, 1, 128, 0, [2999]),  # B*K = 1: 47 splits
+    (1, 200, 16, 1, 64, 150, [77]),  # more splits than blocks
+    (40, 200, 16, 4, 64, 0, None),  # B*K = 160 > SMs: one split
+])
+def test_decode_ring_matches_plain(cuda, case):
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+
+    B, S, H, K, d, window, lengths = case
+    dt = torch.bfloat16
+    k, v, g = _cache_slices(cuda, B, S, K, d, dt, S + B)
+    assert k.stride(0) == (S + 37) * K * d  # the cache's, not S's
+    q = torch.randn(B, H, d, generator=g, device=cuda).to(dt)
+    if lengths is None:
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=cuda,
+                             dtype=torch.int32)
+    else:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = decode_attention_cuda.launches_by_route["bf16_ring"]
+    got = decode_attention_cuda(q, k, v, lens, window=window)
+    assert decode_attention_cuda.launches_by_route["bf16_ring"] == before + 1
+    hi = lens.long().clamp(max=S)
+    lo = (lens.long() - window).clamp(min=0) if window else 0 * hi
+    empty = hi <= lo  # no valid slot: 0, as in the TPU kernel
+    assert (got[empty] == 0).all()
+    torch.testing.assert_close(
+        got[~empty].float(),
+        decode_ref(q, k, v, lens, window=window)[~empty].float(),
+        rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+
+
+def test_decode_ring_graph_replay_is_bitwise(cuda):
+    """With several splits a second launch combines them in split order:
+    a second eager call and launches replayed from a CUDA graph give the
+    first call's bits."""
+    from repro_torch.kernels.decode_attention import kernel
+
+    k, v, g = _cache_slices(cuda, 2, 3000, 4, 128, torch.bfloat16, 12)
+    q = torch.randn(2, 36, 128, generator=g, device=cuda).to(torch.bfloat16)
+    lens = torch.tensor([2990, 1777], dtype=torch.int32, device=cuda)
+    assert kernel.num_splits(8, 2048, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) > 1
+    eager = kernel.decode_attention_cuda(q, k, v, lens, window=2048)
+    assert torch.equal(kernel.decode_attention_cuda(q, k, v, lens,
+                                                    window=2048), eager)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kernel.decode_attention_cuda(q, k, v, lens, window=2048)
+                for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            assert torch.equal(out, eager)
+
+
+def test_decode_ring_first_call_inside_a_graph_capture(cuda):
+    """The first call at a shape (here B*K = 6, 11 splits) may come inside
+    a CUDA-graph capture: an eager call made before the graph's first
+    replay, and the replay, give the plain version's result."""
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+
+    dt = torch.bfloat16
+    k, v, g = _cache_slices(cuda, 3, 900, 2, 64, dt, 5)
+    q = torch.randn(3, 18, 64, generator=g, device=cuda).to(dt)
+    lens = torch.tensor([900, 433, 65], dtype=torch.int32, device=cuda)
+    kernel.decode_attention_cuda(q[:1], k[:1], v[:1], lens[:1], window=64)
+    torch.cuda.synchronize()  # the library and the ring kernel are loaded
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel.decode_attention_cuda(q, k, v, lens, window=700)
+    eager = kernel.decode_attention_cuda(q, k, v, lens, window=700)
+    torch.testing.assert_close(
+        eager.float(), decode_ref(q, k, v, lens, window=700).float(),
+        rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+def test_decode_routes_by_dtype_and_head_dim(cuda):
+    """bf16 with d in {64, 128} takes the ring kernel, bf16 with d in
+    {16, 32} the cp.async one, float32 the CUDA-core one."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+
+    lens = torch.tensor([70], dtype=torch.int32, device=cuda)
+    for dt, d, route in ((torch.bfloat16, 128, "bf16_ring"),
+                         (torch.bfloat16, 64, "bf16_ring"),
+                         (torch.bfloat16, 32, "bf16_mma_sync"),
+                         (torch.bfloat16, 16, "bf16_mma_sync"),
+                         (torch.float32, 128, "f32")):
+        kv = torch.randn(1, 70, 2, d, device=cuda).to(dt)
+        q = torch.randn(1, 4, d, device=cuda).to(dt)
+        before = dict(decode_attention_cuda.launches_by_route)
+        decode_attention_cuda(q, kv, kv, lens, window=30)
+        after = decode_attention_cuda.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}
+
+
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
