@@ -25,22 +25,33 @@ Phases (any failure exits non-zero before the result lines):
    relative of the float64 oracle), one eventually/``merge="mean"`` run
    and one sparse-layout run on a few instances; the graph kernels'
    launches are counted by call shape (:func:`call_shapes`);
-6. each graph kernel at that path's shapes, with the engine's walk
+6. the same graph path from a GoFS deployment (``gofs_path``): the
+   collection deployed with ``deploy_collection`` (latency tile maps and
+   the delta chain) into a temporary directory; host iBSP SSSP
+   (``sssp.run_host``) on the ``GoFSStore``, against the oracle; the
+   dense ``load_blocked`` batch equal to the in-memory fill, and
+   sequential SSSP from it in both kernel modes equal to phase 5's runs;
+   sparse loads from the delta chain and from the full value slices,
+   equal to each other, with SSSP on the delta batches equal to the dense
+   store run; PageRank from the store's activity within
+   :func:`plus_mul_limit` of phase 5's; the graph kernels' launches on
+   this path counted by call shape;
+7. each graph kernel at that path's shapes, with the engine's walk
    plans: device time (20 calls replayed from one CUDA graph) and
    eager-call time, the plain version's device time, the bound and its
    share, and, for plus-mul, one PyTorch call computing the same
    function (a dense batched product); then a skewed control, partition
    0's boundary runs gathered into one output block, held against plain
    and timed;
-7. the LM serving path: starcoder2-7b at full width and depth, random
+8. the LM serving path: starcoder2-7b at full width and depth, random
    weights, ``BatchedServer`` answering 4 prompts of 8,192 tokens with 32
    new tokens each (finite logits, no padded-vocab token, a second run
    giving the same tokens, every prefill flash launch on the bf16 wgmma
    route, every decode launch on the bf16 ring route), then a
    ``torch.profiler`` breakdown of one prefill and four decode steps;
-8. teacher forcing at S = 8,192: prefill S + 1 against prefill S then
+9. teacher forcing at S = 8,192: prefill S + 1 against prefill S then
    decode 1, logits within 5e-2;
-9. each attention kernel at the serving run's layer-0 shapes and at the
+10. each attention kernel at the serving run's layer-0 shapes and at the
    ``prefill_32k`` / ``decode_32k`` shapes: held against the plain
    version, with controls (the plain version with the window edge or the
    causal edge one key off, or a 32-key block dropped) that must fail the
@@ -52,12 +63,12 @@ Phases (any failure exits non-zero before the result lines):
    step finds them, and also back to back (``warm_ms``); then the
    ``kernels`` JSON line for all four kernels (the attention kernels'
    with their launches by route);
-10. the card's line again and the last line: ``{"ok": true, "device":
+11. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
-Each main path (graph, serving) runs with every kernel's launch count
-set to 0 just before it and read just after; a kernel of the path that
-was not launched fails the smoke.
+Each main path (graph, GoFS graph, serving) runs with every kernel's
+launch count set to 0 just before it and read just after; a kernel of the
+path that was not launched fails the smoke.
 
 It imports nothing of the JAX package.
 """
@@ -263,13 +274,13 @@ def kernel_sweep(device="cuda", seed=0):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 5: the main path
 # ---------------------------------------------------------------------------
 
 def main_path(cfg, device="cuda", n_sparse=4, log=print):
     """Drive the port's TemporalEngine at ``cfg``.  Returns a dict of what
-    phase 5 needs (one instance's staged tiles and states) and the
-    per-run records."""
+    phases 6 and 7 need (the in-memory results, one instance's staged
+    tiles and states) and the per-run records."""
     import numpy as np
     import torch
 
@@ -397,7 +408,7 @@ def main_path(cfg, device="cuda", n_sparse=4, log=print):
                          f"the limit)")
     log(f"phase checks: {json.dumps({'seconds': time.perf_counter() - t0, 'pagerank_spmv_vs_fused': d, 'pagerank_spmv_vs_fused_limit_used': d_used, 'pagerank_vs_oracle': pr_err, 'pagerank_vs_oracle_limit_used': pr_used, 'pagerank_mean_rank': float(sp_t.mean()), 'sssp_reached': int(fin.sum())})}")
 
-    # states for phase 5: the converged SSSP state and its boundary
+    # states for phase 7: the converged SSSP state and its boundary
     x_sssp = torch.as_tensor(
         bg.scatter_vertex(r_sp.final.astype(np.float32), INF), device=device)
     x_pr = torch.as_tensor(bg.scatter_vertex(p_sp.values[0], 0.0),
@@ -405,6 +416,12 @@ def main_path(cfg, device="cuda", n_sparse=4, log=print):
     keep.update(bg=bg, x_sssp=x_sssp, x_pr=x_pr, eng=eng["spmv"],
                 runs=runs, cut={"sparse_instances": n_sp,
                                 "eventually_instances": n_ev})
+    # what the GoFS path is held against: the collection, its in-memory
+    # matrices, the engines, and their results
+    keep["in_memory"] = dict(
+        col=col, lat=lat, act=act, engines=eng, sssp_oracle=ref,
+        sssp={"spmv": r_sp, "fused": r_fu},
+        pagerank={"spmv": p_sp, "fused": p_fu})
     return keep
 
 
@@ -452,7 +469,276 @@ def call_shapes():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernels at the main path's shapes
+# phase 6: the graph path from a GoFS deployment
+# ---------------------------------------------------------------------------
+
+def host_rss_gb():
+    """(current, peak) resident memory of this process in GB."""
+    import resource
+
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    with open("/proc/self/status") as f:
+        cur = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    return cur * 1024 / 1e9, peak
+
+
+def check_upload(what, t, dtype):
+    """A batch uploaded from the store is what the graph kernels read with
+    16-byte loads: contiguous, of the kernels' dtype, its base and every
+    outer stride 16-byte aligned."""
+    need(t.dtype == dtype, f"{what}: dtype {t.dtype}, want {dtype}")
+    need(t.is_contiguous(), f"{what}: not contiguous")
+    need(t.data_ptr() % 16 == 0, f"{what}: base not 16-byte aligned")
+    es = t.element_size()
+    need(all(st * es % 16 == 0 for st, n in zip(t.stride()[:-1],
+                                                 t.shape[:-1]) if n > 1),
+         f"{what}: strides {t.stride()} x {es} bytes not 16-byte aligned")
+
+
+def gofs_path(cfg, keep, device="cuda", log=print):
+    """Drive the graph path from a GoFS deployment of the collection the
+    in-memory path ran (``keep["in_memory"]``), and hold every result
+    against that path's.  Returns the phase's records."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.algorithms import pagerank, sssp
+    from repro_torch.core.engine import (
+        TemporalEngine, min_plus_program, pagerank_program, source_init)
+    from repro_torch.gofs import GoFSStore, deploy_collection
+    from repro_torch.gofs.layout import tile_map_name
+    from repro_torch.gofs.slices import read_array_slice
+    from repro_torch.core.semiring import INF
+
+    mem, bg = keep["in_memory"], keep["bg"]
+    col, lat, act, eng = mem["col"], mem["lat"], mem["act"], mem["engines"]
+    tmpl = col.template
+    I, V = len(col), tmpl.num_vertices
+    recs = {"cut": {}}  # nothing of the configuration is cut
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def report(name, **kw):
+        cur, peak = host_rss_gb()
+        recs[name] = dict(kw, host_rss_gb=cur, host_peak_rss_gb=peak)
+        log(f"phase gofs_{name}: {json.dumps(recs[name])}")
+
+    def same_run(got, want, what):
+        need(np.array_equal(got.values, want.values, equal_nan=True),
+             f"{what}: values differ from the in-memory run")
+        need(np.array_equal(got.final, want.final, equal_nan=True),
+             f"{what}: final differs from the in-memory run")
+        for k in ("supersteps", "local_sweeps"):
+            need(np.array_equal(got.stats[k], want.stats[k]),
+                 f"{what}: {k} differ from the in-memory run")
+
+    root = tempfile.mkdtemp(prefix="gofs_smoke_")
+    try:
+        # 1. deploy, with latency tile maps and the delta chain
+        t0 = time.perf_counter()
+        meta = deploy_collection(col, cfg, root,
+                                 sparse_absent={"latency": INF})
+        deploy_s = time.perf_counter() - t0
+        files = [os.path.join(d, f) for d, _, fs in os.walk(root)
+                 for f in fs]
+        tm = read_array_slice(os.path.join(root, tile_map_name("latency")))
+        report("deploy", seconds=deploy_s, slices=len(files),
+               bytes_on_disk=sum(os.path.getsize(f) for f in files),
+               instances=meta["num_instances"],
+               partitions=meta["num_partitions"],
+               instances_per_slice=meta["instances_per_slice"],
+               bins_per_partition=meta["bins_per_partition"],
+               occupancy=float(tm["occupancy"]),
+               delta_unique_ratio=float(tm["delta_unique_ratio"]),
+               delta_monotone=int(tm["delta_monotone"]))
+
+        # 2. host iBSP SSSP on the store (the quickstart's step 3)
+        store = GoFSStore(root, vertex_projection=(),
+                          edge_projection=("latency", "active"))
+        t0 = time.perf_counter()
+        dists, res = sssp.run_host(store, 0)
+        host_s = time.perf_counter() - t0
+        d_host = np.full(V, INF)
+        for g, d in dists.items():
+            d_host[store.get_topology(g).vertices] = d
+        ref = mem["sssp_oracle"]
+        fin = np.isfinite(ref)
+        need(np.array_equal(np.isfinite(d_host), fin),
+             "host sssp on GoFS: reachability differs from the oracle")
+        need(np.allclose(d_host[fin], ref[fin], rtol=1e-6, atol=0),
+             "host sssp on GoFS: distances differ from the oracle beyond "
+             "rtol 1e-6")
+        cache = store.cache.stats()
+        report("host_sssp", seconds=host_s, instances=store.num_timesteps(),
+               subgraphs=len(store.subgraph_ids()),
+               supersteps=res.stats.supersteps,
+               compute_calls=res.stats.compute_calls,
+               messages=res.stats.superstep_messages,
+               slices_read=store.stats.slices_read,
+               bytes_read=store.stats.bytes_read,
+               cache_hit_rate=cache["hit_rate"], reached=int(fin.sum()))
+        del store, dists
+
+        # 3. dense load into the card (the quickstart's step 5)
+        t0 = time.perf_counter()
+        tiles, btiles = GoFSStore(root).load_blocked(bg, "latency")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(I):  # one instance's fill at a time
+            w = lat[i:i + 1]
+            need(np.array_equal(tiles[i], bg.fill_local_batch(w, INF)[0])
+                 and np.array_equal(btiles[i],
+                                    bg.fill_boundary_batch(w, INF)[0]),
+                 f"dense load: instance {i} differs from the in-memory fill")
+        check_s = time.perf_counter() - t0
+        host_bytes = tiles.nbytes + btiles.nbytes
+        sync()
+        t0 = time.perf_counter()
+        tiles_d = torch.as_tensor(tiles, device=device)
+        btiles_d = torch.as_tensor(btiles, device=device)
+        sync()
+        upload_s = time.perf_counter() - t0
+        del tiles, btiles
+        check_upload("dense tiles", tiles_d, torch.float32)
+        check_upload("dense btiles", btiles_d, torch.float32)
+        prog = min_plus_program("sssp", init=source_init(0))
+        runs = {}
+        for mode in ("spmv", "fused"):
+            sync()
+            t0 = time.perf_counter()
+            r = eng[mode].run(prog, pattern="sequential", tiles=tiles_d,
+                              btiles=btiles_d)
+            sync()
+            runs[mode] = time.perf_counter() - t0
+            same_run(r, mem["sssp"][mode], f"sssp from the dense load "
+                                           f"({mode})")
+            if mode == "spmv":
+                dense_store_run = r
+        report("dense_load", load_seconds=load_s, check_seconds=check_s,
+               upload_seconds=upload_s, host_bytes=host_bytes,
+               sssp_seconds=runs,
+               supersteps=int(dense_store_run.stats["supersteps"].sum()),
+               local_sweeps=int(dense_store_run.stats["local_sweeps"]
+                                .sum()))
+        del tiles_d, btiles_d
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # 4. sparse loads, from the delta chain and from the full value
+        # slices, one time pack at a time (host memory); sequential SSSP
+        # on the delta batches carries its state across the packs
+        eng_sp = TemporalEngine(bg, device=device, use_pallas="spmv",
+                                layout="sparse")
+        ipack = int(meta["instances_per_slice"])
+        ts = np.asarray(meta["timestamps"])
+        tot = dict(staged_bytes=0, source_bytes=0, pool_read_seconds=0.0,
+                   delta_seconds=0.0, full_seconds=0.0, sssp_seconds=0.0,
+                   active_tiles=0, template_tiles=0)
+        x0, values, counts = None, [], []
+        for k in range(-(-I // ipack)):
+            lo, hi = k * ipack, min((k + 1) * ipack, I)
+            window = (float(ts[lo]), float(ts[hi - 1]) + 1.0)
+            t0 = time.perf_counter()
+            st = GoFSStore(root, time_range=window)
+            need(st.num_timesteps() == hi - lo, f"pack {k}: time filter")
+            # the chain's slice, read whole and pinned; then the gather
+            need(st.edge_delta_index("latency") is not None,
+                 f"pack {k}: no delta chain")
+            tot["pool_read_seconds"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sp_d = st.load_blocked(bg, "latency", layout="sparse")
+            tot["delta_seconds"] += time.perf_counter() - t0
+            del st  # drops the pinned payload pool
+            need(sp_d.source_bytes is not None,
+                 f"pack {k}: the delta route was not taken")
+            sync()
+            t0 = time.perf_counter()
+            r = eng_sp.run(prog, pattern="sequential", sparse=sp_d, x0=x0)
+            sync()
+            tot["sssp_seconds"] += time.perf_counter() - t0
+            up = eng_sp._cached_device((sp_d.tiles, sp_d.btiles, sp_d.rows,
+                                        sp_d.cols, sp_d.brows, sp_d.bcols))
+            for what, t_, dt in zip(
+                    ("tiles", "btiles", "rows", "cols", "brows", "bcols"),
+                    up[:6], (torch.float32,) * 2 + (torch.int32,) * 4):
+                check_upload(f"delta {what}", t_, dt)
+            del up
+            values.append(r.values)
+            counts.append([r.stats["supersteps"], r.stats["local_sweeps"]])
+            x0 = bg.scatter_vertex(r.final, INF)
+            t0 = time.perf_counter()
+            sp_f = GoFSStore(root, time_range=window).load_blocked(
+                bg, "latency", layout="sparse", delta=False)
+            tot["full_seconds"] += time.perf_counter() - t0
+            need(sp_f.source_bytes is None,
+                 f"pack {k}: delta=False took the delta route")
+            for f in ("tiles", "btiles", "rows", "cols", "brows", "bcols",
+                      "nnz", "bnnz"):
+                a, b = getattr(sp_d, f), getattr(sp_f, f)
+                need(a.dtype == b.dtype and a.shape == b.shape
+                     and all(np.array_equal(a[i], b[i])
+                             for i in range(len(a))),
+                     f"pack {k}: delta and full loads differ in {f}")
+            tot["staged_bytes"] += sp_d.staged_bytes()
+            tot["source_bytes"] += sp_d.source_bytes
+            tot["active_tiles"] += int(sp_d.nnz.sum() + sp_d.bnnz.sum())
+            tot["template_tiles"] += (hi - lo) * (sp_d.total_tiles
+                                                  + sp_d.total_btiles)
+            del sp_d, sp_f
+        need(np.array_equal(np.concatenate(values), dense_store_run.values,
+                            equal_nan=True),
+             "sssp from the delta batches differs from the dense store run")
+        for j, k in enumerate(("supersteps", "local_sweeps")):
+            need(np.array_equal(np.concatenate([c[j] for c in counts]),
+                                dense_store_run.stats[k]),
+                 f"sssp from the delta batches: {k} differ from the dense "
+                 f"store run")
+        del eng_sp
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        report("sparse_load", packs=-(-I // ipack), **tot,
+               occupancy=tot["active_tiles"] / max(1, tot["template_tiles"]),
+               source_over_staged=tot["source_bytes"] / tot["staged_bytes"])
+
+        # 5. PageRank from the store's activity
+        t0 = time.perf_counter()
+        a_store = GoFSStore(root).edge_attr_matrix(pagerank.ACTIVE_ATTR)
+        need(np.array_equal(a_store, act), "active: store != in-memory")
+        w = pagerank.edge_weights_for_instances(tmpl.src, a_store, V)
+        tiles_d, btiles_d = eng["spmv"].stage(w, 0.0)
+        sync()
+        stage_s = time.perf_counter() - t0
+        pr = pagerank_program(V, iters=10)
+        used = {}
+        for mode in ("spmv", "fused"):
+            r = eng[mode].run(pr, pattern="independent", tiles=tiles_d,
+                              btiles=btiles_d)
+            need(bool(np.isfinite(r.values).all()),
+                 f"pagerank from GoFS ({mode}): non-finite ranks")
+            want = torch.from_numpy(mem["pagerank"][mode].values)
+            err = (torch.from_numpy(r.values) - want).abs()
+            used[mode] = float((err / plus_mul_limit(want)).max())
+            need(used[mode] <= 1.0, f"pagerank from GoFS ({mode}): "
+                                    f"{used[mode]:.3g}x the limit from the "
+                                    f"in-memory run")
+        del tiles_d, btiles_d
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        report("pagerank", stage_seconds=stage_s, limit_used=used)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 7: kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps=20, warm=3, graph=True) -> float:
@@ -1435,20 +1721,46 @@ def main() -> int:
     print(f"peak device memory GB: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
-    # 6. the graph kernels at the main path's shapes
+    # 6. the graph path from a GoFS deployment, launches counted
+    for k in (spmv_blocked_cuda, fused_step_cuda):
+        k.launches = 0
+    t0 = time.perf_counter()
+    with call_shapes() as gofs_shapes:
+        gofs = gofs_path(TR_SMALL, keep, "cuda")
+    gofs_launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
+                     "fused_step_cuda": fused_step_cuda.launches}
+    print(f"phase gofs_path: {json.dumps({'seconds': time.perf_counter() - t0})}")
+    print(f"gofs path launches: {json.dumps(gofs_launches)}")
+    print("gofs path launches by call shape: " + json.dumps(
+        {f"{k} {c}": n for (k, c), n in sorted(gofs_shapes.items())}))
+    print(f"gofs path cuts: {json.dumps(gofs['cut'])} (TR_SMALL: "
+          f"{TR_SMALL.num_instances} instances)")
+    for k, v in gofs_launches.items():
+        need(sum(n for (kk, _), n in gofs_shapes.items() if kk == k) == v,
+             f"{k}: GoFS-path launches by call shape do not sum to {v}")
+        need(v > 0, f"{k} was not launched on the GoFS path")
+    keep.pop("in_memory")
+    torch.cuda.empty_cache()
+
+    # 7. the graph kernels at the main path's shapes
     t0 = time.perf_counter()
     report = kernel_report(keep, launches, shape_launches, card, rate)
+    for rec in report:
+        k = rec["name"]
+        rec["gofs_launches"] = gofs_launches[k]
+        rec["gofs_launches_by_call_shape"] = {
+            c: n for (kk, c), n in sorted(gofs_shapes.items()) if kk == k}
     print(f"phase kernel_timing: {json.dumps({'seconds': time.perf_counter() - t0})}")
     del keep
     torch.cuda.empty_cache()
 
-    # 7. the LM serving path, launches counted (inside serve_path)
+    # 8. the LM serving path, launches counted (inside serve_path)
     lm = serve_path("cuda")
     launches.update(lm["launches"])
     serve_profile(lm, "cuda")
-    # 8. teacher forcing: the flash kernel against the decode kernel
+    # 9. teacher forcing: the flash kernel against the decode kernel
     teacher_forcing(lm, "cuda")
-    # 9. the attention kernels at the serving run's and the 32k shapes
+    # 10. the attention kernels at the serving run's and the 32k shapes
     shapes = lm.pop("shapes")
     routes = lm.pop("routes")
     lm.clear()

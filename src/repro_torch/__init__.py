@@ -8,8 +8,12 @@ and so on.  It imports ``torch`` and numpy only.
 
 What is here so far:
 
-* the numpy base — graph model, generator, partitioner, blocked layout
-  (``configs``, ``core.{graph,generator,partition,blocked}``);
+* the numpy base — graph model, generator, partitioner and subgraph
+  discovery, subgraph topologies, blocked layout
+  (``configs``, ``core.{graph,generator,partition,subgraph,blocked}``);
+* GoFS, the slice store, in the JAX package's on-disk format (``gofs``),
+  and the host iBSP engine with the analytics' host Computes
+  (``core.ibsp``, ``core.algorithms``);
 * the semirings, the stacked comm backends and the BSP superstep
   drivers (``core.{semiring,comm,superstep}``);
 * the stacked ``TemporalEngine`` (``core.engine``);

@@ -2,16 +2,130 @@
 
 Each timestep runs SSSP on its instance's edge weights (latency); distances
 are *incrementally aggregated* between instances — the previous timestep's
-distances seed the next.  The engine form is a min-plus ``bsp_fixpoint``
-per instance under the ``sequential`` pattern; this module holds its numpy
-oracle.
+distances seed the next (a vertex can only improve as new conditions are
+observed), matching the paper's iBSP SSSP.
+
+Two implementations share semantics:
+
+* ``make_compute`` / ``run_host`` — the faithful host Compute: Dijkstra
+  inside the subgraph (the paper's shared-memory-algorithm reuse),
+  boundary relaxations via ``SendToSubgraph``, run by
+  ``repro_torch.core.ibsp.run_ibsp`` over any ``InstanceProvider`` (a
+  ``GoFSStore`` included);
+* the engine form — a min-plus ``bsp_fixpoint`` per instance under the
+  ``sequential`` pattern (``repro_torch.core.engine``).
+
+``oracle`` is Bellman-Ford over the whole graph.  The registered
+``"sssp"`` Gopher analytic and the deprecated ``run_blocked`` wrapper
+wrap the Gopher session, and come with it (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
+import heapq
+from typing import Any, Dict, List, Tuple
+
 import numpy as np
+
+from repro_torch.core.ibsp import ComputeContext, InstanceProvider, run_ibsp
 
 INF = float(np.inf)
 WEIGHT_ATTR = "latency"
+
+
+# --------------------------------------------------------------------------
+# Faithful host implementation (Compute + Dijkstra per subgraph)
+# --------------------------------------------------------------------------
+
+def _dijkstra_local(
+    topo, weights: np.ndarray, dist: np.ndarray, seeds: List[int]
+) -> np.ndarray:
+    """Multi-source Dijkstra over LOCAL edges from ``seeds`` (local idx).
+    Updates ``dist`` in place and returns it."""
+    indptr, indices, eids = topo.local_adjacency()
+    # weights are in local-edge order (topo.local_edge_id order)
+    eid_to_w = {int(e): float(w) for e, w in zip(topo.local_edge_id, weights)}
+    heap = [(dist[s], int(s)) for s in seeds]
+    heapq.heapify(heap)
+    while heap:
+        d, u = heapq.heappop(heap)
+        if d > dist[u]:
+            continue
+        for k in range(indptr[u], indptr[u + 1]):
+            v = int(indices[k])
+            w = eid_to_w[int(eids[k])]
+            nd = d + w
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(heap, (nd, v))
+    return dist
+
+
+def make_compute(source_vertex: int):
+    """Compute closure for the sequentially dependent SSSP.
+
+    Per-subgraph state (distances) is carried across supersteps and
+    timesteps in a dict keyed by sgid — the engine re-loads instances each
+    superstep, so state lives here (the paper's subgraph state survives
+    within a timestep's BSP, and its end state seeds the next timestep).
+    """
+    state: Dict[int, np.ndarray] = {}
+    result: Dict[int, np.ndarray] = {}
+
+    def compute(ctx: ComputeContext) -> None:
+        topo = ctx.subgraph.topology
+        n = topo.num_vertices
+        weights = ctx.subgraph.local_edge_values[WEIGHT_ATTR]
+        rweights = ctx.subgraph.remote_edge_values[WEIGHT_ATTR]
+
+        if ctx.superstep == 1:
+            # seed: previous timestep's result or inf
+            if ctx.timestep == 0:
+                dist = np.full(n, INF)
+            else:
+                dist = state.get(topo.sgid, np.full(n, INF)).copy()
+            if source_vertex in topo.global_to_local:
+                dist[topo.global_to_local[source_vertex]] = 0.0
+            seeds = [i for i in range(n) if np.isfinite(dist[i])]
+        else:
+            dist = state[topo.sgid]
+            seeds = []
+            for v_global, d in ctx.messages:  # boundary relaxations
+                li = topo.global_to_local[int(v_global)]
+                if d < dist[li]:
+                    dist[li] = d
+                    seeds.append(li)
+
+        if seeds:
+            dist = _dijkstra_local(topo, weights, dist, seeds)
+            # relax remote edges; message the owning subgraph
+            for i in range(len(topo.remote_src)):
+                s = int(topo.remote_src[i])
+                nd = dist[s] + float(rweights[i])
+                if np.isfinite(nd):
+                    ctx.send_to_subgraph(
+                        int(topo.remote_dst_sgid[i]),
+                        (int(topo.remote_dst_vertex[i]), nd),
+                    )
+        state[topo.sgid] = dist
+        result[topo.sgid] = dist
+        ctx.vote_to_halt()
+
+    compute.state = state
+    compute.result = result
+    return compute
+
+
+def run_host(
+    provider: InstanceProvider,
+    source_vertex: int,
+    *,
+    workers: int = 0,
+) -> Tuple[Dict[int, np.ndarray], Any]:
+    """Faithful sequentially-dependent temporal SSSP.  Returns
+    ({sgid: final distances (local order)}, IBSPResult)."""
+    compute = make_compute(source_vertex)
+    res = run_ibsp(provider, compute, pattern="sequential", workers=workers)
+    return compute.result, res
 
 
 def oracle(

@@ -309,6 +309,28 @@ class BlockedGraph:
         cols[ii, pp, ss] = rc[pp, tt, 1]
         return rows, cols, nnz, slot
 
+    def pack_payload_tiles(
+        self, ref: np.ndarray, payloads: np.ndarray, rc: np.ndarray,
+        zero: float, *, bucket: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Reconstruct a packed batch from a delta-encoded tile chain.
+
+        ``ref`` (I, P, T) indexes each active template-tile slot into the
+        deduplicated ``payloads`` (U, B, B) pool (-1 = inactive); the
+        gather is a RAM copy, so a payload shared by many instances is
+        decoded from the store only once.  Returns (vals, rows, cols, nnz)
+        exactly as ``fill_local_batch_sparse`` would for the full weights:
+        ``pack_tile_index`` assigns the slots of both."""
+        B = self.block_size
+        act = ref >= 0
+        rows, cols, nnz, slot = self.pack_tile_index(act, rc, bucket=bucket)
+        I, P, K = rows.shape
+        vals = np.full((I, P, K, B, B), zero, np.float32)
+        for i in range(I):  # one instance's gather at a time: no temporary
+            pp, tt = np.nonzero(act[i])  # the size of the whole batch
+            vals[i, pp, slot[i, pp, tt]] = payloads[ref[i, pp, tt]]
+        return vals, rows, cols, nnz
+
     def _fill_batch_sparse(
         self, w: np.ndarray, zero: float, part: np.ndarray,
         flat: np.ndarray, edge_id: np.ndarray, t_count: int,
@@ -372,6 +394,32 @@ class BlockedGraph:
             self.re_flat, self.re_edge_id, self.tb_max, self.btiles_rc,
             bucket, self._boundary_slots_unique(), act,
         )
+
+    def active_tile_maps(
+        self, weights: np.ndarray, zero: float = INF
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(I, E) weights -> ((I, P, T), (I, P, Tb)) bool active-tile maps
+        — the per-pack record GoFS deployment persists next to the
+        attribute slices (``repro_torch.gofs.layout``)."""
+        w = np.asarray(weights, np.float32)
+        if w.ndim == 1:
+            w = w[None]
+        return (
+            self._active_tiles(w, zero, self.le_part, self.le_flat,
+                               self.le_edge_id, self.t_max),
+            self._active_tiles(w, zero, self.re_part, self.re_flat,
+                               self.re_edge_id, self.tb_max),
+        )
+
+    def sparse_buckets(
+        self, weights: np.ndarray, zero: float = INF
+    ) -> Tuple[int, int]:
+        """Pow2 (local, boundary) tile buckets for a weight batch — the
+        shape every chunk of the batch should share."""
+        la, ba = self.active_tile_maps(weights, zero)
+        lmax = int(la.sum(-1).max()) if la.size else 0
+        bmax = int(ba.sum(-1).max()) if ba.size else 0
+        return pow2_bucket(lmax), pow2_bucket(bmax)
 
     def stage_sparse(
         self, weights: np.ndarray, zero: float = INF, *,

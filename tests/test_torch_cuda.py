@@ -168,6 +168,65 @@ def test_default_mode_on_card_is_spmv_and_off_raises(cuda):
         T.TemporalEngine(bg, use_pallas="off")
 
 
+@pytest.mark.parametrize("load", ["dense", "delta"])
+def test_store_loaded_batches_through_both_kernels(cuda, tmp_path, load):
+    """TR_TINY deployed to GoFS and loaded back (dense, or the sparse
+    batch rebuilt from the delta chain), each instance's local sweep and
+    boundary consume through both kernels against their plain versions:
+    min-plus bitwise, plus-mul within 2e-5, votes equal."""
+    from repro_torch.gofs import GoFSStore, deploy_collection
+
+    col = generate_collection(TR_TINY)
+    t = col.template
+    assign = partition_graph(t, TR_TINY.num_partitions, seed=TR_TINY.seed)
+    bg = build_blocked(t, assign, TR_TINY.block_size)
+    root = str(tmp_path / "gofs")
+    deploy_collection(col, TR_TINY, root, assign=assign,
+                      sparse_absent={"latency": float("inf")})
+    store = GoFSStore(root)
+    if load == "dense":
+        tiles, btiles = store.load_blocked(bg, "latency")
+        idx = [(bg.tiles_rc[..., 0], bg.tiles_rc[..., 1],
+                bg.btiles_rc[..., 0], bg.btiles_rc[..., 1])] * len(col)
+    else:
+        sp = store.load_blocked(bg, "latency", layout="sparse")
+        assert sp.source_bytes is not None  # the delta route was taken
+        tiles, btiles = sp.tiles, sp.btiles
+        idx = list(zip(sp.rows, sp.cols, sp.brows, sp.bcols))
+    B, nvb, nbb = bg.block_size, bg.vp // bg.block_size, \
+        bg.num_boundary // bg.block_size
+    rng = np.random.default_rng(7)
+    before = (spmv_blocked_cuda.launches, fused_step_cuda.launches)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+
+    for i, (rows, cols, brows, bcols) in enumerate(idx):
+        x = dev(rng.random((bg.n_parts, nvb, B)).astype(np.float32) * 50)
+        xb = dev(rng.random((1, nbb, B)).astype(np.float32) * 50)
+        vm = dev(bg.global_of.reshape(bg.n_parts, nvb, B) >= 0)
+        lt, bt = dev(tiles[i]), dev(btiles[i])
+        assert lt.dtype == torch.float32 and lt.is_contiguous()
+        assert lt.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0
+        r, c, br, bc = (dev(a.astype(np.int32)) for a in (rows, cols,
+                                                            brows, bcols))
+        for x_in, ti, ri, ci in ((x, lt, r, c), (xb, bt, br, bc)):
+            ko, kc = fused_step_cuda(ti, ri, ci, x_in, x, x, vm, MIN_PLUS)
+            po, pc = fused_step_ref(ti, ri, ci, x_in, x, x, vm, MIN_PLUS)
+            _agree(ko, po, MIN_PLUS)
+            assert torch.equal(kc, pc)
+            flat = x_in.reshape(x_in.shape[0], -1)
+            for sr in (MIN_PLUS, PLUS_MUL):
+                tt = ti if sr is MIN_PLUS else torch.where(
+                    torch.isfinite(ti), ti / 100, torch.zeros_like(ti))
+                _agree(spmv_blocked_cuda(tt, ri, ci, flat, sr,
+                                         n_out_blocks=nvb),
+                       spmv_blocked_ref(tt, ri, ci, flat, sr,
+                                        n_out_blocks=nvb), sr)
+    assert spmv_blocked_cuda.launches > before[0]
+    assert fused_step_cuda.launches > before[1]
+
+
 # ---------------------------------------------------------------------------
 # the graph kernels' walk: skewed runs, determinism, CUDA graphs
 # ---------------------------------------------------------------------------
