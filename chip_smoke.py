@@ -34,8 +34,21 @@ Phases (any failure exits non-zero before the result lines):
    sparse loads from the delta chain and from the full value slices,
    equal to each other, with SSSP on the delta batches equal to the dense
    store run; PageRank from the store's activity within
-   :func:`plus_mul_limit` of phase 5's; the graph kernels' launches on
-   this path counted by call shape;
+   :func:`plus_mul_limit` of phase 5's; then the Gopher session on the
+   same deployment (``session_phase``): ``GopherSession(store)`` plans
+   SSSP (dense, dense comm, async, no delta, cold, ``spmv``, stacked),
+   prints ``explain()``, and runs it streamed from the store, bitwise
+   equal to the dense store run; the same plan in ``fused`` mode,
+   bitwise equal to the fused run; ``run_many`` of sssp, nhop (4 hops)
+   and pagerank (10 iterations) with its staging report, sssp bitwise,
+   pagerank within :func:`plus_mul_limit` of the store PageRank, nhop's
+   histograms equal to ``nhop.oracle``; and the sparse override (the
+   streamed delta route, fused), bitwise equal, with its source bytes
+   beside its staged bytes; each step's wall time, the seconds the
+   engine waited on chunks against the seconds it computed, peak pinned
+   bytes, peak device memory and host peak RSS.  The graph kernels'
+   launches on this path are counted by call shape, and the session's
+   on their own;
 7. each graph kernel at that path's shapes, with the engine's walk
    plans: device time (20 calls replayed from one CUDA graph) and
    eager-call time, the plain version's device time, the bound and its
@@ -66,9 +79,9 @@ Phases (any failure exits non-zero before the result lines):
 11. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
-Each main path (graph, GoFS graph, serving) runs with every kernel's
-launch count set to 0 just before it and read just after; a kernel of the
-path that was not launched fails the smoke.
+Each main path (graph, GoFS graph, the session within it, serving) runs
+with every kernel's launch count set to 0 just before it and read just
+after; a kernel of the path that was not launched fails the smoke.
 
 It imports nothing of the JAX package.
 """
@@ -432,32 +445,38 @@ def call_shapes():
     :func:`kernel_report` ("local sweep min_plus", "consume plus_mul",
     "sweep min_plus", "spmv plus_mul", ...).  It wraps the names through
     which the engine reaches the wrappers; the wrappers' own counts move
-    as before, and the shapes' counts sum to them."""
+    as before, and the shapes' counts sum to them.  Blocks nest: an inner
+    block counts its launches in the outer block's dict too."""
+    from repro_torch.kernels.semiring_spmm import kernel as spmm_kernel
     from repro_torch.kernels.semiring_spmm import ops as spmm_ops
+    from repro_torch.kernels.semiring_superstep import kernel as step_kernel
     from repro_torch.kernels.semiring_superstep import ops as step_ops
 
     counts = {}
     real_spmv, real_fused = spmm_ops.spmv_blocked_cuda, \
         step_ops.fused_step_cuda
+    # the counts live on the wrappers themselves, whatever wraps them
+    k_spmv, k_fused = spmm_kernel.spmv_blocked_cuda, \
+        step_kernel.fused_step_cuda
 
     def add(kernel, call, before, after):
         key = (kernel, call)
         counts[key] = counts.get(key, 0) + after - before
 
     def spmv(tiles, rows, cols, x, sr, **kw):
-        n = real_spmv.launches
+        n = k_spmv.launches
         out = real_spmv(tiles, rows, cols, x, sr, **kw)
         shape = "consume" if x.shape[0] == 1 else "local sweep"
-        add("spmv_blocked_cuda", f"{shape} {sr.name}", n, real_spmv.launches)
+        add("spmv_blocked_cuda", f"{shape} {sr.name}", n, k_spmv.launches)
         return out
 
     def fused(tiles, rows, cols, x_in, x_comb, *args, **kw):
-        n = real_fused.launches
+        n = k_fused.launches
         out = real_fused(tiles, rows, cols, x_in, x_comb, *args, **kw)
         sr = args[2]
         shape = "consume" if x_in.shape[0] == 1 else (
             "sweep" if x_comb is not None else "spmv")
-        add("fused_step_cuda", f"{shape} {sr.name}", n, real_fused.launches)
+        add("fused_step_cuda", f"{shape} {sr.name}", n, k_fused.launches)
         return out
 
     spmm_ops.spmv_blocked_cuda, step_ops.fused_step_cuda = spmv, fused
@@ -716,10 +735,11 @@ def gofs_path(cfg, keep, device="cuda", log=print):
         sync()
         stage_s = time.perf_counter() - t0
         pr = pagerank_program(V, iters=10)
-        used = {}
+        used, store_pr = {}, {}
         for mode in ("spmv", "fused"):
             r = eng[mode].run(pr, pattern="independent", tiles=tiles_d,
                               btiles=btiles_d)
+            store_pr[mode] = r
             need(bool(np.isfinite(r.values).all()),
                  f"pagerank from GoFS ({mode}): non-finite ranks")
             want = torch.from_numpy(mem["pagerank"][mode].values)
@@ -732,8 +752,204 @@ def gofs_path(cfg, keep, device="cuda", log=print):
         if device == "cuda":
             torch.cuda.empty_cache()
         report("pagerank", stage_seconds=stage_s, limit_used=used)
+
+        # 6. the Gopher session on the same deployment
+        recs["session"] = session_phase(
+            root, tmpl, want={"spmv": dense_store_run,
+                              "fused": mem["sssp"]["fused"],
+                              "pagerank": store_pr["spmv"]},
+            device=device, log=log)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return recs
+
+
+class PeakRSS:
+    """Sample this process's resident memory on a thread while the block
+    runs; ``peak_gb`` is the largest reading."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak_gb = host_rss_gb()[0]
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.1):
+            self.peak_gb = max(self.peak_gb, host_rss_gb()[0])
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak_gb = max(self.peak_gb, host_rss_gb()[0])
+
+
+def session_phase(root, tmpl, want, device="cuda", log=print):
+    """The Gopher session on the GoFS deployment at full width and depth
+    (``GopherSession(store).plan/run/run_many``), held against phase 6's
+    explicit engine runs in ``want``: SSSP bitwise in both kernel modes
+    and on the streamed delta route, PageRank within
+    :func:`plus_mul_limit`, N-hop's histograms equal to the oracle's.
+    The graph kernels' launches on this path are counted by call shape on
+    their own.  Returns the phase's records."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.algorithms import nhop
+    from repro_torch.gofs import GoFSStore
+    from repro_torch.gofs.prefetch import pinned_ring, release_pinned
+    from repro_torch.gopher import GopherSession
+    from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+    from repro_torch.kernels.semiring_superstep.kernel import \
+        fused_step_cuda
+
+    cuda = device == "cuda"  # a CPU rehearsal checks control flow only
+    kernels = (spmv_blocked_cuda, fused_step_cuda)
+    outer = [k.launches for k in kernels]
+    for k in kernels:
+        k.launches = 0
+    recs = {}
+    if cuda:
+        free, total = torch.cuda.mem_get_info()
+        recs.update(device_free_gb_before=free / 1e9,
+                    device_total_gb=total / 1e9)
+    log(f"phase session_setup: {json.dumps(recs)}")
+
+    def same(got, ref, what):
+        need(np.array_equal(got.values, ref.values, equal_nan=True),
+             f"session {what}: values differ from phase 6")
+        need(np.array_equal(got.final, ref.final, equal_nan=True),
+             f"session {what}: final differs from phase 6")
+        for k in ("supersteps", "local_sweeps"):
+            need(np.array_equal(got.stats[k], ref.stats[k]),
+                 f"session {what}: {k} differ from phase 6")
+
+    def step(name, sess, fn):
+        """Run ``fn`` with the session's engines' stream reports and the
+        peaks fresh (the pinned ring keeps its buffers from step to step,
+        as across any two passes); log and return its records."""
+        if cuda:
+            ring = pinned_ring(device)
+            ring.peak_bytes, ring.pin_seconds = ring.pinned_bytes, 0.0
+            torch.cuda.reset_peak_memory_stats()
+        for e in sess._engines.values():
+            e.last_stream_report = None
+        t0 = time.perf_counter()
+        with PeakRSS() as rss:
+            out = fn()
+        wall = time.perf_counter() - t0
+        rec = dict(seconds=wall, report=dict(sess.last_run_report),
+                   stream={"/".join(k): e.last_stream_report
+                           for k, e in sess._engines.items()
+                           if e.last_stream_report is not None},
+                   host_peak_rss_gb=rss.peak_gb)
+        if cuda:
+            rec.update(peak_pinned_bytes=ring.peak_bytes,
+                       pin_seconds=ring.pin_seconds,
+                       peak_device_gb=torch.cuda.max_memory_allocated()
+                       / 1e9)
+        recs[name] = rec
+        log(f"phase session_{name}: {json.dumps(rec)}")
+        return out
+
+    V, I = tmpl.num_vertices, len(want["spmv"].values)
+    try:
+        with call_shapes() as shapes:
+            t0 = time.perf_counter()
+            sess = GopherSession(GoFSStore(root), device=device)
+            recs["open_seconds"] = time.perf_counter() - t0
+
+            # 1. the auto plan: dense, dense comm, async, no delta, cold
+            plan = sess.plan("sssp", source=0)
+            got = {k: getattr(plan, k).value for k in (
+                "layout", "comm", "staging", "delta", "warm", "kernel",
+                "placement")}
+            recs["plan"] = dict(got, occupancy=plan.estimate_dict[
+                "occupancy"])
+            need(not cuda or recs["plan"] == {
+                "layout": "dense", "comm": "dense", "staging": "async",
+                "delta": False, "warm": False, "kernel": "spmv",
+                "placement": "stacked", "occupancy": 1.0},
+                f"session plan: {recs['plan']}")
+            log("session plan:\n" + plan.explain())
+            r1 = step("sssp_spmv", sess, lambda: sess.run(plan))
+            same(r1.engine, want["spmv"], "sssp (spmv)")
+
+            # 2. the same plan in fused mode
+            plan_f = sess.plan("sssp", source=0, kernel="fused")
+            r2 = step("sssp_fused", sess, lambda: sess.run(plan_f))
+            same(r2.engine, want["fused"], "sssp (fused)")
+
+            # 3. three analytics in one run_many
+            plans = [plan, sess.plan("nhop", source=0, n_hops=4),
+                     sess.plan("pagerank", iters=10)]
+            many = step("run_many", sess, lambda: sess.run_many(plans))
+            same(many[0].engine, r1.engine, "run_many sssp")
+            ranks = torch.from_numpy(many[2].output["ranks"])
+            ref = torch.from_numpy(want["pagerank"].values)
+            need(bool(torch.isfinite(ranks).all()),
+                 "session pagerank: non-finite ranks")
+            used = float(((ranks - ref).abs() / plus_mul_limit(ref)).max())
+            need(used <= 1.0, f"session pagerank: {used:.3g}x the limit "
+                              f"from phase 6's store PageRank")
+            t0 = time.perf_counter()
+            lat = GoFSStore(root).edge_attr_matrix("latency")
+            hists = many[1].output["histograms"]
+            need(hists.shape[0] == I, "session nhop: histogram count")
+            for i in range(I):
+                need(np.array_equal(hists[i], nhop.oracle(
+                    tmpl.src, tmpl.dst, lat[i], V, 0, n_hops=4)),
+                    f"session nhop: instance {i}'s histogram differs "
+                    f"from nhop.oracle")
+            checks = dict(
+                open_seconds=recs["open_seconds"],
+                pagerank_limit_used=used,
+                nhop_composite=[int(x) for x in many[1].output["composite"]],
+                nhop_oracle_seconds=time.perf_counter() - t0)
+            recs["run_many"].update(checks)
+            log(f"phase session_checks: {json.dumps(checks)}")
+            del many, sess
+            if cuda:
+                torch.cuda.empty_cache()
+
+            # 4. the sparse override: the streamed delta route, fused
+            sess = GopherSession(GoFSStore(root), device=device)
+            plan_d = sess.plan("sssp", source=0, layout="sparse",
+                               kernel="fused")
+            need(not cuda or (plan_d.delta.value is True
+                              and plan_d.staging.value == "async"),
+                 "session sparse plan: not the streamed delta route")
+            r4 = step("sssp_delta_fused", sess, lambda: sess.run(plan_d))
+            same(r4.engine, r1.engine, "sssp (sparse delta, fused)")
+            st = recs["sssp_delta_fused"]
+            up = sum(v["uploaded_bytes"] for v in st["stream"].values())
+            st.update(source_bytes=st["report"]["staged_bytes"],
+                      staged_bytes=up,
+                      occupancy=r4.engine.occupancy)
+            log(f"phase session_delta_bytes: source {st['source_bytes']} "
+                f"staged {up}")
+            del sess
+            if cuda:
+                torch.cuda.empty_cache()
+        launches = {k.__name__: k.launches for k in kernels}
+    finally:
+        release_pinned()
+        for k, n in zip(kernels, outer):
+            k.launches += n
+    recs["launches"] = launches
+    recs["launches_by_call_shape"] = {
+        f"{k} {c}": n for (k, c), n in sorted(shapes.items())}
+    log(f"session launches: {json.dumps(launches)}")
+    log("session launches by call shape: "
+        + json.dumps(recs["launches_by_call_shape"]))
+    for name, v in launches.items():
+        need(sum(n for (k, _), n in shapes.items() if k == name) == v,
+             f"{name}: session launches by call shape do not sum to {v}")
+        need(not cuda or v > 0,
+             f"{name} was not launched on the session path")
     return recs
 
 
@@ -1750,6 +1966,12 @@ def main() -> int:
         rec["gofs_launches"] = gofs_launches[k]
         rec["gofs_launches_by_call_shape"] = {
             c: n for (kk, c), n in sorted(gofs_shapes.items()) if kk == k}
+        # the session's launches are a part of the GoFS path's
+        rec["session_launches"] = gofs["session"]["launches"][k]
+        rec["session_launches_by_call_shape"] = {
+            c[len(k) + 1:]: n for c, n in
+            gofs["session"]["launches_by_call_shape"].items()
+            if c.startswith(k + " ")}
     print(f"phase kernel_timing: {json.dumps({'seconds': time.perf_counter() - t0})}")
     del keep
     torch.cuda.empty_cache()

@@ -7,19 +7,21 @@ then histogram ``lat`` over vertices with ``hops == N``.  Per-instance
 histograms are folded into a composite in the Merge step (fork-join).
 
 Host path: per-subgraph relaxation through the iBSP engine, merging via
-``SendMessageToMerge``.  The registered ``"nhop"`` Gopher analytic (two
-min-plus fixpoints per instance on the engine) and the deprecated
-``run_blocked`` wrapper come with the Gopher session (ROADMAP queue 1,
-item 3).
+``SendMessageToMerge``.  Engine path: the registered ``"nhop"`` Gopher
+analytic (``repro_torch.gopher``), two min-plus fixpoints per instance;
+``run_blocked`` remains as a deprecated thin wrapper over the session.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from repro_torch.core.blocked import BlockedGraph
 from repro_torch.core.ibsp import (
     ComputeContext, InstanceProvider, MergeContext, run_ibsp)
+from repro_torch.gopher.registry import REQUIRED, register_analytic
 
 INF = float(np.inf)
 LATENCY_ATTR = "latency"
@@ -142,6 +144,83 @@ def run_host(
         workers=workers,
     )
     return res.merge_result, res
+
+
+# --------------------------------------------------------------------------
+# Engine implementation: registered Gopher analytic (composite)
+# --------------------------------------------------------------------------
+
+@register_analytic(
+    "nhop",
+    pattern="eventually",
+    attr=LATENCY_ATTR,
+    zero_fill=INF,
+    params={"source": REQUIRED, "n_hops": 6, "bins": DEFAULT_BINS},
+    kind="composite",
+    source_axis="source",
+    describe="N-hop latency histogram: eventually dependent — concurrent "
+             "per-instance min-latency fixpoints + host-side Merge",
+)
+def _nhop_execute(ctx, *, source, n_hops, bins):
+    """Composite executor: the hop-count fixpoint runs ONCE over unit
+    weights (topology is instance-invariant, staged via the shared ones
+    batch), the per-instance min-latency fixpoints run under the plan's
+    pattern over the shared latency batch, and the Merge folds histograms
+    on the host."""
+    from repro_torch.core.algorithms.sssp import scalar_source
+    from repro_torch.core.engine import min_plus_program, source_init
+
+    bins = np.asarray(bins, np.float64)
+    prog = min_plus_program(
+        "nhop", init=source_init(scalar_source("nhop", source)))
+    # unweighted hop distance: one instance of all-ones weights
+    hops_res = ctx.run(prog, pattern="independent", staged=ctx.staged_ones())
+    # min-latency distance per instance, then host-side Merge (histograms)
+    lat = ctx.run(prog, pattern=ctx.plan.pattern, staged=ctx.staged())
+    mask = hops_res.values[0] == n_hops
+    hists = np.stack([
+        histogram(lat.values[i][mask], bins)
+        for i in range(lat.values.shape[0])
+    ])
+    return {"composite": hists.sum(0), "histograms": hists,
+            "__engine__": lat}
+
+
+def run_blocked(
+    bg: BlockedGraph,
+    instance_latency: np.ndarray,  # (I, E)
+    source_vertex: int,
+    n_hops: int = 6,
+    *,
+    bins: np.ndarray = DEFAULT_BINS,
+    use_pallas=None,
+    comm="dense",
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Deprecated: use the Gopher session API —
+    ``GopherSession.from_blocked(bg, weights={"latency": w}).run(
+    session.plan("nhop", source=..., n_hops=...))``
+    (``repro_torch.gopher``).  Pins the legacy knobs; results are
+    identical to the session path.
+
+    Returns (composite histogram, per-instance histograms (I, nbins))."""
+    warnings.warn(
+        "nhop.run_blocked is deprecated; use repro_torch.gopher."
+        "GopherSession (session.run(session.plan('nhop', source=..., "
+        "n_hops=...)))",
+        DeprecationWarning, stacklevel=2,
+    )
+    from repro_torch.gopher import GopherSession
+
+    sess = GopherSession.from_blocked(
+        bg, weights={LATENCY_ATTR: instance_latency},
+        use_pallas=use_pallas, device=device,
+    )
+    res = sess.run(sess.plan(
+        "nhop", source=source_vertex, n_hops=n_hops, bins=bins,
+        layout="dense", comm=comm, staging="sync",
+    ))
+    return res.output["composite"], res.output["histograms"]
 
 
 # --------------------------------------------------------------------------

@@ -4,10 +4,9 @@ Each graph instance is ranked independently, considering only edges *active*
 in that instance.  The host path (``make_compute`` / ``run_host``) runs
 the vertex-value iteration through the iBSP engine (independent pattern —
 temporal concurrency across instances); the engine path runs plus-mul
-supersteps (``repro_torch.core.engine.pagerank_program``).  The
-registered ``"pagerank"`` Gopher analytic and the deprecated
-``run_blocked`` wrapper come with the Gopher session (ROADMAP queue 1,
-item 3).
+supersteps (``repro_torch.core.engine.pagerank_program``) as the
+registered ``"pagerank"`` Gopher analytic (``repro_torch.gopher``);
+``run_blocked`` remains as a deprecated thin wrapper over the session.
 
 Specification (all paths + oracle): power iteration of
     r' = (1-d)/N + d * A_w^T r,   A_w[u,v] = active(u,v)/outdeg_active(u)
@@ -15,11 +14,14 @@ without dangling-mass redistribution, ``iters`` fixed steps.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from repro_torch.core.blocked import BlockedGraph
 from repro_torch.core.ibsp import ComputeContext, InstanceProvider, run_ibsp
+from repro_torch.gopher.registry import register_analytic
 
 ACTIVE_ATTR = "active"
 
@@ -119,6 +121,87 @@ def run_host(
     res = run_ibsp(provider, compute, pattern="independent", workers=workers)
     return compute.results, res
 
+
+# --------------------------------------------------------------------------
+# Engine implementation: registered Gopher analytic
+# --------------------------------------------------------------------------
+
+def _pagerank_weights(session, raw: np.ndarray) -> np.ndarray:
+    """Staging transform: (I, E) activity -> outdegree-normalized edge
+    weights (named so the shared-staging key distinguishes it from the
+    raw attribute)."""
+    assert session.src is not None, \
+        "pagerank derives weights from topology: pass src= to from_blocked"
+    return edge_weights_for_instances(
+        session.src, np.asarray(raw), len(session.bg.part_of)
+    )
+
+
+def _postprocess(ctx, res, **_params):
+    return {"ranks": res.values}
+
+
+@register_analytic(
+    "pagerank",
+    pattern="independent",
+    attr=ACTIVE_ATTR,
+    zero_fill=0.0,
+    params={"damping": 0.85, "iters": 30},
+    weights=_pagerank_weights,
+    # outdegree normalization reads one instance's activity row at a
+    # time — safe to apply chunk-wise on the prefetcher thread
+    rowwise=True,
+    postprocess=_postprocess,
+    describe="per-instance PageRank over active edges: independent "
+             "pattern, fixed-count plus-mul iteration",
+)
+def _pagerank_program(ctx, *, damping, iters):
+    """Program factory for the ``"pagerank"`` analytic."""
+    from repro_torch.core.engine import pagerank_program
+
+    return pagerank_program(ctx.num_vertices, damping=damping, iters=iters)
+
+
+def run_blocked(
+    bg: BlockedGraph,
+    src: np.ndarray,  # (E,) template edge sources (for outdeg weights)
+    instance_active: np.ndarray,  # (I, E) 0/1 activity per instance
+    *,
+    num_vertices: int,
+    damping: float = 0.85,
+    iters: int = 30,
+    use_pallas=None,
+    comm="dense",
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Deprecated: use the Gopher session API —
+    ``GopherSession.from_blocked(bg, weights={"active": a}, src=src).run(
+    session.plan("pagerank", iters=...))`` (``repro_torch.gopher``).  Pins
+    the legacy knobs (dense layout, sync staging); results are identical
+    to the session path.  Returns (ranks (I, V), supersteps (I,))."""
+    warnings.warn(
+        "pagerank.run_blocked is deprecated; use repro_torch.gopher."
+        "GopherSession (session.run(session.plan('pagerank', ...)))",
+        DeprecationWarning, stacklevel=2,
+    )
+    from repro_torch.gopher import GopherSession
+
+    assert num_vertices == len(bg.part_of), \
+        "num_vertices must match the blocked template"
+    sess = GopherSession.from_blocked(
+        bg, weights={ACTIVE_ATTR: instance_active}, src=src,
+        use_pallas=use_pallas, device=device,
+    )
+    res = sess.run(sess.plan(
+        "pagerank", damping=damping, iters=iters,
+        layout="dense", comm=comm, staging="sync",
+    ))
+    return res.output["ranks"], res.engine.stats["supersteps"]
+
+
+# --------------------------------------------------------------------------
+# numpy oracle
+# --------------------------------------------------------------------------
 
 def oracle(
     src: np.ndarray, dst: np.ndarray, active: np.ndarray,

@@ -15,18 +15,21 @@ Two implementations share semantics:
 * the engine form — a min-plus ``bsp_fixpoint`` per instance under the
   ``sequential`` pattern (``repro_torch.core.engine``).
 
-``oracle`` is Bellman-Ford over the whole graph.  The registered
-``"sssp"`` Gopher analytic and the deprecated ``run_blocked`` wrapper
-wrap the Gopher session, and come with it (ROADMAP queue 1, item 3).
+``oracle`` is Bellman-Ford over the whole graph.  The engine form is
+the registered ``"sssp"`` Gopher analytic (``repro_torch.gopher``);
+``run_blocked`` remains as a deprecated thin wrapper over the session.
 """
 from __future__ import annotations
 
 import heapq
+import warnings
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from repro_torch.core.blocked import BlockedGraph
 from repro_torch.core.ibsp import ComputeContext, InstanceProvider, run_ibsp
+from repro_torch.gopher.registry import REQUIRED, register_analytic
 
 INF = float(np.inf)
 WEIGHT_ATTR = "latency"
@@ -127,6 +130,89 @@ def run_host(
     res = run_ibsp(provider, compute, pattern="sequential", workers=workers)
     return compute.result, res
 
+
+# --------------------------------------------------------------------------
+# Engine implementation: registered Gopher analytic
+# --------------------------------------------------------------------------
+
+def scalar_source(name: str, source) -> int:
+    """``source`` as one vertex; a sequence of sources is the query axis,
+    which is not ported yet."""
+    if isinstance(source, (list, tuple, np.ndarray)):
+        raise NotImplementedError(
+            f"{name}: a sequence of sources is the query axis, which is "
+            f"not ported yet (ROADMAP queue 1, item 2)")
+    return int(source)
+
+
+def _postprocess(ctx, res, **_params):
+    return {"final": res.final}
+
+
+@register_analytic(
+    "sssp",
+    pattern="sequential",
+    attr=WEIGHT_ATTR,
+    zero_fill=INF,
+    params={"source": REQUIRED, "subgraph_centric": True,
+            "max_supersteps": 64},
+    postprocess=_postprocess,
+    source_axis="source",
+    describe="temporal SSSP: sequentially dependent min-plus fixpoint, "
+             "distances carried between timesteps",
+)
+def _sssp_program(ctx, *, source, subgraph_centric, max_supersteps):
+    """Program factory for the ``"sssp"`` analytic: min-plus fixpoint
+    seeded at ``source``; the sequential pattern carries distances
+    across the instance axis (incremental aggregation)."""
+    from repro_torch.core.engine import min_plus_program, source_init
+
+    return min_plus_program(
+        "sssp", init=source_init(scalar_source("sssp", source)),
+        subgraph_centric=subgraph_centric, max_supersteps=max_supersteps,
+    )
+
+
+def run_blocked(
+    bg: BlockedGraph,
+    instance_weights: np.ndarray,  # (I, E) per-instance edge latency
+    source_vertex: int,
+    *,
+    subgraph_centric: bool = True,
+    use_pallas=None,
+    max_supersteps: int = 64,
+    comm="dense",
+    device="cuda",
+) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """Deprecated: use the Gopher session API —
+    ``GopherSession.from_blocked(bg, weights={"latency": w}).run(
+    session.plan("sssp", source=...))`` (``repro_torch.gopher``).  This
+    wrapper pins the legacy knobs (dense layout, sync staging) and returns
+    (final distances (V,), stats per timestep), bitwise identical to the
+    session path.
+    """
+    warnings.warn(
+        "sssp.run_blocked is deprecated; use repro_torch.gopher."
+        "GopherSession (session.run(session.plan('sssp', source=...)))",
+        DeprecationWarning, stacklevel=2,
+    )
+    from repro_torch.gopher import GopherSession
+
+    sess = GopherSession.from_blocked(
+        bg, weights={WEIGHT_ATTR: instance_weights},
+        use_pallas=use_pallas, device=device,
+    )
+    res = sess.run(sess.plan(
+        "sssp", source=source_vertex, subgraph_centric=subgraph_centric,
+        max_supersteps=max_supersteps,
+        layout="dense", comm=comm, staging="sync",
+    ))
+    return res.output["final"], res.engine.stats
+
+
+# --------------------------------------------------------------------------
+# numpy oracle (Bellman-Ford over the full graph, incremental across time)
+# --------------------------------------------------------------------------
 
 def oracle(
     src: np.ndarray, dst: np.ndarray, instance_weights: np.ndarray,

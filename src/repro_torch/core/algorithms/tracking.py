@@ -12,7 +12,7 @@ Host path: faithful Alg. 1 — DFS per subgraph, remote handoff messages,
 candidate sighting wavefronts as one multi-source pass on the engine's
 query axis, which is not ported yet (ROADMAP queue 1, item 2); its
 registered ``"tracking"`` Gopher analytic and the deprecated
-``run_blocked`` wrapper come with that item and the session (item 3).
+``run_blocked`` wrapper come with that item.
 """
 from __future__ import annotations
 

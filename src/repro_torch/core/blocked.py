@@ -39,7 +39,7 @@ Two instance-value layouts share this template structure:
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -48,6 +48,19 @@ from repro_torch.kernels.walk_plan import (
     WalkPlan, default_chunk, stack_plans, walk_plan)
 
 INF = float(np.inf)  # min-plus semiring zero (numpy-side copy)
+
+
+def _out_or_full(out: Optional[np.ndarray], shape: Tuple[int, ...],
+                 zero: float) -> np.ndarray:
+    """A flat float32 fill target of ``shape`` set to ``zero``: ``out``
+    (checked and reset in place) or a new array."""
+    if out is None:
+        return np.full(int(np.prod(shape)), zero, np.float32)
+    assert out.shape == tuple(shape), (out.shape, shape)
+    assert out.dtype == np.float32 and out.flags.c_contiguous
+    flat = out.reshape(-1)
+    flat[...] = zero
+    return flat
 
 
 def pow2_bucket(n: int) -> int:
@@ -210,12 +223,12 @@ class BlockedGraph:
     def _fill_batch(
         self, weights: np.ndarray, zero: float, part: np.ndarray,
         flat: np.ndarray, edge_id: np.ndarray, t_count: int,
-        slots_unique: bool,
+        out: Optional[np.ndarray], slots_unique: bool,
     ) -> np.ndarray:
         B = self.block_size
         I, P = weights.shape[0], self.n_parts
         per_inst = P * t_count * B * B
-        vals = np.full(I * per_inst, zero, np.float32)
+        vals = _out_or_full(out, (I, P, t_count, B, B), zero)
         slot = part.astype(np.int64) * (t_count * B * B) + flat
         idx = (np.arange(I, dtype=np.int64)[:, None] * per_inst + slot[None, :])
         if slots_unique:
@@ -245,23 +258,51 @@ class BlockedGraph:
 
     def fill_local_batch(
         self, weights: np.ndarray, zero: float = INF,
+        out: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        """Instance edge weights (I, E) -> local tiles (I, P, T, B, B)."""
+        """Instance edge weights (I, E) -> local tiles (I, P, T, B, B).
+
+        ``out``: optional (I, P, T, B, B) float32 buffer filled in place
+        (see ``alloc_batch_buffers``), so the prefetcher fills chunk
+        buffers it owns with no second copy."""
         return self._fill_batch(
             np.asarray(weights, np.float32), zero, self.le_part,
-            self.le_flat, self.le_edge_id, self.t_max,
+            self.le_flat, self.le_edge_id, self.t_max, out,
             self._local_slots_unique(),
         )
 
     def fill_boundary_batch(
         self, weights: np.ndarray, zero: float = INF,
+        out: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        """Instance edge weights (I, E) -> boundary tiles (I, P, Tb, B, B)."""
+        """Instance edge weights (I, E) -> boundary tiles (I, P, Tb, B, B).
+
+        ``out``: as in ``fill_local_batch``."""
         return self._fill_batch(
             np.asarray(weights, np.float32), zero, self.re_part,
-            self.re_flat, self.re_edge_id, self.tb_max,
+            self.re_flat, self.re_edge_id, self.tb_max, out,
             self._boundary_slots_unique(),
         )
+
+    def alloc_batch_buffers(
+        self, max_instances: int, *,
+        bucket: Optional[int] = None, bbucket: Optional[int] = None,
+        empty: Callable[[Tuple[int, ...]], np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Allocate one (local, boundary) fill-buffer pair sized for
+        ``max_instances`` — the unit the prefetcher fills.
+
+        ``bucket``/``bbucket`` size the tile axes for the sparse layout's
+        padded power-of-two buckets instead of the dense ``t_max``/
+        ``tb_max``.  ``empty(shape)`` makes each float32 buffer
+        (``np.empty`` by default); on CUDA the engine passes one that
+        hands out views of pinned host memory."""
+        B = self.block_size
+        make = empty or (lambda shape: np.empty(shape, np.float32))
+        return (make((max_instances, self.n_parts, bucket or self.t_max,
+                      B, B)),
+                make((max_instances, self.n_parts, bbucket or self.tb_max,
+                      B, B)))
 
     # ------------------------------------------------------- sparse staging
     # A tile is ACTIVE for an instance iff at least one edge mapping into it
@@ -312,6 +353,7 @@ class BlockedGraph:
     def pack_payload_tiles(
         self, ref: np.ndarray, payloads: np.ndarray, rc: np.ndarray,
         zero: float, *, bucket: Optional[int] = None,
+        out: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Reconstruct a packed batch from a delta-encoded tile chain.
 
@@ -320,12 +362,14 @@ class BlockedGraph:
         gather is a RAM copy, so a payload shared by many instances is
         decoded from the store only once.  Returns (vals, rows, cols, nnz)
         exactly as ``fill_local_batch_sparse`` would for the full weights:
-        ``pack_tile_index`` assigns the slots of both."""
+        ``pack_tile_index`` assigns the slots of both.  ``out``: a
+        buffer filled in place, as in ``fill_local_batch``."""
         B = self.block_size
         act = ref >= 0
         rows, cols, nnz, slot = self.pack_tile_index(act, rc, bucket=bucket)
         I, P, K = rows.shape
-        vals = np.full((I, P, K, B, B), zero, np.float32)
+        vals = _out_or_full(out, (I, P, K, B, B), zero).reshape(
+            I, P, K, B, B)
         for i in range(I):  # one instance's gather at a time: no temporary
             pp, tt = np.nonzero(act[i])  # the size of the whole batch
             vals[i, pp, slot[i, pp, tt]] = payloads[ref[i, pp, tt]]
@@ -334,8 +378,8 @@ class BlockedGraph:
     def _fill_batch_sparse(
         self, w: np.ndarray, zero: float, part: np.ndarray,
         flat: np.ndarray, edge_id: np.ndarray, t_count: int,
-        rc: np.ndarray, bucket: Optional[int], slots_unique: bool,
-        act: Optional[np.ndarray],
+        rc: np.ndarray, bucket: Optional[int], out: Optional[np.ndarray],
+        slots_unique: bool, act: Optional[np.ndarray],
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Packed-tile fill.  Returns (vals (I, P, K, B, B), rows (I, P, K),
         cols (I, P, K), nnz (I, P))."""
@@ -347,7 +391,7 @@ class BlockedGraph:
         assert act.shape == (I, P, t_count), act.shape
         rows, cols, nnz, slot = self.pack_tile_index(act, rc, bucket=bucket)
         K = rows.shape[2]
-        vals = np.full(I * P * K * B2, zero, np.float32)
+        vals = _out_or_full(out, (I, P, K, B, B), zero)
         if len(edge_id):
             tile_key = part.astype(np.int64) * t_count + flat // B2  # (L,)
             within = flat % B2
@@ -369,30 +413,33 @@ class BlockedGraph:
 
     def fill_local_batch_sparse(
         self, weights: np.ndarray, zero: float = INF, *,
-        bucket: Optional[int] = None, act: Optional[np.ndarray] = None,
+        bucket: Optional[int] = None, out: Optional[np.ndarray] = None,
+        act: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Instance edge weights (I, E) -> packed local tiles.
 
         Returns (vals (I, P, K, B, B), rows (I, P, K), cols (I, P, K),
         nnz (I, P)) with K = ``bucket`` or the pow2 bucket of the batch's
         max active-tile count.  ``act``: precomputed (I, P, T) active-tile
-        mask."""
+        mask; ``out``: a buffer filled in place, as in
+        ``fill_local_batch``."""
         return self._fill_batch_sparse(
             np.asarray(weights, np.float32), zero, self.le_part,
             self.le_flat, self.le_edge_id, self.t_max, self.tiles_rc,
-            bucket, self._local_slots_unique(), act,
+            bucket, out, self._local_slots_unique(), act,
         )
 
     def fill_boundary_batch_sparse(
         self, weights: np.ndarray, zero: float = INF, *,
-        bucket: Optional[int] = None, act: Optional[np.ndarray] = None,
+        bucket: Optional[int] = None, out: Optional[np.ndarray] = None,
+        act: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Instance edge weights (I, E) -> packed boundary tiles (see
         ``fill_local_batch_sparse``)."""
         return self._fill_batch_sparse(
             np.asarray(weights, np.float32), zero, self.re_part,
             self.re_flat, self.re_edge_id, self.tb_max, self.btiles_rc,
-            bucket, self._boundary_slots_unique(), act,
+            bucket, out, self._boundary_slots_unique(), act,
         )
 
     def active_tile_maps(

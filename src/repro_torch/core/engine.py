@@ -30,9 +30,15 @@ pow2-bucket tensors plus a per-instance tile index
 (bitwise for min-plus) because skipped tiles contribute exact semiring
 zeros.
 
+Staging can also be *overlapped* with execution (``staging="async"`` or an
+explicit ``stream=``): chunks of instances arrive from a
+:class:`repro_torch.gofs.prefetch.SlicePrefetcher` while the device
+executes the previous chunk — the paper's §V storage/compute overlap.  On
+CUDA each chunk is filled into pinned host memory and copied to the card
+on a side stream; the compute stream waits on the copy's event.
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: the query axis (``x0`` of rank 3), async staging and ``stream=``,
-``mesh=`` and ``cluster=``.
+item: the query axis (``x0`` of rank 3), ``mesh=`` and ``cluster=``.
 
 Stats are reported in the same :class:`repro_torch.core.ibsp.BSPStats`
 shape as the host engine, plus the device-to-host reads the halt votes
@@ -40,6 +46,7 @@ took (``stats["host_syncs"]``).
 """
 from __future__ import annotations
 
+import time
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -60,7 +67,7 @@ from repro_torch.core.superstep import (
     pagerank_step,
     resolve_device,
 )
-from repro_torch.kernels.walk_plan import to_device
+from repro_torch.kernels.walk_plan import WalkPlan, to_device
 
 PATTERNS = ("sequential", "independent", "eventually")
 
@@ -283,6 +290,17 @@ class TemporalEngine:
     measured active fraction).  Pre-staged ``tiles=``/``btiles=`` or
     ``sparse=`` choose the layout for one call.
 
+    **Staging**: ``"sync"`` fills the whole batch before running;
+    ``"async"`` cuts it into chunks of ``chunk_instances`` (default
+    ``ceil(I / 4)``) that a background prefetcher of ``prefetch_depth``
+    fills while the device runs the previous chunk.  ``stream=`` runs an
+    iterable of ``StagedChunk`` (``GoFSStore.load_blocked_stream``).  All
+    staging modes are result-identical (bitwise for min-plus);
+    ``last_stream_report`` records a streamed run's chunks and uploaded
+    bytes, the host seconds spent waiting for chunks and issuing their
+    uploads, and the seconds spent computing them (CUDA events on the
+    card, the host clock on the CPU).
+
     Example — one tiny graph, all three patterns:
 
     >>> import numpy as np
@@ -302,6 +320,10 @@ class TemporalEngine:
     (2, 4)
     >>> eng.run(sssp, w, pattern="eventually", merge="mean").merged
     array([0., 1., 1., 2.], dtype=float32)
+    >>> eng_async = TemporalEngine(bg, device="cpu", staging="async")
+    >>> bool(np.array_equal(eng_async.run(sssp, w, pattern="sequential").final,
+    ...                     eng.run(sssp, w, pattern="sequential").final))
+    True
     >>> eng_host = TemporalEngine(bg, device="cpu", comm="host")
     >>> bool(np.array_equal(eng_host.run(sssp, w, pattern="sequential").final,
     ...                     eng.run(sssp, w, pattern="sequential").final))
@@ -323,6 +345,8 @@ class TemporalEngine:
         mesh=None,
         use_pallas=None,
         staging: str = "sync",
+        prefetch_depth: int = 2,
+        chunk_instances: Optional[int] = None,
         comm: Union[str, CommBackend] = "dense",
         layout: str = "dense",
         cluster=None,
@@ -331,16 +355,18 @@ class TemporalEngine:
             raise _not_ported("mesh placement", "6")
         if cluster is not None:
             raise _not_ported("cluster placement", "7")
-        if staging == "async":
-            raise _not_ported("async staging", "3")
-        assert staging == "sync", staging
+        assert staging in ("sync", "async"), staging
         assert layout in ("dense", "sparse"), layout
         self.bg = bg
         self.device = resolve_device(device)
         self.kernel_mode = kernel_mode(use_pallas, self.device)
         self.staging = staging
+        self.prefetch_depth = prefetch_depth
+        self.chunk_instances = chunk_instances
         self.layout = layout
         self.comm = make_comm(comm)
+        self._copy_stream = None  # side stream of streamed uploads (CUDA)
+        self.last_stream_report: Optional[Dict[str, Any]] = None
         out_mask = np.arange(bg.o_max)[None, :] < bg.n_out[:, None]
 
         def put(a):
@@ -506,9 +532,15 @@ class TemporalEngine:
           tensors, or host arrays uploaded once per identity;
         * pre-staged ``sparse`` — a :class:`SparseBlocked` packed batch.
 
-        ``x0`` overrides ``program.init(bg)``.  ``merge="mean"`` computes
-        the on-device eventually-dependent Merge.  Both layouts are
-        result-identical (bitwise for min-plus)."""
+        * ``stream`` — an iterable of :class:`repro_torch.gofs.prefetch
+          .StagedChunk` (dense or sparse chunks; e.g.
+          ``GoFSStore.load_blocked_stream``): chunks execute as they land.
+
+        ``staging="async"`` (call or constructor) chunks ``instance_weights``
+        behind a background prefetcher.  ``x0`` overrides
+        ``program.init(bg)``.  ``merge="mean"`` computes the on-device
+        eventually-dependent Merge.  All staging modes and both layouts
+        are result-identical (bitwise for min-plus)."""
         return self.run_many(
             [RunSpec(program, pattern, x0=x0, merge=merge,
                      warm_start=warm_start)],
@@ -530,10 +562,11 @@ class TemporalEngine:
         """Execute N :class:`RunSpec` over ONE staged instance collection.
 
         The staged batch is materialized (and uploaded) exactly once and
-        every spec consumes it.  Programs must agree on ``zero_fill``;
-        everything else — pattern, fixpoint vs iterate, x0, merge — may
-        differ per spec.  Results are bitwise identical to running each
-        spec alone."""
+        every spec consumes it; with ``stream=`` (or async staging) one
+        pass over the chunks feeds all N specs.  Programs must agree on
+        ``zero_fill``; everything else — pattern, fixpoint vs iterate, x0,
+        merge — may differ per spec.  Results are bitwise identical to
+        running each spec alone."""
         specs = list(specs)
         assert specs, "run_many needs at least one RunSpec"
         for s in specs:
@@ -546,10 +579,8 @@ class TemporalEngine:
             f"programs disagree on zero_fill ({zero_fills}); they cannot " \
             f"share one staged batch — split into separate run_many calls"
         zero_fill = zero_fills.pop()
-        if stream is not None:
-            raise _not_ported("stream= (chunked prefetch staging)", "3")
-        if (staging or self.staging) != "sync":
-            raise _not_ported("async staging", "3")
+        staging = staging or self.staging
+        assert staging in ("sync", "async"), staging
         assert sparse is None or tiles is None, \
             "pass either sparse= or tiles=/btiles=, not both"
         if sparse is not None:
@@ -569,6 +600,28 @@ class TemporalEngine:
             if x0.ndim == 3:
                 raise _not_ported("the query axis (multi-source x0)", "2")
             x0s.append(torch.as_tensor(x0, device=self.device))
+
+        if (stream is None and staging == "async" and tiles is None
+                and sparse is None):
+            assert instance_weights is not None, \
+                "need instance_weights or pre-staged tiles+btiles"
+            from repro_torch.gofs.prefetch import SlicePrefetcher
+
+            w = np.asarray(instance_weights, np.float32)
+            if w.ndim == 1:
+                w = w[None]
+            # <= ~4 chunks by default: enough overlap, few staged shapes
+            chunk = self.chunk_instances or max(1, -(-w.shape[0] // 4))
+            stream = SlicePrefetcher.from_weights(
+                self.bg, w, zero=zero_fill,
+                prefetch_depth=self.prefetch_depth, chunk_instances=chunk,
+                layout=layout,
+            )
+        if stream is not None:
+            outs, occ = self._run_stream_many(specs, stream, x0s)
+            return [self._wrap_result(s.pattern, out, occ,
+                                      warm=s.effective_warm())
+                    for s, out in zip(specs, outs)]
 
         occ: Optional[float] = None
         if layout == "sparse":
@@ -602,14 +655,175 @@ class TemporalEngine:
             for s, x0 in zip(specs, x0s)
         ]
 
+    def _host_plans(self, batch) -> Dict[str, WalkPlan]:
+        """A packed batch's (``SparseBlocked`` or sparse ``StagedChunk``)
+        walk plans on the host, with a leading instance axis."""
+        return {"plan": self.bg.packed_plans(batch.cols, batch.nnz),
+                "bplan": self.bg.packed_plans(batch.bcols, batch.bnnz)}
+
     def _sparse_plans(self, sparse: SparseBlocked) -> Dict[str, Any]:
         """The packed batch's walk plans (leading instance axis) on the
         device, counters zeroed.  Built with the batch's upload, once per
         staged batch, never per kernel call."""
-        return {"plan": to_device(self.bg.packed_plans(
-                    sparse.cols, sparse.nnz), self.device),
-                "bplan": to_device(self.bg.packed_plans(
-                    sparse.bcols, sparse.bnnz), self.device)}
+        return {k: to_device(p, self.device)
+                for k, p in self._host_plans(sparse).items()}
+
+    # ------------------------------------------------------------ streamed
+    def _prepare_chunk(self, ch) -> Optional[Dict[str, WalkPlan]]:
+        """Run on the prefetcher's pool thread: a sparse chunk's host walk
+        plans, one build per chunk."""
+        return self._host_plans(ch) if ch.is_sparse else None
+
+    def _chunk_plans(self, ch) -> Optional[Dict[str, WalkPlan]]:
+        """A sparse chunk's walk plans on the device (built on the pool
+        thread when the stream ran ``_prepare_chunk``); None when dense."""
+        if not ch.is_sparse:
+            return None
+        host = ch.prepared if ch.prepared is not None \
+            else self._host_plans(ch)
+        return {k: to_device(p, self.device) for k, p in host.items()}
+
+    def _upload_chunk(self, ch):
+        """A chunk's arrays (and a sparse chunk's walk plans) on the
+        device.  CPU: the tensors alias the chunk's buffers.  CUDA: the
+        copies run on a side stream (``non_blocking`` from the chunk's
+        pinned buffer), the compute stream waits on their event, and the
+        pinned buffer goes back to its ring with that event.  Nothing
+        here waits for the device."""
+        arrays = (ch.tiles, ch.btiles)
+        if ch.is_sparse:
+            arrays += (ch.rows, ch.cols, ch.brows, ch.bcols)
+        if self.device.type != "cuda":
+            bufs = tuple(_device_put(a, self.device) for a in arrays)
+            return bufs, self._chunk_plans(ch)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        side = self._copy_stream
+        compute = torch.cuda.current_stream(self.device)
+        made, plans = [], None
+        done = torch.cuda.Event()
+        try:  # whatever happens, the pinned buffer goes back to its ring
+            with torch.cuda.stream(side):
+                for a in arrays:
+                    src = torch.from_numpy(np.ascontiguousarray(a))
+                    d = torch.empty(src.shape, dtype=src.dtype,
+                                    device=self.device)
+                    d.copy_(src, non_blocking=True)
+                    made.append(d)
+                plans = self._chunk_plans(ch)
+                if plans is not None:
+                    made += [t for p in plans.values() for t in (
+                        p.run_ptr, p.chunks, p.first, p.count, p.counters)]
+        finally:
+            done.record(side)
+            ch.release(done)
+        compute.wait_event(done)
+        for t in made:  # allocated on the side stream, used on compute
+            t.record_stream(compute)
+        return tuple(made[:len(arrays)]), plans
+
+    def _run_stream_many(self, specs: Sequence[RunSpec], chunks, x0s):
+        """Consume a chunk stream (SlicePrefetcher or any iterable of
+        StagedChunk) ONCE, feeding every spec: each chunk is uploaded a
+        single time, then run by all N specs before the next chunk is
+        pulled — so slice reads + tile fills (on the prefetcher's pool)
+        overlap the whole fan-out, and N analytics cost one staging pass.
+        Sequential and warm specs carry their end state across chunk
+        boundaries; eventually Merges fold once over the concatenated
+        states.  Streamed chunks never enter the staged-batch cache.
+        Returns ([(xs, final, merged, stats)] per spec, occupancy | None).
+        """
+        from repro_torch.gofs.prefetch import pinned_ring
+
+        cuda = self.device.type == "cuda"
+        # a SlicePrefetcher (or a wrapper that forwards ``bind``) fills
+        # pinned buffers on CUDA and builds walk plans on its pool thread
+        bind = getattr(chunks, "bind", None)
+        if bind is not None:
+            bind(pinned_ring(self.device) if cuda else None,
+                 self._prepare_chunk)
+        N = len(specs)
+        xs_p: List[list] = [[] for _ in range(N)]
+        st_p: List[list] = [[] for _ in range(N)]
+        carry = list(x0s)
+        n_total = nnz_total = up_bytes = 0
+        sparse_seen = False
+        wait_s = upload_s = host_s = 0.0
+        marks = []  # CUDA events around each chunk's compute
+        it = iter(chunks)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                ch = next(it, None)
+                t1 = time.perf_counter()
+                wait_s += t1 - t0
+                if ch is None:
+                    break
+                n = int(ch.tiles.shape[0])
+                n_total += n
+                if ch.is_sparse:
+                    sparse_seen = True
+                    nnz_total += int(ch.nnz.sum()) + int(ch.bnnz.sum())
+                bufs, plans = self._upload_chunk(ch)
+                up_bytes += sum(int(b.nbytes) for b in bufs)
+                idx = bufs[2:] if ch.is_sparse else None
+                del ch  # a CPU chunk's buffers live on in the tensors
+                t2 = time.perf_counter()
+                upload_s += t2 - t1
+                if cuda:
+                    marks.append((torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True)))
+                    marks[-1][0].record()
+                for k, s in enumerate(specs):
+                    warm_k = s.effective_warm()
+                    # warm chunks chain exactly like sequential: the carry
+                    # is the last instance's converged state, which seeds
+                    # the next chunk's first instance
+                    seed = carry[k] if (s.pattern == "sequential"
+                                        or warm_k) else x0s[k]
+                    xs, fin, _, stats = self._scan_instances(
+                        s.program, s.pattern, None, seed, bufs[0], bufs[1],
+                        idx=idx, plans=plans, warm=warm_k)
+                    carry[k] = fin
+                    xs_p[k].append(xs)
+                    st_p[k].append(stats)
+                if cuda:
+                    marks[-1][1].record()
+                host_s += time.perf_counter() - t2
+                del bufs, idx, plans
+        finally:
+            if bind is not None:
+                bind()
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+        outs = []
+        for k, s in enumerate(specs):
+            assert xs_p[k], "empty instance stream"
+            xs = torch.cat(xs_p[k]) if len(xs_p[k]) > 1 else xs_p[k][0]
+            stats = {key: np.concatenate([st[key] for st in st_p[k]])
+                     for key in st_p[k][0]}
+            merged = torch.mean(xs, dim=0) \
+                if s.pattern == "eventually" and s.merge == "mean" else None
+            outs.append((xs, carry[k], merged, stats))
+        occ = None
+        if sparse_seen:
+            total = n_total * (int(self.bg.n_tiles.sum())
+                               + int(self.bg.n_btiles.sum()))
+            occ = nnz_total / total if total else 0.0
+        if cuda:
+            marks[-1][1].synchronize()  # the compute stream's last chunk
+            compute_s = sum(a.elapsed_time(b) for a, b in marks) / 1e3
+        else:
+            compute_s = host_s
+        self.last_stream_report = {
+            "chunks": len(st_p[0]), "instances": n_total,
+            "uploaded_bytes": up_bytes,
+            "wait_seconds": wait_s, "upload_seconds": upload_s,
+            "compute_seconds": compute_s,
+            "compute_clock": "cuda events" if cuda else "host",
+        }
+        return outs, occ
 
     def _wrap_result(self, pattern: str, out, occ: Optional[float],
                      warm: bool = False) -> EngineResult:

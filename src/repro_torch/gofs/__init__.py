@@ -8,8 +8,9 @@ slice caching (§V-E).  ``GoFSStore`` implements the iBSP engine's
 ``InstanceProvider`` protocol — Gopher-on-GoFS, as co-designed in the
 paper — and stages blocked batches for ``TemporalEngine``.
 
-Not ported yet: appending to a deployed collection (ROADMAP queue 1,
-item 5) and the slice prefetcher behind streamed loads (item 3).
+``gofs.prefetch.SlicePrefetcher`` stages streamed loads ahead of the
+engine.  Not ported yet: appending to a deployed collection (ROADMAP
+queue 1, item 5).
 """
 from repro_torch.gofs.cache import SliceCache
 from repro_torch.gofs.layout import deploy_collection

@@ -6,11 +6,11 @@ Counterpart of ``repro.gofs.store``; it reads the same on-disk format.
 ``GoFSStore`` implements ``repro_torch.core.ibsp.InstanceProvider`` so the
 host iBSP engine runs directly on GoFS, and ``load_blocked`` stages an
 edge attribute into the blocked batches ``TemporalEngine`` runs on the
-card.  The API only touches slices of the local deployment root.
+card (``load_blocked_stream``: chunk by chunk, behind a prefetcher).  The
+API only touches slices of the local deployment root.
 
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``refresh`` and ``append_instances`` (streaming ingestion, item 5)
-and ``load_blocked_stream`` (async staging, item 3).
+item: ``refresh`` and ``append_instances`` (streaming ingestion, item 5).
 """
 from __future__ import annotations
 
@@ -554,11 +554,110 @@ class GoFSStore(InstanceProvider):
         return bg.fill_local_batch(w, zero=zero), \
             bg.fill_boundary_batch(w, zero=zero)
 
-    def load_blocked_stream(self, bg, name: str, **kw):
-        """Streaming variant of ``load_blocked`` (chunks staged by a
-        background prefetcher while the engine runs).  Not ported yet."""
-        raise _not_ported("GoFSStore.load_blocked_stream (async staging)",
-                          "3")
+    def load_blocked_stream(
+        self,
+        bg,
+        name: str,
+        *,
+        zero: float = np.inf,
+        prefetch_depth: int = 2,
+        chunk_instances: Optional[int] = None,
+        num_workers: int = 1,
+        inflight: Optional[int] = None,
+        layout: str = "dense",
+        delta: Optional[bool] = None,
+        transform=None,
+    ):
+        """Streaming variant of ``load_blocked``: a
+        :class:`~repro_torch.gofs.prefetch.SlicePrefetcher` yielding
+        instance chunks as their (bin, pack) slices land, so the engine
+        can execute chunk *k* while chunk *k+1* stages
+        (``TemporalEngine.run(..., stream=...)`` / ``staging="async"``).
+
+        ``chunk_instances`` defaults to the deployment's temporal pack size
+        (``instances_per_slice``) — the natural disk grain: one chunk reads
+        each (partition, bin) attribute slice of one time pack exactly once.
+
+        ``layout="sparse"`` stages packed active-tile chunks; when the
+        deployment recorded tile maps for this attribute, the stream-wide
+        pow2 bucket is pinned from the maps up front (one staged shape for
+        the whole stream, no value read needed), else each chunk buckets
+        itself.
+
+        ``delta``: as in ``load_blocked`` — a validated delta tile chain
+        makes each chunk a payload-pool reconstruction (unique tile bytes
+        staged once per chunk, reported via ``StagedChunk.staged_bytes``)
+        with no per-chunk value-slice reads; stale/corrupt chains fall
+        back to the full read+fill path.  ``transform``: per-instance
+        row-wise derived weights computed chunk-wise on the prefetch pool
+        (see :class:`~repro_torch.gofs.prefetch.SlicePrefetcher`);
+        transformed values bypass the delta chain and recorded buckets,
+        which describe the RAW attribute.
+        """
+        from repro_torch.gofs.prefetch import SlicePrefetcher, StagedChunk
+
+        if layout not in ("dense", "sparse"):
+            raise ValueError(f"layout must be 'dense' or 'sparse', got "
+                             f"{layout!r}")
+        chunk = int(chunk_instances or self.ipack)
+        if layout == "sparse" and delta is not False and transform is None:
+            chain = self._delta_chain(
+                bg, name, zero, range(self.num_timesteps())
+            )
+            if chain is not None:
+                ref_l, ref_b, pay_l, pay_b = chain
+                # stream-wide pow2 buckets straight from the refs: exact,
+                # and identical to the bulk delta load's bucket choice
+                lnnz = (ref_l >= 0).sum(-1)
+                bnz = (ref_b >= 0).sum(-1)
+                buck = pow2_bucket(int(lnnz.max()) if lnnz.size else 0)
+                bbuck = pow2_bucket(int(bnz.max()) if bnz.size else 0)
+                B2 = bg.block_size * bg.block_size
+
+                def stage_delta_chunk(s: int, e: int, alloc) -> StagedChunk:
+                    rl, rb = ref_l[s:e], ref_b[s:e]
+                    out_l, out_b = alloc(e - s, buck, bbuck)
+                    tiles, rows, cols, nnz = bg.pack_payload_tiles(
+                        rl, pay_l, bg.tiles_rc, zero, bucket=buck,
+                        out=out_l)
+                    btiles, brows, bcols, bn = bg.pack_payload_tiles(
+                        rb, pay_b, bg.btiles_rc, zero, bucket=bbuck,
+                        out=out_b)
+                    uniq = (len(np.unique(rl[rl >= 0]))
+                            + len(np.unique(rb[rb >= 0])))
+                    staged = int(uniq) * B2 * 4 + int(
+                        rows.nbytes + cols.nbytes
+                        + brows.nbytes + bcols.nbytes)
+                    return StagedChunk(
+                        start=s, count=e - s, tiles=tiles, btiles=btiles,
+                        rows=rows, cols=cols, brows=brows, bcols=bcols,
+                        nnz=nnz, bnnz=bn, staged_bytes=staged)
+
+                return SlicePrefetcher(
+                    bg, None, self.num_timesteps(), zero=zero,
+                    prefetch_depth=prefetch_depth, chunk_instances=chunk,
+                    num_workers=num_workers, inflight=inflight,
+                    layout=layout, stage_fn=stage_delta_chunk,
+                )
+        bucket = bbucket = None
+        if layout == "sparse" and transform is None:
+            buckets = self.sparse_buckets(bg, name, zero=zero)
+            if buckets is not None:
+                bucket, bbucket = buckets
+        return SlicePrefetcher(
+            bg,
+            lambda s, e: self.edge_attr_rows(name, range(s, e)),
+            self.num_timesteps(),
+            zero=zero,
+            prefetch_depth=prefetch_depth,
+            chunk_instances=chunk,
+            num_workers=num_workers,
+            inflight=inflight,
+            layout=layout,
+            bucket=bucket,
+            bbucket=bbucket,
+            transform=transform,
+        )
 
     # ---------------- internals -------------------------------------------
     def _load(self, pid: int, slice_name: str) -> Dict[str, np.ndarray]:

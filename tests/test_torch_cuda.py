@@ -675,3 +675,129 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch, dtype, tol):
                                    atol=tol)
     assert flash_attention_cuda.launches == before[0] + cfg.num_layers
     assert decode_attention_cuda.launches == before[1] + 3 * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# async and streamed staging on the card (pinned ring, side-stream copies)
+# ---------------------------------------------------------------------------
+
+def _deployed_tiny(tmp_path):
+    from repro_torch.gofs import GoFSStore, deploy_collection
+
+    col = generate_collection(TR_TINY)
+    t = col.template
+    assign = partition_graph(t, TR_TINY.num_partitions, seed=TR_TINY.seed)
+    bg = build_blocked(t, assign, TR_TINY.block_size)
+    root = str(tmp_path / "gofs")
+    deploy_collection(col, TR_TINY, root, assign=assign,
+                      sparse_absent={"latency": float("inf")})
+    lat = np.stack([col.edge_values(i, "latency") for i in range(len(col))])
+    act = np.stack([col.edge_values(i, "active") for i in range(len(col))])
+    return col, bg, GoFSStore(root), lat, act
+
+
+def _same_run(got, want):
+    assert np.array_equal(got.values, want.values, equal_nan=True)
+    assert np.array_equal(got.final, want.final, equal_nan=True)
+    for k in ("supersteps", "local_sweeps"):
+        assert np.array_equal(got.stats[k], want.stats[k])
+
+
+@pytest.mark.parametrize("mode", ["spmv", "fused"])
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_async_and_streamed_match_sync_on_card(cuda, tmp_path, mode,
+                                               layout):
+    """An async run (in-memory weights) and a streamed run (a GoFS stream:
+    dense, or sparse from the delta chain) on the card equal the sync run
+    bitwise, min-plus and plus-mul alike; streamed chunks leave no device
+    copy in the engine's staged-batch cache."""
+    from repro_torch.gofs.prefetch import pinned_ring
+
+    col, bg, store, lat, act = _deployed_tiny(tmp_path)
+    t = col.template
+    sssp = T.min_plus_program("sssp", init=T.source_init(0))
+    eng = T.TemporalEngine(bg, use_pallas=mode, layout=layout)
+    eng_async = T.TemporalEngine(bg, use_pallas=mode, layout=layout,
+                                 staging="async", chunk_instances=2)
+    eng_stream = T.TemporalEngine(bg, use_pallas=mode)
+    for pattern in ("sequential", "independent"):
+        want = eng.run(sssp, lat, pattern=pattern)
+        _same_run(eng_async.run(sssp, lat, pattern=pattern), want)
+        got = eng_stream.run(sssp, pattern=pattern,
+                             stream=store.load_blocked_stream(
+                                 bg, "latency", layout=layout,
+                                 chunk_instances=2))
+        _same_run(got, want)
+        assert len(eng_stream._staged_device) == 0
+        assert len(eng_async._staged_device) == 0
+        rep = eng_stream.last_stream_report
+        assert rep["compute_clock"] == "cuda events"
+        assert rep["chunks"] == 3 and rep["compute_seconds"] > 0
+    prw = edge_weights_for_instances(t.src, act, t.num_vertices)
+    pr = T.pagerank_program(t.num_vertices, iters=6)
+    want = eng.run(pr, prw, pattern="eventually", merge="mean")
+    got = eng_async.run(pr, prw, pattern="eventually", merge="mean")
+    assert np.array_equal(got.values, want.values)
+    assert np.array_equal(got.merged, want.merged)
+    assert pinned_ring(cuda).peak_bytes > 0
+
+
+def test_pinned_buffer_not_rewritten_before_its_copy(cuda, tmp_path):
+    """A slow consumer with inflight 1: each chunk's copy is held back on
+    the side stream (``torch.cuda._sleep``) after its pinned buffer is
+    released.  The producer runs ahead meanwhile, so a buffer refilled
+    before its copy's event completed would reach the card with another
+    chunk's tiles; every copy must equal the chunk as it was handed over,
+    and the ring must stay within window + 2 buffers."""
+    from repro_torch.gofs.prefetch import PinnedRing, SlicePrefetcher
+
+    col, bg, store, lat, act = _deployed_tiny(tmp_path)
+    w = np.concatenate([lat, lat * 2.0, lat * 3.0])
+    pf = SlicePrefetcher.from_weights(bg, w, zero=float("inf"),
+                                      chunk_instances=1, prefetch_depth=2,
+                                      inflight=1)
+    ring = PinnedRing()
+    pf.ring = ring
+    side = torch.cuda.Stream(cuda)
+    try:
+        for k, ch in enumerate(pf):
+            snap = ch.tiles.copy()
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(50_000_000)  # the copy starts late
+                dev = torch.empty(snap.shape, device=cuda)
+                dev.copy_(torch.from_numpy(ch.tiles), non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+            ch.release(ev)
+            del ch
+            ev.synchronize()
+            assert np.array_equal(dev.cpu().numpy(), snap), k
+            assert len(ring._slots) <= pf.window + 2
+    finally:
+        ring.close()
+
+
+def test_session_on_card_matches_cpu(cuda, tmp_path):
+    """The session on the card plans its kernel by the auto rule, takes
+    fused under an override, and its runs (streamed, sync, the sparse
+    delta route) equal the CPU session bitwise; its streams fill pinned
+    buffers."""
+    from repro_torch.gofs.prefetch import pinned_ring, release_pinned
+    from repro_torch.gopher import GopherSession
+
+    col, bg, store, lat, act = _deployed_tiny(tmp_path)
+    release_pinned()
+    gpu = GopherSession(store, device="cuda")
+    cpu = GopherSession(store, device="cpu")
+    plan = gpu.plan("sssp", source=0)
+    assert plan.kernel.value in ("spmv", "fused")
+    assert plan.kernel.source == "auto"
+    for kw in (dict(), dict(kernel="fused"), dict(staging="sync"),
+               dict(layout="sparse", kernel="fused")):
+        got = gpu.run(gpu.plan("sssp", source=0, **kw))
+        ckw = {k: v for k, v in kw.items() if k != "kernel"}
+        want = cpu.run(cpu.plan("sssp", source=0, **ckw))
+        _same_run(got.engine, want.engine)
+        assert gpu.last_run_report == cpu.last_run_report
+    # the session's streams filled pinned buffers
+    assert pinned_ring(cuda).peak_bytes > 0

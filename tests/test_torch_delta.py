@@ -8,6 +8,13 @@ equals its full sparse load and the reference's, moving fewer bytes; a
 stale or corrupt chain falls back to the full value slices in both
 packages alike; and ``BlockedGraph``'s ``pack_payload_tiles``,
 ``active_tile_maps`` and ``sparse_buckets`` equal the reference's.
+
+Streamed (``tests/test_delta.py``'s stream cases): delta chunks from
+``load_blocked_stream`` equal the full load and the reference's chunks,
+with the same deduped bytes; a stale chain streams from the value slices;
+warm seeds staged asynchronously, the planner's delta and warm picks, the
+session's streamed delta route and PageRank's row-wise stream equal the
+reference.
 """
 import dataclasses
 import os
@@ -183,12 +190,13 @@ def _corrupt(root, **overrides):
     write_array_slice(path, arrs)
 
 
-@pytest.mark.parametrize("mutation", ["refs_out_of_range", "wrong_block",
-                                      "truncated_pool", "missing_file",
-                                      "wrong_absent", "unreadable"])
-def test_stale_or_corrupt_delta_falls_back_to_full(env, tmp_path, mutation):
-    """A stale or corrupt chain: the load takes the full value slices and
-    gives the full fill, in the port as in the reference."""
+MUTATIONS = ["refs_out_of_range", "wrong_block", "truncated_pool",
+             "missing_file", "wrong_absent", "unreadable"]
+
+
+def _mutated_root(env, tmp_path, mutation):
+    """A fresh deployment of the collection whose chain is made stale or
+    corrupt by ``mutation``."""
     droot = str(tmp_path / "gofs")
     deploy_collection(env["col"], CFG, droot,
                       sparse_absent={"latency": INF})
@@ -209,6 +217,14 @@ def test_stale_or_corrupt_delta_falls_back_to_full(env, tmp_path, mutation):
             f.truncate(64)
     else:
         os.remove(path)
+    return droot
+
+
+@pytest.mark.parametrize("mutation", MUTATIONS)
+def test_stale_or_corrupt_delta_falls_back_to_full(env, tmp_path, mutation):
+    """A stale or corrupt chain: the load takes the full value slices and
+    gives the full fill, in the port as in the reference."""
+    droot = _mutated_root(env, tmp_path, mutation)
     out = _store(droot).load_blocked(env["bg"], "latency", zero=INF,
                                      layout="sparse", delta=True)
     ref = _store(env["root"]).load_blocked(env["bg"], "latency", zero=INF,
@@ -291,3 +307,141 @@ def test_blocked_methods_match_reference(env, zero):
             want = jbg.pack_payload_tiles(ref, pay, rc, zero, bucket=bucket)
             for a, b in zip(got, want):
                 _eq(a, b)
+
+
+# ------------------------------------------------------------ streamed
+def _stream(root, bg, **kw):
+    with _store(root).load_blocked_stream(bg, "latency", zero=INF,
+                                          layout="sparse", **kw) as pf:
+        return list(pf)
+
+
+def _cat(chunks, f):
+    return np.concatenate([getattr(c, f) for c in chunks])
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_delta_stream_bitwise_matches_full(env, chunk):
+    """Streamed delta chunks (stream-wide buckets from the refs) equal the
+    full sparse load and the reference's stream chunk for chunk, and
+    report the deduped bytes."""
+    full = _store(env["root"]).load_blocked(env["bg"], "latency", zero=INF,
+                                            layout="sparse", delta=False)
+    got = _stream(env["root"], env["bg"], delta=True, chunk_instances=chunk)
+    with JGoFSStore(env["jroot"], cache_slots=CFG.cache_slots
+                    ).load_blocked_stream(env["jbg"], "latency", zero=INF,
+                                          layout="sparse", delta=True,
+                                          chunk_instances=chunk) as jpf:
+        want = list(jpf)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for f in FIELDS:
+            _eq(getattr(g, f), getattr(w, f), f)
+        assert g.staged_bytes is not None
+        assert g.staged_bytes == w.staged_bytes
+    for f in FIELDS:
+        _eq(_cat(got, f), getattr(full, f), f)
+    assert sum(c.staged_bytes for c in got) < full.staged_bytes()
+
+
+@pytest.mark.parametrize("mutation", MUTATIONS)
+def test_stale_or_corrupt_delta_stream_falls_back(env, tmp_path, mutation):
+    """The stream half of the fallback cases: a stale or corrupt chain
+    streams from the full value slices (no chunk reports deduped bytes),
+    equal to the full load."""
+    droot = _mutated_root(env, tmp_path, mutation)
+    got = _stream(droot, env["bg"], delta=True, chunk_instances=2)
+    ref = _store(env["root"]).load_blocked(env["bg"], "latency", zero=INF,
+                                           layout="sparse", delta=False)
+    assert all(c.staged_bytes is None for c in got)
+    for f in FIELDS:
+        _eq(_cat(got, f), getattr(ref, f), f)
+
+
+def test_warm_start_streamed_parity(env):
+    """A warm-started run staged asynchronously equals the cold sync run
+    (the collection is monotone-improving) and the reference's warm
+    async run, supersteps included."""
+    import repro.core.engine as J
+    import repro_torch.core.engine as T
+
+    w = env["weights"]
+    prog = T.min_plus_program("sssp", init=T.source_init(0))
+    eng = T.TemporalEngine(env["bg"], device="cpu")
+    cold = eng.run(prog, w, pattern="independent")
+    warm = eng.run(prog, w, pattern="independent", warm_start=True,
+                   staging="async")
+    _eq(cold.values, warm.values)
+    assert warm.warm_start and eng.last_stream_report["chunks"] == 3
+    jwarm = J.TemporalEngine(env["jbg"]).run(
+        J.min_plus_program("sssp", init=J.source_init(0)), w,
+        pattern="independent", warm_start=True, staging="async")
+    _eq(warm.values, jwarm.values)
+    for k in ("supersteps", "local_sweeps"):
+        _eq(warm.stats[k], jwarm.stats[k], k)
+
+
+def _sessions(env):
+    from repro.gofs import GoFSStore as JStore
+    from repro.gopher import GopherSession as JSession
+    from repro_torch.gopher import GopherSession
+
+    return (GopherSession(_store(env["root"]), device="cpu"),
+            JSession(JStore(env["jroot"], cache_slots=CFG.cache_slots)))
+
+
+def test_planner_auto_selects_delta_and_warm(env):
+    """On a monotone slowly varying collection both planners pick the
+    sparse layout, the delta route and warm seeds, for the same reasons
+    and estimates."""
+    sess, jsess = _sessions(env)
+    p = sess.plan("sssp", source=0, pattern="independent")
+    j = jsess.plan("sssp", source=0, pattern="independent")
+    assert p.layout.value == "sparse"
+    assert p.delta.value is True and p.delta.source == "auto"
+    assert p.warm.value is True and p.warm.source == "auto"
+    for f in ("layout", "comm", "staging", "delta", "warm", "placement"):
+        a, b = getattr(p, f), getattr(j, f)
+        assert (a.value, a.source, a.reason) == (b.value, b.source,
+                                                 b.reason), f
+    assert p.estimates == j.estimates and p.params == j.params
+    assert p.kernel.value == j.kernel.value == "off"
+
+
+def test_session_delta_warm_end_to_end(env):
+    """The auto plan (streamed delta chunks, warm seeds) equals the
+    reference's run and the port's cold full-route run; its staged bytes
+    are the deduped bytes, as in the reference's report."""
+    sess, jsess = _sessions(env)
+    auto = sess.run(sess.plan("sssp", source=0, pattern="independent"))
+    rep = dict(sess.last_run_report)
+    jauto = jsess.run(jsess.plan("sssp", source=0, pattern="independent"))
+    assert rep == jsess.last_run_report
+    _eq(auto.engine.values, jauto.engine.values)
+    for k in ("supersteps", "local_sweeps"):
+        _eq(auto.engine.stats[k], jauto.engine.stats[k], k)
+    sess2, _ = _sessions(env)
+    cold = sess2.run(sess2.plan("sssp", source=0, pattern="independent",
+                                delta=False, warm=False))
+    _eq(auto.engine.values, cold.engine.values)
+    assert auto.engine.warm_start and not cold.engine.warm_start
+    assert rep["staged_bytes"] < sess2.last_run_report["staged_bytes"]
+
+
+def test_rowwise_transform_streams_async(env):
+    """PageRank's row-wise transform streams on the prefetch pool: one
+    staging pass, equal to the sync (materialized) plan bitwise and to the
+    reference within rtol 1e-5 / atol 1e-7."""
+    sess, jsess = _sessions(env)
+    plan = sess.plan("pagerank")
+    assert plan.staging.value == "async"
+    got = sess.run(plan)
+    assert sess.last_run_report["staging_passes"] == 1
+    sess2, _ = _sessions(env)
+    ref = sess2.run(sess2.plan("pagerank", staging="sync"))
+    _eq(got.output["ranks"], ref.output["ranks"])
+    want = jsess.run(jsess.plan("pagerank"))
+    assert sess.last_run_report == jsess.last_run_report
+    np.testing.assert_allclose(got.output["ranks"],
+                               np.asarray(want.output["ranks"]),
+                               rtol=1e-5, atol=1e-7)

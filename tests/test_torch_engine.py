@@ -208,12 +208,9 @@ def test_not_ported_paths_raise(slice_env):
     with pytest.raises(NotImplementedError, match="query axis.*item 2"):
         eng.run(prog, w, pattern="sequential",
                 x0=np.stack([prog.init(bg)] * 2))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        eng.run(prog, w, pattern="sequential", staging="async")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        eng.run(prog, pattern="sequential", stream=iter(()))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        T.TemporalEngine(bg, device="cpu", staging="async")
+    with pytest.raises(NotImplementedError, match="query axis.*item 2"):
+        eng.run(prog, w, pattern="sequential", staging="async",
+                x0=np.stack([prog.init(bg)] * 2))
     with pytest.raises(NotImplementedError, match="item 6"):
         T.TemporalEngine(bg, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -245,8 +245,6 @@ def test_append_is_not_ported(deployments, col):
         store.refresh()
     with pytest.raises(NotImplementedError, match="item 5"):
         store.append_instances(col)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        store.load_blocked_stream(None, "latency")
 
 
 # ---------------------------------------------------------------------------
