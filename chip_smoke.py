@@ -25,6 +25,14 @@ Phases (any failure exits non-zero before the result lines):
    relative of the float64 oracle), one eventually/``merge="mean"`` run
    and one sparse-layout run on a few instances; the graph kernels'
    launches are counted by call shape (:func:`call_shapes`);
+5b. the query axis (``query_phase``): SSSP with 32 sources (QUERY_LANES)
+   as one engine pass over phase 5's staged batch, all 48 instances, in
+   spmv and fused mode: every lane bitwise equal across the modes and to
+   its own single-source run (all 32 run alone and timed), lane 0 to
+   phase 5's run; the batched run's launches equal its vote reads, at
+   least the slowest lanes' count and under the single runs' sum; its
+   launches are counted by call shape on their own, and both kernels
+   must have launched in their Q-lane form;
 6. the same graph path from a GoFS deployment (``gofs_path``): the
    collection deployed with ``deploy_collection`` (latency tile maps and
    the delta chain) into a temporary directory; host iBSP SSSP
@@ -44,9 +52,15 @@ Phases (any failure exits non-zero before the result lines):
    pagerank within :func:`plus_mul_limit` of the store PageRank, nhop's
    histograms equal to ``nhop.oracle``; and the sparse override (the
    streamed delta route, fused), bitwise equal, with its source bytes
-   beside its staged bytes; each step's wall time, the seconds the
-   engine waited on chunks against the seconds it computed, peak pinned
-   bytes, peak device memory and host peak RSS.  The graph kernels'
+   beside its staged bytes; then the query axis through the session:
+   SSSP with phase 5b's 32 sources streamed from the store, every lane
+   bitwise equal to phase 5b's; N-hop with 4 sources, lane 0 equal to
+   the ``run_many`` histograms and the others to ``nhop.oracle`` on the
+   first and last instance; ``tracking`` of the plate seen in the most
+   timesteps, its trace equal to host iBSP ``tracking.run_host`` on the
+   store; each step's wall time, the seconds the engine waited on chunks
+   against the seconds it computed, peak pinned bytes, peak device
+   memory and host peak RSS.  The graph kernels'
    launches on this path are counted by call shape, and the session's
    on their own;
 7. each graph kernel at that path's shapes, with the engine's walk
@@ -55,7 +69,14 @@ Phases (any failure exits non-zero before the result lines):
    share, and, for plus-mul, one PyTorch call computing the same
    function (a dense batched product); then a skewed control, partition
    0's boundary runs gathered into one output block, held against plain
-   and timed;
+   and timed; then each call shape in its Q-lane form at Q = 1, 4 and
+   32 (QUERY_SWEEP), min-plus bitwise and plus-mul within
+   :func:`plus_mul_limit`, timed beside the plain version and, for
+   plus-mul, ``torch.bmm`` over the lanes; a skewed control at Q = 32;
+   and wrong controls that must fail the comparison (lanes rolled by
+   one; a plus-mul tile dropped). Bounds: bytes over HBM bandwidth, or
+   FP32 instructions (an add-min pair is two, an FMA one) over FP32_ISSUE,
+   whichever is larger;
 8. the LM serving path: starcoder2-7b at full width and depth, random
    weights, ``BatchedServer`` answering 4 prompts of 8,192 tokens with 32
    new tokens each (finite logits, no padded-vocab token, a second run
@@ -79,9 +100,10 @@ Phases (any failure exits non-zero before the result lines):
 11. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
-Each main path (graph, GoFS graph, the session within it, serving) runs
-with every kernel's launch count set to 0 just before it and read just
-after; a kernel of the path that was not launched fails the smoke.
+Each main path (graph, query, GoFS graph, the session within it,
+serving) runs with every kernel's launch count set to 0 just before it
+and read just after; a kernel of the path that was not launched fails
+the smoke.
 
 It imports nothing of the JAX package.
 """
@@ -107,6 +129,12 @@ ORACLE_TOL = 1e-4
 # HBM bandwidth of the one card this smoke has run on (H100 SXM data
 # sheet), bytes/s
 HBM_CARD, HBM_RATE = "H100 80GB HBM3", 3.35e12
+# FP32 instructions a second on the CUDA cores of that card: the data
+# sheet's 67 TFLOP/s counts an FMA as two operations (132 SMs x 128 lanes
+# x 1.98 GHz); an add or a min is one instruction, as an FMA is
+FP32_ISSUE = 67e12 / 2
+# lanes of the Q-lane kernel sweep (phase 7)
+QUERY_SWEEP = (1, 4, 32)
 
 
 class SmokeFailure(AssertionError):
@@ -356,9 +384,9 @@ def main_path(cfg, device="cuda", n_sparse=4, log=print):
     r_ev = timed("sssp_eventually_mean_fused", lambda: eng["fused"].run(
         sssp_prog, pattern="eventually", merge="mean",
         tiles=tiles[:n_ev], btiles=btiles[:n_ev]))
+    # the query phase runs over the same staged batch, then drops it
+    keep["staged_sssp"] = (tiles, btiles)
     del tiles, btiles
-    if device == "cuda":
-        torch.cuda.empty_cache()
     eng_sparse = TemporalEngine(bg, device=device, use_pallas="spmv",
                                 layout="sparse")
     n_sp = min(I, n_sparse)
@@ -443,9 +471,10 @@ def call_shapes():
     """Count the graph kernels' launches by call shape while the block
     runs: yields a dict {(kernel, call): launches}, ``call`` named as in
     :func:`kernel_report` ("local sweep min_plus", "consume plus_mul",
-    "sweep min_plus", "spmv plus_mul", ...).  It wraps the names through
-    which the engine reaches the wrappers; the wrappers' own counts move
-    as before, and the shapes' counts sum to them.  Blocks nest: an inner
+    "sweep min_plus", "spmv plus_mul", ...; a Q-lane call of the query
+    axis adds " Q=<lanes>", "local sweep min_plus Q=32").  It wraps the
+    names through which the engine reaches the wrappers; the wrappers'
+    own counts move as before, and the shapes' counts sum to them.  Blocks nest: an inner
     block counts its launches in the outer block's dict too."""
     from repro_torch.kernels.semiring_spmm import kernel as spmm_kernel
     from repro_torch.kernels.semiring_spmm import ops as spmm_ops
@@ -463,20 +492,25 @@ def call_shapes():
         key = (kernel, call)
         counts[key] = counts.get(key, 0) + after - before
 
+    def lanes(x, rank):  # " Q=<lanes>" for a Q-lane call
+        return f" Q={x.shape[0]}" if x.ndim == rank + 1 else ""
+
     def spmv(tiles, rows, cols, x, sr, **kw):
         n = k_spmv.launches
         out = real_spmv(tiles, rows, cols, x, sr, **kw)
-        shape = "consume" if x.shape[0] == 1 else "local sweep"
-        add("spmv_blocked_cuda", f"{shape} {sr.name}", n, k_spmv.launches)
+        shape = "consume" if x.shape[-2] == 1 else "local sweep"
+        add("spmv_blocked_cuda", f"{shape} {sr.name}{lanes(x, 2)}", n,
+            k_spmv.launches)
         return out
 
     def fused(tiles, rows, cols, x_in, x_comb, *args, **kw):
         n = k_fused.launches
         out = real_fused(tiles, rows, cols, x_in, x_comb, *args, **kw)
         sr = args[2]
-        shape = "consume" if x_in.shape[0] == 1 else (
+        shape = "consume" if x_in.shape[-3] == 1 else (
             "sweep" if x_comb is not None else "spmv")
-        add("fused_step_cuda", f"{shape} {sr.name}", n, k_fused.launches)
+        add("fused_step_cuda", f"{shape} {sr.name}{lanes(x_in, 3)}", n,
+            k_fused.launches)
         return out
 
     spmm_ops.spmv_blocked_cuda, step_ops.fused_step_cuda = spmv, fused
@@ -485,6 +519,148 @@ def call_shapes():
     finally:
         spmm_ops.spmv_blocked_cuda = real_spmv
         step_ops.fused_step_cuda = real_fused
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the query axis on the main path
+# ---------------------------------------------------------------------------
+
+# sources of the query phase: the reference service's batch width
+# (max_batch_queries, src/repro/gopher/service.py:202)
+QUERY_LANES = 32
+
+
+def query_sources(V, seed=0, lanes=QUERY_LANES):
+    """The query phase's sources: lane 0 is vertex 0 (phase 5's source),
+    the others drawn from ``seed``; and the lanes held against their own
+    single-source runs by name: 0, the last, and two drawn from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    srcs = [0] + [int(v) for v in rng.choice(np.arange(1, V), lanes - 1,
+                                             replace=False)]
+    drawn = rng.choice(np.arange(1, lanes - 1), 2, replace=False)
+    return srcs, sorted({0, lanes - 1, *(int(q) for q in drawn)})
+
+
+def query_phase(keep, device="cuda", log=print):
+    """SSSP with QUERY_LANES sources as one engine pass over phase 5's
+    staged TR_SMALL batch (48 instances, dense, sequential), in spmv and
+    fused mode: every lane's values, final state and counts bitwise equal
+    across the modes; every lane bitwise equal to its own single-source
+    run (all 32 run alone over the same batch, spmv, and timed), lane 0
+    also to phase 5's run; the spmv launches of the batched run equal its
+    host syncs (one launch, then one vote read, per sweep and per
+    consume), at least the slowest lanes' counts and far under the single
+    runs' sum.  Returns the phase's records; ``keep["query"]`` gets the
+    sources and the batched result (the session phase's reference)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import (
+        min_plus_program, source_init, sources_init)
+    from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+    from repro_torch.kernels.semiring_superstep.kernel import \
+        fused_step_cuda
+
+    mem, bg = keep["in_memory"], keep["bg"]
+    tiles, btiles = keep.pop("staged_sssp")
+    eng = mem["engines"]
+    V, I = len(bg.part_of), int(tiles.shape[0])
+    srcs, sampled = query_sources(V)
+    Q = len(srcs)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def run(mode, prog):
+        sync()
+        n0 = (spmv_blocked_cuda.launches, fused_step_cuda.launches)
+        t0 = time.perf_counter()
+        r = eng[mode].run(prog, pattern="sequential", tiles=tiles,
+                          btiles=btiles)
+        sync()
+        return r, time.perf_counter() - t0, (
+            spmv_blocked_cuda.launches - n0[0],
+            fused_step_cuda.launches - n0[1])
+
+    recs = {"sources": srcs, "sampled_lanes": sampled, "lanes": Q,
+            "instances": I}
+    prog = min_plus_program("sssp", init=sources_init(srcs))
+    batched = {}
+    for mode in ("spmv", "fused"):
+        r, wall, (n_sp, n_fu) = run(mode, prog)
+        need(r.values.shape == (Q, I, V) and r.final.shape == (Q, V)
+             and r.stats["supersteps"].shape == (Q, I),
+             f"query ({mode}): result shapes")
+        need(bool((r.final[np.arange(Q), srcs] == 0).all()),
+             f"query ({mode}): a source is not at distance 0")
+        batched[mode] = r
+        per_lane = r.stats["supersteps"] + r.stats["local_sweeps"]
+        recs[mode] = dict(
+            seconds=wall, launches={"spmv_blocked_cuda": n_sp,
+                                    "fused_step_cuda": n_fu},
+            host_syncs=int(r.stats["host_syncs"].sum()),
+            slowest_lane_launches=int(per_lane.max(0).sum()),
+            sum_over_lanes_launches=int(per_lane.sum()),
+            supersteps_per_lane_max=int(r.stats["supersteps"].max()),
+            local_sweeps_per_lane_max=int(r.stats["local_sweeps"].max()))
+        n = n_sp if mode == "spmv" else n_fu
+        if device != "cuda":  # a CPU rehearsal launches nothing
+            n = recs[mode]["host_syncs"]
+        need(n == recs[mode]["host_syncs"],
+             f"query ({mode}): {n} launches for "
+             f"{recs[mode]['host_syncs']} vote reads (one launch a read "
+             f"while no cap is reached)")
+        need(recs[mode]["slowest_lane_launches"] <= n
+             < recs[mode]["sum_over_lanes_launches"],
+             f"query ({mode}): {n} launches, not between the slowest "
+             f"lanes' {recs[mode]['slowest_lane_launches']} and the sum "
+             f"{recs[mode]['sum_over_lanes_launches']}")
+        need(r.stats["supersteps"].max() < 64, "query: superstep cap hit")
+        log(f"phase query_{mode}: {json.dumps(recs[mode])}")
+    a, b = batched["spmv"], batched["fused"]
+    need(np.array_equal(a.values, b.values, equal_nan=True)
+         and np.array_equal(a.final, b.final, equal_nan=True),
+         "query: spmv and fused lanes differ")
+    for k in ("supersteps", "local_sweeps"):
+        need(np.array_equal(a.stats[k], b.stats[k]),
+             f"query: {k} differ between spmv and fused")
+    one0 = mem["sssp"]["spmv"]
+    need(np.array_equal(a.values[0], one0.values, equal_nan=True)
+         and np.array_equal(a.stats["supersteps"][0],
+                            one0.stats["supersteps"]),
+         "query: lane 0 differs from phase 5's source-0 run")
+
+    # every lane alone over the same batch (spmv), timed
+    single_s, single_launches = 0.0, 0
+    for q, v in enumerate(srcs):
+        r, wall, (n_sp, _) = run("spmv", min_plus_program(
+            "sssp", init=source_init(v)))
+        single_s += wall
+        single_launches += n_sp
+        for f in ("values", "final"):
+            need(np.array_equal(getattr(a, f)[q], getattr(r, f),
+                                equal_nan=True),
+                 f"query: lane {q} (source {v}) {f} differ from its "
+                 f"single-source run")
+        for k in ("supersteps", "local_sweeps"):
+            need(np.array_equal(a.stats[k][q], r.stats[k]),
+                 f"query: lane {q} (source {v}) {k} differ from its "
+                 f"single-source run")
+    recs["single_source_runs"] = dict(
+        runs=Q, seconds=single_s, spmv_launches=single_launches,
+        measured="all 32 runs, none projected")
+    recs["speedup_over_single_runs"] = {
+        m: single_s / recs[m]["seconds"] for m in ("spmv", "fused")}
+    log(f"phase query_single: {json.dumps(recs['single_source_runs'])}")
+    log(f"phase query_checks: {json.dumps({'sampled_lanes': sampled, 'lanes_checked': Q, 'speedup_over_single_runs': recs['speedup_over_single_runs']})}")
+    keep["query"] = {"sources": srcs, "result": a}
+    del tiles, btiles
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -757,7 +933,8 @@ def gofs_path(cfg, keep, device="cuda", log=print):
         recs["session"] = session_phase(
             root, tmpl, want={"spmv": dense_store_run,
                               "fused": mem["sssp"]["fused"],
-                              "pagerank": store_pr["spmv"]},
+                              "pagerank": store_pr["spmv"],
+                              "query": keep["query"]},
             device=device, log=log)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -793,12 +970,19 @@ def session_phase(root, tmpl, want, device="cuda", log=print):
     explicit engine runs in ``want``: SSSP bitwise in both kernel modes
     and on the streamed delta route, PageRank within
     :func:`plus_mul_limit`, N-hop's histograms equal to the oracle's.
+    Then the query axis through the session: SSSP with the query phase's
+    32 sources streamed from the store, every lane bitwise equal to the
+    query phase's in-memory lanes (``want["query"]``) and lane 0 to step
+    1; N-hop with 4 sources, lane 0 equal to step 3's single-source
+    histograms and the others to ``nhop.oracle`` on the first and last
+    instance; ``tracking`` of the plate seen in the most timesteps, its
+    trace equal to the host iBSP ``tracking.run_host`` on the store.
     The graph kernels' launches on this path are counted by call shape on
     their own.  Returns the phase's records."""
     import numpy as np
     import torch
 
-    from repro_torch.core.algorithms import nhop
+    from repro_torch.core.algorithms import nhop, tracking
     from repro_torch.gofs import GoFSStore
     from repro_torch.gofs.prefetch import pinned_ring, release_pinned
     from repro_torch.gopher import GopherSession
@@ -911,6 +1095,7 @@ def session_phase(root, tmpl, want, device="cuda", log=print):
                 nhop_oracle_seconds=time.perf_counter() - t0)
             recs["run_many"].update(checks)
             log(f"phase session_checks: {json.dumps(checks)}")
+            nhop0 = many[1].output["histograms"]
             del many, sess
             if cuda:
                 torch.cuda.empty_cache()
@@ -931,6 +1116,74 @@ def session_phase(root, tmpl, want, device="cuda", log=print):
                       occupancy=r4.engine.occupancy)
             log(f"phase session_delta_bytes: source {st['source_bytes']} "
                 f"staged {up}")
+            del sess
+            if cuda:
+                torch.cuda.empty_cache()
+
+            # 5. the query axis: SSSP with 32 sources, streamed
+            sess = GopherSession(GoFSStore(root), device=device)
+            srcs, qref = want["query"]["sources"], want["query"]["result"]
+            plan_q = sess.plan("sssp", source=srcs)
+            need(plan_q.estimate_dict["n_sources"] == len(srcs),
+                 "session query plan: n_sources")
+            need(not cuda or plan_q.staging.value == "async",
+                 "session query plan: not streamed")
+            r5 = step("sssp_q32", sess, lambda: sess.run(plan_q))
+            need(r5.output["final"].shape == (len(srcs), V),
+                 "session sssp (32 sources): final shape")
+            same(r5.engine, qref, "sssp (32 sources)")
+            for f in ("values", "final"):
+                need(np.array_equal(getattr(r5.engine, f)[0],
+                                    getattr(r1.engine, f), equal_nan=True),
+                     f"session sssp (32 sources): lane 0 {f} differ from "
+                     f"step 1")
+
+            # 6. N-hop with 4 sources
+            n_src = srcs[:4]
+            r6 = step("nhop_q4", sess, lambda: sess.run(sess.plan(
+                "nhop", source=n_src, n_hops=4)))
+            hq = r6.output["histograms"]
+            need(hq.shape[:2] == (4, I), "session nhop (4 sources): shape")
+            need(np.array_equal(hq[0], nhop0),
+                 "session nhop (4 sources): lane 0 differs from step 3")
+            t0 = time.perf_counter()
+            for q in range(1, 4):
+                for i in (0, I - 1):
+                    need(np.array_equal(hq[q, i], nhop.oracle(
+                        tmpl.src, tmpl.dst, lat[i], V, n_src[q],
+                        n_hops=4)),
+                        f"session nhop: lane {q} instance {i} differs "
+                        f"from nhop.oracle")
+            recs["nhop_q4"]["oracle_seconds"] = time.perf_counter() - t0
+
+            # 7. tracking of one plate, against host iBSP on the store
+            plates = GoFSStore(root).vertex_attr_matrix(
+                tracking.PLATE_ATTR)
+            ids, seen = np.unique(
+                [p for t in range(I) for p in np.unique(plates[t])
+                 if p >= 0], return_counts=True)
+            plate = int(ids[np.argmax(seen)])
+            start = int(np.argwhere(plates == plate)[0][1])
+            r7 = step("tracking", sess, lambda: sess.run(sess.plan(
+                "tracking", plate=plate, initial_vertex=start)))
+            t0 = time.perf_counter()
+            host_trace, hres = tracking.run_host(
+                GoFSStore(root, vertex_projection=(tracking.PLATE_ATTR,),
+                          edge_projection=()), plate, start)
+            host_s = time.perf_counter() - t0
+            trace = r7.output["trace"]
+            need(trace == host_trace,
+                 f"session tracking: trace differs from host iBSP "
+                 f"({len(trace)} vs {len(host_trace)} sightings)")
+            need(len(trace) > 1, "session tracking: no trail to follow")
+            recs["tracking"].update(
+                plate=plate, initial_vertex=start, sightings=len(trace),
+                timesteps_seen=int(seen.max()),
+                host_ibsp_seconds=host_s,
+                host_ibsp_compute_calls=hres.stats.compute_calls,
+                host_ibsp_supersteps=hres.stats.supersteps)
+            log(f"phase session_tracking_check: plate {plate} from "
+                f"{start}: {len(trace)} sightings, host iBSP {host_s:.1f} s")
             del sess
             if cuda:
                 torch.cuda.empty_cache()
@@ -1026,11 +1279,18 @@ def dense_operator(tiles, rows, cols, nvb_out, nvb_in):
     return m.permute(0, 1, 3, 2, 4).reshape(P, nvb_out * B, nvb_in * B)
 
 
-def kernel_report(keep, launches, shape_launches, card, rate):
+def kernel_report(keep, launches, shape_launches, query_launches, card,
+                  rate):
     """One JSON record per kernel: the top-level numbers are its hot
     main-path call (the min-plus local sweep of the SSSP fixpoint); every
     main-path call shape is listed under ``calls``, with its launches on
-    the main path (``shape_launches``, from :func:`call_shapes`)."""
+    the main path (``shape_launches``, from :func:`call_shapes`), and then
+    the Q-lane form of each call shape at Q in QUERY_SWEEP (held against
+    plain, timed, with ``torch.bmm`` over the lanes as the plus-mul
+    library call), with its launches on the query path
+    (``query_launches``), a skewed control at Q = 32, and wrong controls
+    that must fail the comparison.  ``q_lanes`` summarises the Q = 32
+    calls."""
     import torch
 
     from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL
@@ -1063,7 +1323,13 @@ def kernel_report(keep, launches, shape_launches, card, rate):
 
     calls = {"spmv_blocked_cuda": [], "fused_step_cuda": []}
 
-    def record(kernel, name, sr, kfn, pfn, lfn, moved, ops):
+    def record(kernel, name, sr, kfn, pfn, lfn, moved, pairs, lanes=None):
+        """Hold ``kfn`` against ``pfn`` (and ``lfn``, the library call,
+        where there is one) and time all three.  ``moved``: the bytes the
+        call must move; ``pairs``: its multiply-add (add-min) pairs, one
+        FP32 instruction each for plus-mul (FMA), two for min-plus (add,
+        min).  ``lanes``: Q of a Q-lane call, whose launches are the query
+        path's."""
         kout, pout = kfn(), pfn()
         if isinstance(kout, tuple):
             kc, pc = kout[1], pout[1]
@@ -1074,18 +1340,24 @@ def kernel_report(keep, launches, shape_launches, card, rate):
         if lfn is not None:  # the yardstick computes the same function
             compare(lfn().reshape(pout.shape), pout, sr.name,
                     name + " library call")
+        instr = pairs * (2 if sr is MIN_PLUS else 1)
+        t_bytes, t_ops = moved / rate, instr / FP32_ISSUE
+        src = shape_launches if lanes is None else query_launches
         rec = {
             "call": name, "semiring": sr.name,
-            "launches": shape_launches.get((kernel, name), 0),
+            "launches": src.get((kernel, name), 0),
             "ms": cuda_ms(kfn), "eager_ms": cuda_ms(kfn, graph=False),
             "plain_ms": cuda_ms(pfn),
             "library_ms": None if lfn is None else cuda_ms(lfn),
-            "bound_ms": max(moved / rate, ops / 67e12) * 1e3,
-            "bound_by": "bytes" if moved / rate >= ops / 67e12
-            else "operations",
-            "bytes": moved, "max_abs_err": err, "limit_used": used,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes * 1e3, "issue_ms": t_ops * 1e3,
+            "bytes": moved, "instructions": instr,
+            "max_abs_err": err, "limit_used": used,
             "max_abs_plain": float(pout.abs().max()),
         }
+        if lanes is not None:
+            rec["lanes"] = lanes
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         calls[kernel].append(rec)
 
@@ -1104,14 +1376,14 @@ def kernel_report(keep, launches, shape_launches, card, rate):
         record("spmv_blocked_cuda", f"local sweep {sr.name}", sr,
                lambda: spmv_blocked_cuda(tl, rows, cols, x, sr, plan=plan),
                lambda: spmv_blocked_ref(tl, rows, cols, x, sr),
-               lib_local, moved, 2 * n_local * B * B)
+               lib_local, moved, n_local * B * B)
         moved = (n_bound * tile_b + nbytes(brows, bcols, bnd) + P * Vp * 4)
         record("spmv_blocked_cuda", f"consume {sr.name}", sr,
                lambda: spmv_blocked_cuda(btl, brows, bcols, bnd[None], sr,
                                          n_out_blocks=nvb, plan=bplan),
                lambda: spmv_blocked_ref(btl, brows, bcols, bnd[None], sr,
                                         n_out_blocks=nvb),
-               lib_bound, moved, 2 * n_bound * B * B)
+               lib_bound, moved, n_bound * B * B)
 
         # -- fused: the main path's call shapes -------------------------
         # SSSP sweeps and consumes with the combine and the vote; PageRank
@@ -1148,7 +1420,7 @@ def kernel_report(keep, launches, shape_launches, card, rate):
                    lambda tt=tt, rr=rr, cc=cc, xin=xin, comb=comb,
                    xref=xref, vm=vm: fused_step_ref(
                        tt, rr, cc, xin, comb, xref, vm, sr, n_out_blocks=nvb),
-                   lfn, moved, 2 * n_t * B * B)
+                   lfn, moved, n_t * B * B)
 
     # skewed control: partition 0's boundary runs gathered into one output
     # block, so one run holds all its tiles (the walk plan spreads it over
@@ -1168,7 +1440,7 @@ def kernel_report(keep, launches, shape_launches, card, rate):
            lambda: spmv_blocked_ref(btl, brows, skew, b_mp[None], MIN_PLUS,
                                     n_out_blocks=nvb),
            None, n_bound * tile_b + nbytes(brows, skew, b_mp) + P * Vp * 4,
-           2 * n_bound * B * B)
+           n_bound * B * B)
     record("fused_step_cuda", name, MIN_PLUS,
            lambda: fused_step_cuda(btl, brows, skew, b3, xs3, xref, vm3,
                                    MIN_PLUS, plan=splan),
@@ -1176,7 +1448,144 @@ def kernel_report(keep, launches, shape_launches, card, rate):
                                   MIN_PLUS),
            None, n_bound * tile_b + nbytes(brows, skew, b3, xs3, xs3, xref,
                                            vm3) + P * 4,
-           2 * n_bound * B * B)
+           n_bound * B * B)
+
+    # -- the query axis: each call shape with Q lanes ---------------------
+    gen = torch.Generator(device=x_mp.device).manual_seed(7)
+
+    def lanes_of(x, Q, sr):
+        """Q states near ``x``: lane 0 is x, the others moved by up to
+        one unit (min-plus) or ten percent (plus-mul); inf stays inf."""
+        u = torch.rand((Q,) + tuple(x.shape), generator=gen,
+                       device=x.device)
+        u[0] = 0
+        return x + u if sr is MIN_PLUS else x * (1 + 0.1 * u)
+
+    def bmm_lanes(a, xin, Q):
+        """The library call of a plus-mul Q-lane call: ``torch.bmm`` of
+        the dense operator with the Q lanes as columns."""
+        xcol = xin.reshape(Q, xin.shape[1], -1).permute(1, 2, 0)
+        xcol = xcol.expand(P, -1, -1)
+        return lambda: torch.bmm(a, xcol).permute(2, 0, 1)
+
+    controls = []
+
+    def must_fail(what, fn):
+        try:
+            fn()
+        except SmokeFailure as e:
+            controls.append({"control": what, "failed": True,
+                             "message": str(e)[:160]})
+            return
+        raise SmokeFailure(f"wrong control passed: {what}")
+
+    q_states = {}
+    for sr, x, tl, btl in (
+            (MIN_PLUS, x_mp, keep["sssp_tiles"], keep["sssp_btiles"]),
+            (PLUS_MUL, x_pm, keep["pr_tiles"], keep["pr_btiles"])):
+        if sr is PLUS_MUL:
+            a_loc = dense_operator(tl, rows, cols, nvb, nvb)
+            a_bnd = dense_operator(btl, brows, bcols, nvb, nbb)
+        for Q in QUERY_SWEEP:
+            xq = lanes_of(x, Q, sr)
+            bq = _publish(xq, dg_like, sr, eng.comm)  # (Q, NB)
+            q_states[(sr.name, Q)] = (xq, bq)
+            xin_b = bq.reshape(Q, 1, -1)
+            sfx = f" {sr.name} Q={Q}"
+            # spmv: local sweep and consume
+            for name, tt, rr, cc, xin, pl, n_t, a in (
+                    ("local sweep", tl, rows, cols, xq, plan, n_local,
+                     None if sr is MIN_PLUS else a_loc),
+                    ("consume", btl, brows, bcols, xin_b, bplan, n_bound,
+                     None if sr is MIN_PLUS else a_bnd)):
+                lfn = None if a is None else bmm_lanes(a, xin, Q)
+                moved = (n_t * tile_b + nbytes(rr, cc, xin)
+                         + Q * P * Vp * 4)
+                record("spmv_blocked_cuda", name + sfx, sr,
+                       lambda tt=tt, rr=rr, cc=cc, xin=xin, pl=pl:
+                       spmv_blocked_cuda(tt, rr, cc, xin, sr,
+                                         n_out_blocks=nvb, plan=pl),
+                       lambda tt=tt, rr=rr, cc=cc, xin=xin:
+                       spmv_blocked_ref(tt, rr, cc, xin, sr,
+                                        n_out_blocks=nvb),
+                       lfn, moved, n_t * B * B * Q, lanes=Q)
+            # fused: the engine's shapes (SSSP: combine and vote; PageRank:
+            # neither)
+            xs4 = xq.reshape(Q, P, nvb, B)
+            b4 = bq.reshape(Q, 1, nbb, B)
+            vm3 = vmask.reshape(P, nvb, B)
+            if sr is MIN_PLUS:
+                fshapes = {"sweep": (tl, rows, cols, xs4, xs4, xs4, plan),
+                           "consume": (btl, brows, bcols, b4, xs4,
+                                       torch.flip(xs4, (3,)).contiguous(),
+                                       bplan)}
+            else:
+                fshapes = {"spmv": (tl, rows, cols, xs4, None, None, plan),
+                           "consume": (btl, brows, bcols, b4, None, None,
+                                       bplan)}
+            for name, (tt, rr, cc, xin, comb, xref, pl) in fshapes.items():
+                n_t = n_local if tt is tl else n_bound
+                vm = None if xref is None else vm3
+                states = nbytes(xs4) + sum(
+                    nbytes(t_) for t_ in (comb, xref, vm) if t_ is not None
+                ) + (Q * P * 4 if xref is not None else 0)
+                lfn = None if sr is MIN_PLUS else bmm_lanes(
+                    a_loc if tt is tl else a_bnd, xin, Q)
+                record("fused_step_cuda", name + sfx, sr,
+                       lambda tt=tt, rr=rr, cc=cc, xin=xin, comb=comb,
+                       xref=xref, vm=vm, pl=pl: fused_step_cuda(
+                           tt, rr, cc, xin, comb, xref, vm, sr,
+                           n_out_blocks=nvb, plan=pl),
+                       lambda tt=tt, rr=rr, cc=cc, xin=xin, comb=comb,
+                       xref=xref, vm=vm: fused_step_ref(
+                           tt, rr, cc, xin, comb, xref, vm, sr,
+                           n_out_blocks=nvb),
+                       lfn, n_t * tile_b + nbytes(rr, cc, xin) + states,
+                       n_t * B * B * Q, lanes=Q)
+
+    # skewed control at Q = 32 (min-plus): the boundary runs of partition
+    # 0 in one output block
+    Q = QUERY_SWEEP[-1]
+    btl = keep["sssp_btiles"]
+    xq, bq = q_states[("min_plus", Q)]
+    xs4, b4 = xq.reshape(Q, P, nvb, B), bq.reshape(Q, 1, nbb, B)
+    xref4 = torch.flip(xs4, (3,)).contiguous()
+    vm3 = vmask.reshape(P, nvb, B)
+    name = f"consume min_plus Q={Q}, skewed control (partition 0 in one block)"
+    record("spmv_blocked_cuda", name, MIN_PLUS,
+           lambda: spmv_blocked_cuda(btl, brows, skew, bq[:, None], MIN_PLUS,
+                                     n_out_blocks=nvb, plan=splan),
+           lambda: spmv_blocked_ref(btl, brows, skew, bq[:, None], MIN_PLUS,
+                                    n_out_blocks=nvb),
+           None, n_bound * tile_b + nbytes(brows, skew, bq) + Q * P * Vp * 4,
+           n_bound * B * B * Q, lanes=Q)
+    record("fused_step_cuda", name, MIN_PLUS,
+           lambda: fused_step_cuda(btl, brows, skew, b4, xs4, xref4, vm3,
+                                   MIN_PLUS, plan=splan),
+           lambda: fused_step_ref(btl, brows, skew, b4, xs4, xref4, vm3,
+                                  MIN_PLUS),
+           None, n_bound * tile_b + nbytes(brows, skew, b4, xs4, xs4, xref4,
+                                           vm3) + Q * P * 4,
+           n_bound * B * B * Q, lanes=Q)
+
+    # wrong controls: the Q-lane outputs against the plain version's with
+    # the lanes rolled by one, and (plus-mul) with one tile dropped
+    for sr, tl in ((MIN_PLUS, keep["sssp_tiles"]), (PLUS_MUL,
+                                                   keep["pr_tiles"])):
+        xq, _ = q_states[(sr.name, Q)]
+        k = spmv_blocked_cuda(tl, rows, cols, xq, sr, plan=plan)
+        p_ = spmv_blocked_ref(tl, rows, cols, xq, sr)
+        compare(k, p_, sr.name, "control baseline")
+        must_fail(f"local sweep {sr.name} Q={Q}, lanes rolled by one",
+                  lambda: compare(k, p_.roll(1, 0), sr.name, "rolled"))
+        if sr is PLUS_MUL:
+            t_ = int(torch.nonzero(cols[0] >= 0)[0])
+            cut = tl.clone()
+            cut[0, t_] = 0.0
+            p_cut = spmv_blocked_ref(cut, rows, cols, xq, sr)
+            must_fail(f"local sweep {sr.name} Q={Q}, one tile dropped",
+                      lambda: compare(k, p_cut, sr.name, "tile dropped"))
+    print("wrong controls: " + json.dumps(controls))
 
     meta = {
         "spmv_blocked_cuda": (
@@ -1203,6 +1612,14 @@ def kernel_report(keep, launches, shape_launches, card, rate):
             # the plus-mul calls, which have a library yardstick
             "plus_mul": {r["call"]: {k: r[k] for k in (
                 "ms", "library_ms", "bound_ms", "bound_share")} for r in pm},
+            # the Q = 32 calls of the query axis, launches on the query
+            # path
+            "q_lanes": {r["call"]: {k: r[k] for k in (
+                "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bytes_ms", "issue_ms", "bound_share",
+                "launches")} for r in recs
+                if r.get("lanes") == QUERY_SWEEP[-1]},
+            "controls": controls,
             "calls": recs, "card": card,
         })
     return out
@@ -1937,6 +2354,25 @@ def main() -> int:
     print(f"peak device memory GB: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
+    # 5b. the query axis over phase 5's staged batch, launches counted
+    for k in (spmv_blocked_cuda, fused_step_cuda):
+        k.launches = 0
+    t0 = time.perf_counter()
+    with call_shapes() as query_shapes:
+        query = query_phase(keep, "cuda")
+    query_launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
+                      "fused_step_cuda": fused_step_cuda.launches}
+    print(f"phase query: {json.dumps({'seconds': time.perf_counter() - t0})}")
+    print(f"query path launches: {json.dumps(query_launches)}")
+    print("query path launches by call shape: " + json.dumps(
+        {f"{k} {c}": n for (k, c), n in sorted(query_shapes.items())}))
+    for k, v in query_launches.items():
+        need(sum(n for (kk, _), n in query_shapes.items() if kk == k)
+             == v, f"{k}: query launches by call shape do not sum to {v}")
+        need(any(n > 0 for (kk, c), n in query_shapes.items()
+                 if kk == k and c.endswith(f" Q={QUERY_LANES}")),
+             f"{k} was not launched in its Q-lane form on the query path")
+
     # 6. the graph path from a GoFS deployment, launches counted
     for k in (spmv_blocked_cuda, fused_step_cuda):
         k.launches = 0
@@ -1960,9 +2396,17 @@ def main() -> int:
 
     # 7. the graph kernels at the main path's shapes
     t0 = time.perf_counter()
-    report = kernel_report(keep, launches, shape_launches, card, rate)
+    report = kernel_report(keep, launches, shape_launches, query_shapes, card,
+                           rate)
     for rec in report:
         k = rec["name"]
+        rec["query_launches"] = query_launches[k]
+        rec["query_launches_by_call_shape"] = {
+            c: n for (kk, c), n in sorted(query_shapes.items()) if kk == k}
+        rec["query"] = {m: {key: query[m][key] for key in (
+            "seconds", "launches", "host_syncs", "slowest_lane_launches",
+            "sum_over_lanes_launches")} for m in ("spmv", "fused")}
+        rec["query"]["single_source_runs"] = query["single_source_runs"]
         rec["gofs_launches"] = gofs_launches[k]
         rec["gofs_launches_by_call_shape"] = {
             c: n for (kk, c), n in sorted(gofs_shapes.items()) if kk == k}

@@ -166,23 +166,41 @@ def _nhop_execute(ctx, *, source, n_hops, bins):
     weights (topology is instance-invariant, staged via the shared ones
     batch), the per-instance min-latency fixpoints run under the plan's
     pattern over the shared latency batch, and the Merge folds histograms
-    on the host."""
-    from repro_torch.core.algorithms.sssp import scalar_source
-    from repro_torch.core.engine import min_plus_program, source_init
+    on the host.
 
+    ``source`` may be a sequence of Q vertices: both fixpoints run once
+    on the engine's query axis and ``composite``/``histograms`` gain a
+    leading (Q,) dim, each row bitwise identical to that scalar-source
+    run."""
+    from repro_torch.core.engine import (
+        min_plus_program, source_init, sources_init)
+
+    multi = isinstance(source, (list, tuple, np.ndarray))
     bins = np.asarray(bins, np.float64)
-    prog = min_plus_program(
-        "nhop", init=source_init(scalar_source("nhop", source)))
+    init = sources_init(source) if multi else source_init(source)
+    prog = min_plus_program("nhop", init=init)
     # unweighted hop distance: one instance of all-ones weights
     hops_res = ctx.run(prog, pattern="independent", staged=ctx.staged_ones())
     # min-latency distance per instance, then host-side Merge (histograms)
     lat = ctx.run(prog, pattern=ctx.plan.pattern, staged=ctx.staged())
-    mask = hops_res.values[0] == n_hops
+    if not multi:
+        mask = hops_res.values[0] == n_hops
+        hists = np.stack([
+            histogram(lat.values[i][mask], bins)
+            for i in range(lat.values.shape[0])
+        ])
+        return {"composite": hists.sum(0), "histograms": hists,
+                "__engine__": lat}
+    # query axis: values are (Q, I, V) — fold the Merge per source
     hists = np.stack([
-        histogram(lat.values[i][mask], bins)
-        for i in range(lat.values.shape[0])
+        np.stack([
+            histogram(lat.values[q, i][hops_res.values[q, 0] == n_hops],
+                      bins)
+            for i in range(lat.values.shape[1])
+        ])
+        for q in range(lat.values.shape[0])
     ])
-    return {"composite": hists.sum(0), "histograms": hists,
+    return {"composite": hists.sum(1), "histograms": hists,
             "__engine__": lat}
 
 

@@ -135,16 +135,6 @@ def run_host(
 # Engine implementation: registered Gopher analytic
 # --------------------------------------------------------------------------
 
-def scalar_source(name: str, source) -> int:
-    """``source`` as one vertex; a sequence of sources is the query axis,
-    which is not ported yet."""
-    if isinstance(source, (list, tuple, np.ndarray)):
-        raise NotImplementedError(
-            f"{name}: a sequence of sources is the query axis, which is "
-            f"not ported yet (ROADMAP queue 1, item 2)")
-    return int(source)
-
-
 def _postprocess(ctx, res, **_params):
     return {"final": res.final}
 
@@ -164,11 +154,21 @@ def _postprocess(ctx, res, **_params):
 def _sssp_program(ctx, *, source, subgraph_centric, max_supersteps):
     """Program factory for the ``"sssp"`` analytic: min-plus fixpoint
     seeded at ``source``; the sequential pattern carries distances
-    across the instance axis (incremental aggregation)."""
-    from repro_torch.core.engine import min_plus_program, source_init
+    across the instance axis (incremental aggregation).
 
+    ``source`` may be a sequence of Q vertices: the seeds stack on the
+    engine's query axis and all Q runs execute as one pass, with
+    ``final`` gaining a leading (Q,) dim — bitwise identical to Q
+    scalar-source runs."""
+    from repro_torch.core.engine import (
+        min_plus_program, source_init, sources_init)
+
+    if isinstance(source, (list, tuple, np.ndarray)):
+        init = sources_init(source)
+    else:
+        init = source_init(source)
     return min_plus_program(
-        "sssp", init=source_init(scalar_source("sssp", source)),
+        "sssp", init=init,
         subgraph_centric=subgraph_centric, max_supersteps=max_supersteps,
     )
 

@@ -32,22 +32,25 @@ COMM_BACKENDS = ("dense", "ring", "ring-rs", "host")
 
 
 def _stack_fold(buf: torch.Tensor, sr: Semiring) -> torch.Tensor:
-    """Left-fold the leading (partition) axis with the semiring add.
-    Fixed association 0..P-1 — every backend shares it."""
-    if buf.shape[0] == 1:
-        return buf[0]
-    return functools.reduce(sr.add, [buf[i] for i in range(buf.shape[0])])
+    """Left-fold the partition axis (-2) with the semiring add, for every
+    lane of a leading query axis.  Fixed association 0..P-1 — every
+    backend shares it."""
+    parts = buf.unbind(-2)
+    if len(parts) == 1:
+        return parts[0]
+    return functools.reduce(sr.add, parts)
 
 
 @dataclass(frozen=True)
 class CommBackend:
     """Cross-partition combination for one BSP superstep.
 
-    ``combine_boundary`` merges the (P, NB) boundary buffers into the
-    combined (NB,) buffer every partition consumes; ``any_changed``
-    globalizes the vote-to-halt flag; ``sum_scalar`` globalizes scalar
-    reductions (PageRank's L1 delta).  Stacked, the last two are the
-    identity: one process holds every partition.
+    ``combine_boundary`` merges the ([Q,] P, NB) boundary buffers into the
+    combined ([Q,] NB) buffer every partition consumes, lane by lane under
+    the query axis; ``any_changed`` globalizes the vote-to-halt flags, one
+    per lane ((Q,) bool); ``sum_scalar`` globalizes scalar reductions
+    (PageRank's L1 delta).  Stacked, the last two are the identity: one
+    process holds every partition.
     """
 
     name: str = "abstract"
@@ -55,8 +58,8 @@ class CommBackend:
     def combine_boundary(self, buf: torch.Tensor, sr: Semiring) -> torch.Tensor:
         raise NotImplementedError
 
-    def any_changed(self, flag: bool) -> bool:
-        return flag
+    def any_changed(self, flags: np.ndarray) -> np.ndarray:
+        return flags
 
     def sum_scalar(self, x):
         return x
@@ -92,16 +95,16 @@ class RingExchange(CommBackend):
 
 
 def _host_fold_min(buf: np.ndarray) -> np.ndarray:
-    out = buf[0]
-    for i in range(1, buf.shape[0]):
-        out = np.minimum(out, buf[i])
+    out = buf[..., 0, :]
+    for i in range(1, buf.shape[-2]):
+        out = np.minimum(out, buf[..., i, :])
     return out
 
 
 def _host_fold_sum(buf: np.ndarray) -> np.ndarray:
-    out = buf[0]
-    for i in range(1, buf.shape[0]):
-        out = out + buf[i]
+    out = buf[..., 0, :]
+    for i in range(1, buf.shape[-2]):
+        out = out + buf[..., i, :]
     return out
 
 
@@ -109,10 +112,11 @@ def _host_fold_sum(buf: np.ndarray) -> np.ndarray:
 class HostGather(CommBackend):
     """Mesh-free backend: combine boundary buffers on the host.
 
-    The (P, NB) publish buffer crosses to host memory once per superstep,
-    is folded there with a numpy left fold in the same 0..P-1 association
-    as the device fold (bitwise-identical results), and the combined (NB,)
-    buffer returns to the device — the paper's §V commodity-cluster
+    The ([Q,] P, NB) publish buffer crosses to host memory once per
+    superstep, is folded there over its partition axis with a numpy left
+    fold in the same 0..P-1 association as the device fold
+    (bitwise-identical results), and the combined ([Q,] NB) buffer returns
+    to the device — the paper's §V commodity-cluster
     exchange shape, where the fold site is where a network gather slots in.
 
     >>> import torch
@@ -124,6 +128,9 @@ class HostGather(CommBackend):
     >>> HostGather().combine_boundary(torch.tensor([[1., 2.], [3., 4.]]),
     ...                               PLUS_MUL)
     tensor([4., 6.])
+    >>> HostGather().combine_boundary(torch.stack([buf, buf + 1]), MIN_PLUS)
+    tensor([[0., 2., 5.],
+            [1., 3., 6.]])
     """
 
     name: str = "host"

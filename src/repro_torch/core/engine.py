@@ -37,8 +37,14 @@ executes the previous chunk — the paper's §V storage/compute overlap.  On
 CUDA each chunk is filled into pinned host memory and copied to the card
 on a side stream; the compute stream waits on the copy's event.
 
+The query axis: an ``x0`` of rank 3, (Q, P, Vp) (:func:`sources_init`),
+runs Q states — Q concurrent SSSP or N-hop requests — as one engine
+pass.  Every kernel launch serves all Q lanes, every lane halts at its
+own fixpoint, and each lane's values, final state and counts are bitwise
+those of its own run; results gain a leading Q.
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: the query axis (``x0`` of rank 3), ``mesh=`` and ``cluster=``.
+item: ``mesh=`` and ``cluster=``.
 
 Stats are reported in the same :class:`repro_torch.core.ibsp.BSPStats`
 shape as the host engine, plus the device-to-host reads the halt votes
@@ -141,6 +147,34 @@ def source_init(source_vertex: int, pad: float = INF):
     return init
 
 
+def sources_init(sources: Sequence[int], pad: float = INF):
+    """Batched multi-source seed: ``x0[q]`` is ``source_init(sources[q])``,
+    stacked into a (Q, P, Vp) state tensor — the *query axis* that lets Q
+    concurrent SSSP/N-hop requests run as ONE engine pass.
+
+    The engine detects the extra leading axis (``x0.ndim == 3``); each
+    source's fixpoint halts on its own, so every result — values, final
+    state, superstep counts — is bitwise identical to Q separate
+    single-source runs.
+
+    >>> import numpy as np
+    >>> from repro_torch.core.blocked import build_blocked
+    >>> from repro_torch.core.graph import GraphTemplate
+    >>> from repro_torch.core.engine import sources_init
+    >>> tmpl = GraphTemplate(num_vertices=4,
+    ...     src=np.array([0, 1, 2, 0]), dst=np.array([1, 2, 3, 2]))
+    >>> bg = build_blocked(tmpl, np.array([0, 0, 1, 1]), block_size=2)
+    >>> sources_init([0, 3])(bg).shape   # (Q, P, Vp)
+    (2, 2, 2)
+    """
+    srcs = [int(s) for s in np.asarray(sources).reshape(-1)]
+
+    def init(bg: BlockedGraph) -> np.ndarray:
+        return np.stack([source_init(s, pad)(bg) for s in srcs])
+
+    return init
+
+
 def label_init():
     """x0 = own vertex id (label propagation / components seed)."""
 
@@ -197,21 +231,26 @@ class EngineResult:
     """Gathered outputs + iBSP-comparable statistics."""
 
     pattern: str
-    values: np.ndarray  # (I, V) per-instance vertex values (global order)
-    final: np.ndarray  # (V,) carried end state (sequential) or values[-1]
-    merged: Optional[np.ndarray]  # (V,) Merge output (eventually + on-device)
-    # {"supersteps": (I,), "local_sweeps": (I,), "host_syncs": (I,)} int32
+    values: np.ndarray  # (I, V) per-instance vertex values (global order);
+    # multi-source runs (n_sources=Q) prepend the query axis: (Q, I, V)
+    final: np.ndarray  # (V,) carried end state (sequential) or values[-1];
+    # (Q, V) for multi-source runs
+    merged: Optional[np.ndarray]  # ([Q,] V) Merge output (eventually)
+    # {"supersteps": (I,), "local_sweeps": (I,), "host_syncs": (I,)} int32;
+    # supersteps and local sweeps (Q, I) per source for multi-source runs,
+    # host syncs (I,) those of the batched run
     stats: Dict[str, np.ndarray]
     occupancy: Optional[float] = None  # active-tile fraction (sparse layout)
     warm_start: bool = False  # fixpoints seeded from the previous instance
+    n_sources: Optional[int] = None  # query-axis width Q (None = unbatched)
     _n_published: int = 0  # boundary vertices published per superstep
     _n_parts: int = 0
     _num_vertices: int = 0
 
     def supersteps_saved(self) -> Optional[np.ndarray]:
         """Per-instance supersteps the warm seed saved, relative to the
-        cold-seeded FIRST instance.  ``None`` unless the run was
-        warm-started."""
+        cold-seeded FIRST instance (per source under the query axis).
+        ``None`` unless the run was warm-started."""
         if not self.warm_start:
             return None
         ss = self.stats["supersteps"]
@@ -221,16 +260,18 @@ class EngineResult:
         """The host engine's accounting shape: compute_calls = partition
         activations, superstep_messages = published boundary values,
         timestep_messages = carried vertex states (sequential),
-        merge_messages = instances folded."""
+        merge_messages = instances folded.  Counts sum over the query axis
+        for multi-source runs."""
         ss = int(np.sum(self.stats["supersteps"]))
         I = int(self.stats["supersteps"].shape[-1])
+        q = self.n_sources or 1
         return BSPStats(
             supersteps=ss,
             compute_calls=ss * self._n_parts,
             superstep_messages=ss * self._n_published,
-            timestep_messages=(I - 1) * self._num_vertices
+            timestep_messages=(I - 1) * self._num_vertices * q
             if self.pattern == "sequential" else 0,
-            merge_messages=I if self.pattern == "eventually" else 0,
+            merge_messages=I * q if self.pattern == "eventually" else 0,
         )
 
 
@@ -444,19 +485,23 @@ class TemporalEngine:
                         merge: Optional[str], x0: torch.Tensor,
                         tiles: torch.Tensor, btiles: torch.Tensor,
                         idx=None, plans=None, warm: bool = False):
-        """Loop over the instance axis.  Returns (xs (I, P, Vp), final,
-        merged, stats).
+        """Loop over the instance axis.  Returns (xs ([Q,] I, P, Vp),
+        final ([Q,] P, Vp), merged, stats).
 
         ``idx=None`` (dense): every instance walks the template tile index
         and its plans.  Sparse: ``idx`` is the per-instance (rows, cols,
         brows, bcols) packed index, walked alongside the tile values, and
         ``plans`` the per-instance walk plans (leading instance axis).
         ``warm=True`` seeds each instance's fixpoint from the previous
-        instance's converged state rather than ``x0``."""
+        instance's converged state rather than ``x0``, lane by lane under
+        the query axis (``x0`` (Q, P, Vp)): every instance's fixpoint runs
+        all Q lanes in one pass, and the carries are (Q, P, Vp)."""
         n = int(tiles.shape[0])
-        xs = torch.empty((n,) + tuple(x0.shape), dtype=x0.dtype,
+        lead = tuple(x0.shape[:-2])  # (Q,) under the query axis
+        xs = torch.empty(lead + (n,) + tuple(x0.shape[-2:]), dtype=x0.dtype,
                          device=x0.device)
-        counts = np.zeros((3, n), np.int32)
+        counts = np.zeros((2,) + lead + (n,), np.int32)
+        syncs = np.zeros(n, np.int32)
         carry = x0
         for i in range(n):
             index = self._index if idx is None else tuple(a[i] for a in idx)
@@ -464,16 +509,16 @@ class TemporalEngine:
                 k: v.select(i) for k, v in plans.items()}
             dg = self._device_graph(tiles[i], btiles[i], index, plans_i)
             seed = carry if (pattern == "sequential" or warm) else x0
-            x, ss, lsw, syncs = self._run_instance(program, seed, dg)
-            counts[:, i] = (ss, lsw, syncs)
-            xs[i] = x
+            x, ss, lsw, syncs[i] = self._run_instance(program, seed, dg)
+            counts[0, ..., i], counts[1, ..., i] = ss, lsw
+            xs[..., i, :, :] = x
             carry = x
         if pattern == "eventually" and merge == "mean":
-            merged = torch.mean(xs, dim=0)
+            merged = torch.mean(xs, dim=len(lead))
         else:
             merged = None
         stats = {"supersteps": counts[0], "local_sweeps": counts[1],
-                 "host_syncs": counts[2]}
+                 "host_syncs": syncs}
         return xs, carry, merged, stats
 
     def _cached_device(self, host_arrays: Tuple[Any, ...],
@@ -597,8 +642,9 @@ class TemporalEngine:
                     f"program {s.program.name!r} has no init; pass x0"
                 x0 = s.program.init(self.bg)
             x0 = np.asarray(x0, np.float32)
-            if x0.ndim == 3:
-                raise _not_ported("the query axis (multi-source x0)", "2")
+            if x0.ndim not in (2, 3):
+                raise ValueError(
+                    f"x0 must be (P, Vp) or (Q, P, Vp), got {x0.shape}")
             x0s.append(torch.as_tensor(x0, device=self.device))
 
         if (stream is None and staging == "async" and tiles is None
@@ -620,8 +666,8 @@ class TemporalEngine:
         if stream is not None:
             outs, occ = self._run_stream_many(specs, stream, x0s)
             return [self._wrap_result(s.pattern, out, occ,
-                                      warm=s.effective_warm())
-                    for s, out in zip(specs, outs)]
+                                      warm=s.effective_warm(), x0=x0)
+                    for s, out, x0 in zip(specs, outs, x0s)]
 
         occ: Optional[float] = None
         if layout == "sparse":
@@ -651,7 +697,7 @@ class TemporalEngine:
                 s.pattern, self._scan_instances(
                     s.program, s.pattern, s.merge, x0, tiles, btiles,
                     idx=idx, plans=plans, warm=s.effective_warm()),
-                occ, warm=s.effective_warm())
+                occ, warm=s.effective_warm(), x0=x0)
             for s, x0 in zip(specs, x0s)
         ]
 
@@ -730,7 +776,9 @@ class TemporalEngine:
         overlap the whole fan-out, and N analytics cost one staging pass.
         Sequential and warm specs carry their end state across chunk
         boundaries; eventually Merges fold once over the concatenated
-        states.  Streamed chunks never enter the staged-batch cache.
+        states.  Under the query axis per-chunk outputs stack on the
+        instance axis, after the leading Q.  Streamed chunks never enter
+        the staged-batch cache.
         Returns ([(xs, final, merged, stats)] per spec, occupancy | None).
         """
         from repro_torch.gofs.prefetch import pinned_ring
@@ -800,10 +848,13 @@ class TemporalEngine:
         outs = []
         for k, s in enumerate(specs):
             assert xs_p[k], "empty instance stream"
-            xs = torch.cat(xs_p[k]) if len(xs_p[k]) > 1 else xs_p[k][0]
-            stats = {key: np.concatenate([st[key] for st in st_p[k]])
+            iax = x0s[k].ndim - 2  # the instance axis, after any Q
+            xs = torch.cat(xs_p[k], dim=iax) if len(xs_p[k]) > 1 \
+                else xs_p[k][0]
+            stats = {key: np.concatenate([st[key] for st in st_p[k]],
+                                         axis=-1)
                      for key in st_p[k][0]}
-            merged = torch.mean(xs, dim=0) \
+            merged = torch.mean(xs, dim=iax) \
                 if s.pattern == "eventually" and s.merge == "mean" else None
             outs.append((xs, carry[k], merged, stats))
         occ = None
@@ -826,8 +877,10 @@ class TemporalEngine:
         return outs, occ
 
     def _wrap_result(self, pattern: str, out, occ: Optional[float],
-                     warm: bool = False) -> EngineResult:
-        """Gather device outputs back to global vertex order + stats."""
+                     warm: bool = False,
+                     x0: Optional[torch.Tensor] = None) -> EngineResult:
+        """Gather device outputs back to global vertex order + stats; a
+        rank-3 ``x0`` sets ``n_sources``."""
         xs, final, merged, stats = out
         bg = self.bg
 
@@ -842,6 +895,8 @@ class TemporalEngine:
             stats=stats,
             occupancy=occ,
             warm_start=warm,
+            n_sources=int(x0.shape[0])
+            if x0 is not None and x0.ndim == 3 else None,
             _n_published=int(bg.n_out.sum()),
             _n_parts=bg.n_parts,
             _num_vertices=len(bg.part_of),

@@ -12,9 +12,12 @@ linear algebra.
   Pregel baseline.  Same code path, one knob.
 
 Partitions sit on the leading axis of every tensor, and each kernel takes
-all of them in one launch.  The reference's ``jax.lax.while_loop`` drivers
-are Python loops here with the same caps, and every halt vote is one
-device-to-host read, counted in the ``host_syncs`` stat.
+all of them in one launch.  The query axis (Q source states in one pass)
+adds a leading Q, and each kernel takes every lane in the same launch.
+The reference's ``jax.lax.while_loop`` drivers (``vmap``ped over the
+query axis) are Python loops here with the same caps, lane by lane, and
+every halt vote is one device-to-host read of all lanes' votes, counted
+in the ``host_syncs`` stat.
 """
 from __future__ import annotations
 
@@ -160,15 +163,22 @@ def graph_plans(bg: BlockedGraph, device) -> Dict[str, WalkPlan]:
 # ---------------------------------------------------------------------------
 
 def _blocks(x: torch.Tensor, dg: DeviceGraph) -> torch.Tensor:
-    """(P, Vp) state -> (P, NVB, B) block view for the fused kernel."""
-    return x.reshape(x.shape[0], -1, dg.block_size)
+    """([Q,] P, Vp) state -> ([Q,] P, NVB, B) block view for the fused
+    kernel."""
+    return x.reshape(*x.shape[:-1], -1, dg.block_size)
+
+
+def _shared(boundary: torch.Tensor, dg: DeviceGraph) -> torch.Tensor:
+    """([Q,] NB) combined boundary -> ([Q,] 1, NBB, B): one x shared by
+    every partition (the consume's input), one per lane."""
+    return boundary.reshape(*boundary.shape[:-1], 1, -1, dg.block_size)
 
 
 def _fused_sweep_vote(
     x: torch.Tensor, dg: DeviceGraph, sr: Semiring,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fused sweep: x' = add(x, A^T x) plus the per-partition halt
-    vote vs the pre-sweep state, in one launch."""
+    """One fused sweep: x' = add(x, A^T x) plus the per-(lane, partition)
+    halt vote vs the pre-sweep state, in one launch."""
     xs = _blocks(x, dg)
     xo, changed = fused_step(dg.tiles, dg.rows, dg.cols, xs, xs, xs,
                              _blocks(dg.vmask, dg), sr, plan=dg.plan)
@@ -183,16 +193,16 @@ def _fused_consume_vote(
     ``x_ref`` (the superstep start) in-kernel."""
     xs = _blocks(x, dg)
     xo, changed = fused_step(
-        dg.btiles, dg.brows, dg.bcols,
-        boundary.reshape(1, -1, dg.block_size), xs, _blocks(x_ref, dg),
-        _blocks(dg.vmask, dg), sr, plan=dg.bplan)
+        dg.btiles, dg.brows, dg.bcols, _shared(boundary, dg), xs,
+        _blocks(x_ref, dg), _blocks(dg.vmask, dg), sr, plan=dg.bplan)
     return xo.reshape(x.shape), changed
 
 
 def _local_sweep(
     x: torch.Tensor, dg: DeviceGraph, sr: Semiring, mode: str
 ) -> torch.Tensor:
-    """One relaxation sweep of every partition: x' = add(x, A^T x)."""
+    """One relaxation sweep of every partition (and lane): x' = add(x,
+    A^T x)."""
     if mode == "fused":
         return _fused_sweep_vote(x, dg, sr)[0]
     y = spmv_blocked(dg.tiles, dg.rows, dg.cols, x, sr,
@@ -210,47 +220,76 @@ def _spmv_only(
         # the vote, to the same values)
         xs = _blocks(x, dg)
         xo, _ = fused_step(dg.tiles, dg.rows, dg.cols, xs, None, None, None,
-                           sr, n_out_blocks=xs.shape[1], plan=dg.plan)
+                           sr, n_out_blocks=xs.shape[-2], plan=dg.plan)
         return xo.reshape(x.shape)
     return spmv_blocked(dg.tiles, dg.rows, dg.cols, x, sr,
                         use_kernel=mode == "spmv", plan=dg.plan)
 
 
+def _lane_votes(changed: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """([Q,] P, ...) per-partition votes -> (Q,) per-lane vote (Q = 1 for
+    a state with no query axis)."""
+    return changed.reshape(n_lanes, -1).any(dim=1)
+
+
+def _keep_stopped(new: torch.Tensor, old: torch.Tensor,
+                  live: np.ndarray) -> torch.Tensor:
+    """``new`` on the lanes still running, ``old`` (bitwise) on the lanes
+    whose loop has ended: a stopped lane's state never moves again, even
+    where another sweep would still change it (a lane stopped by a cap).
+    The loops launch only while a lane runs, so a state with no query
+    axis (one lane) never needs the select."""
+    if live.all():
+        return new
+    keep = torch.as_tensor(live, device=new.device)[:, None, None]
+    return torch.where(keep, new, old)
+
+
 def _local_converge(
     x: torch.Tensor, dg: DeviceGraph, sr: Semiring, mode: str,
-    max_sweeps: int,
-) -> Tuple[torch.Tensor, int, int]:
-    """Sweep to local fixpoint (idempotent sr).  Returns (x, n_sweeps,
+    max_sweeps: int, live: np.ndarray,
+) -> Tuple[torch.Tensor, np.ndarray, int]:
+    """Sweep every lane in ``live`` ((Q,) bool) to local fixpoint
+    (idempotent sr), lane by lane as a vmapped ``while_loop`` does: lane
+    q sweeps while its own vote says it changed and its count is under
+    ``max_sweeps``; the other lanes keep their state.  One launch a sweep
+    serves all lanes, and its (Q,) vote is one host read.  ``x`` is (Q,
+    P, Vp), or (P, Vp) for one lane.  Returns (x, sweeps (Q,),
     host_syncs).  The vote of the last permitted sweep is not read: the
     loop ends whatever it says."""
-    changed, sweeps, syncs = True, 0, 0
-    while changed and sweeps < max_sweeps:
+    Q = len(live)
+    sweeps = np.zeros(Q, np.int64)
+    syncs, it = 0, 0
+    act = live.copy()
+    while act.any() and it < max_sweeps:
         if mode == "fused":
-            # the kernel's per-partition vote is ready-made: the loop
-            # reads P flags instead of comparing two (P, Vp) states
+            # the kernel's per-(lane, partition) vote is ready-made: the
+            # loop reads Q x P flags instead of comparing two states
             xn, chv = _fused_sweep_vote(x, dg, sr)
-            flag = chv.any()
+            flag = _lane_votes(chv, Q)
         else:
             xn = _local_sweep(x, dg, sr, mode)
-            flag = (dg.vmask & (xn != x)).any()
-        sweeps += 1
-        if sweeps < max_sweeps:
-            changed = bool(flag.item())
+            flag = _lane_votes(dg.vmask & (xn != x), Q)
+        x = _keep_stopped(xn, x, act)
+        sweeps += act
+        it += 1
+        if it < max_sweeps:
+            act &= flag.cpu().numpy()
             syncs += 1
-        x = xn
     return x, sweeps, syncs
 
 
 def _publish(x: torch.Tensor, dg: DeviceGraph, sr: Semiring,
              comm: CommBackend) -> torch.Tensor:
     """Scatter owned boundary-vertex values into the global boundary buffer
-    and combine across partitions.  Returns (NB,).  Masked padding entries
-    point at slot 0 with value ``sr.zero``: the scatter accumulates, so
-    they leave the real slot unchanged."""
-    vals = torch.gather(x, 1, dg.out_local.long())
+    and combine across partitions.  Returns ([Q,] NB).  Masked padding
+    entries point at slot 0 with value ``sr.zero``: the scatter
+    accumulates, so they leave the real slot unchanged."""
+    lead = tuple(x.shape[:-2])
+    vals = torch.gather(x, -1, dg.out_local.long().expand(*lead, -1, -1))
     vals = vals.masked_fill(~dg.out_mask, sr.zero)
-    buf = sr.full((x.shape[0], dg.num_boundary), x.dtype, x.device)
-    buf = sr.scatter_add(buf, dg.out_slot, vals)
+    buf = sr.full(lead + (x.shape[-2], dg.num_boundary), x.dtype, x.device)
+    buf = sr.scatter_add(buf, dg.out_slot.expand(*lead, -1, -1), vals)
     return comm.combine_boundary(buf, sr)
 
 
@@ -263,12 +302,12 @@ def _consume(
     if mode == "fused":
         # nobody reads a vote here: the kernel skips it
         xo, _ = fused_step(
-            dg.btiles, dg.brows, dg.bcols,
-            boundary.reshape(1, -1, dg.block_size),
+            dg.btiles, dg.brows, dg.bcols, _shared(boundary, dg),
             _blocks(x, dg) if combine else None, None, None, sr,
             n_out_blocks=dg.vp // dg.block_size, plan=dg.bplan)
         return xo.reshape(x.shape)
-    y = spmv_blocked(dg.btiles, dg.brows, dg.bcols, boundary.reshape(1, -1),
+    y = spmv_blocked(dg.btiles, dg.brows, dg.bcols,
+                     boundary.reshape(*boundary.shape[:-1], 1, -1),
                      sr, n_out_blocks=dg.vp // dg.block_size,
                      use_kernel=mode == "spmv", plan=dg.bplan)
     return sr.add(x, y) if combine else y
@@ -279,7 +318,7 @@ def _consume(
 # ---------------------------------------------------------------------------
 
 def bsp_fixpoint(
-    x0: torch.Tensor,  # (P, Vp) initial vertex values
+    x0: torch.Tensor,  # ([Q,] P, Vp) initial vertex values
     dg: DeviceGraph,
     sr: Semiring = MIN_PLUS,
     *,
@@ -288,44 +327,64 @@ def bsp_fixpoint(
     max_supersteps: int = 64,
     max_local_sweeps: int = 1024,
     use_pallas=None,
-) -> Tuple[torch.Tensor, Dict[str, np.int32]]:
+) -> Tuple[torch.Tensor, Dict[str, np.ndarray]]:
     """Run BSP supersteps until global fixpoint (idempotent semirings).
 
     Returns (x, stats) with stats = {supersteps, local_sweeps, host_syncs}
     as int32.  ``subgraph_centric=False`` gives the vertex-centric
     (Pregel) baseline: exactly one local sweep per superstep.
+
+    The query axis: ``x0`` of shape (Q, P, Vp) runs Q states in one pass,
+    with the semantics of the reference's ``vmap`` of this loop.  Every
+    lane halts at its own fixpoint: lane q's superstep loop runs while its
+    own vote is set and its count is under ``max_supersteps``, and a lane
+    whose loop has ended keeps its state bitwise.  Each launch serves all
+    Q lanes, and each vote is one (Q,) host read whatever Q is, so a pass
+    takes as many launches as its slowest lanes need.  ``supersteps`` and
+    ``local_sweeps`` are then (Q,), each lane's own, and ``host_syncs``
+    counts the batched run's reads.
     """
     assert sr.idempotent, "bsp_fixpoint needs an idempotent semiring"
     comm = DenseAllReduce() if comm is None else comm
     sweeps_cap = max_local_sweeps if subgraph_centric else 1
     mode = kernel_mode(use_pallas, dg.device)
+    lanes = x0.ndim == 3
     x = x0
-    changed, supersteps, local_sweeps, syncs = True, 0, 0, 0
-    while changed and supersteps < max_supersteps:
+    Q = x.shape[0] if lanes else 1
+    live = np.ones(Q, bool)
+    supersteps = np.zeros(Q, np.int64)
+    local_sweeps = np.zeros(Q, np.int64)
+    syncs, it = 0, 0
+    while live.any() and it < max_supersteps:
         x_start = x
-        x, s, n = _local_converge(x_start, dg, sr, mode, sweeps_cap)
+        x, s, n = _local_converge(x_start, dg, sr, mode, sweeps_cap, live)
         boundary = _publish(x, dg, sr, comm)
         # vote-to-halt compares against the superstep START: in
         # vertex-centric mode the single local sweep can progress even when
         # the boundary exchange is quiet.
         if mode == "fused":
-            # the consume kernel emits the vote: P flags, never a re-read
-            # of the full states
-            x, chv = _fused_consume_vote(x, boundary, dg, sr, x_start)
-            flag = chv.any()
+            # the consume kernel emits the vote: Q x P flags, never a
+            # re-read of the full states
+            xn, chv = _fused_consume_vote(x, boundary, dg, sr, x_start)
+            flag = _lane_votes(chv, Q)
         else:
             xn = _consume(x, boundary, dg, sr, mode)
-            flag = (dg.vmask & (xn != x_start)).any()
-            x = xn
-        supersteps += 1
+            flag = _lane_votes(dg.vmask & (xn != x_start), Q)
+        x = _keep_stopped(xn, x_start, live)
+        supersteps += live
         local_sweeps += s
         syncs += n
-        if supersteps < max_supersteps:
-            changed = comm.any_changed(bool(flag.item()))
+        it += 1
+        if it < max_supersteps:
+            live &= comm.any_changed(flag.cpu().numpy())
             syncs += 1
-    return x, {"supersteps": np.int32(supersteps),
-               "local_sweeps": np.int32(local_sweeps),
-               "host_syncs": np.int32(syncs)}
+    stats = {"supersteps": supersteps.astype(np.int32),
+             "local_sweeps": local_sweeps.astype(np.int32),
+             "host_syncs": np.int32(syncs)}
+    if not lanes:
+        stats.update(supersteps=stats["supersteps"][0],
+                     local_sweeps=stats["local_sweeps"][0])
+    return x, stats
 
 
 def pagerank_step(

@@ -19,16 +19,14 @@ Two registration shapes:
 * ``kind="composite"`` — the decorated function is an **executor**
   ``(ctx, **params) -> payload dict`` that drives multiple engine runs
   itself through the :class:`~repro_torch.gopher.session.PlanContext`
-  (N-hop's hop + latency fixpoints), still drawing every staged tensor
-  from the session's shared staging cache.
-
-``tracking``'s entry is not registered yet: it always seeds the query
-axis, which waits for ROADMAP item 2.
+  (N-hop's hop + latency fixpoints, tracking's sighting wavefronts),
+  still drawing every staged tensor from the session's shared staging
+  cache.
 
 >>> import repro_torch.core.algorithms  # registration side effect
 >>> from repro_torch.gopher.registry import list_analytics, get_analytic
 >>> list_analytics()
-['components', 'nhop', 'pagerank', 'sssp']
+['components', 'nhop', 'pagerank', 'sssp', 'tracking']
 >>> get_analytic("sssp").pattern
 'sequential'
 >>> get_analytic("pagerank").attr
@@ -84,9 +82,9 @@ class Analytic:
     # instead of materializing the full (I, E) matrix up front.
     rowwise: bool = False
     # name of the parameter that seeds the semiring state from one vertex
-    # (e.g. "source").  The planner prices a SEQUENCE there as Q sources
-    # on one query axis; running one raises until the query axis is
-    # ported (ROADMAP item 2).
+    # (e.g. "source").  When set, the analytic accepts a SEQUENCE there as
+    # well as a scalar: Q values become one multi-source engine pass (the
+    # query axis) whose results are bitwise identical to Q scalar runs.
     source_axis: Optional[str] = None
     describe: str = ""
 

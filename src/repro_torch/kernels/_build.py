@@ -123,11 +123,11 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spmv_blocked_f32.argtypes = [vp] * 9 + [i32] * 4 + [i64, i32, i32,
-                                                          vp]
+    lib.spmv_blocked_f32.argtypes = [vp] * 9 + [i32] * 6 + [i64] * 2 + [
+        i32, i32, vp]
     lib.spmv_blocked_f32.restype = i32
-    lib.fused_step_f32.argtypes = [vp] * 13 + [i32] * 4 + [i64, i32, i32,
-                                                          vp]
+    lib.fused_step_f32.argtypes = [vp] * 13 + [i32] * 6 + [i64] * 2 + [
+        i32, i32, vp]
     lib.fused_step_f32.restype = i32
     f32 = ctypes.c_float
     lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, *[i32] * 6,

@@ -69,15 +69,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
 
 // Bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
 // aligned) from global to shared memory; completion is counted on ``bar``,
-// which expects it (this is the copy's one arrival).
+// which expects it (this is the copy's one arrival).  ``policy`` is an L2
+// cache policy (createpolicy): evict-first for bytes read once per launch,
+// so that what is reused (vectors, partials, states) stays.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
   mbar_expect_tx(bar, bytes);
-  // read once per launch: evict from L2 first, so that what is reused
-  // (vectors, partials, states) stays
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
       ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),

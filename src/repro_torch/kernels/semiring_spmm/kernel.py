@@ -14,6 +14,14 @@ HBM bandwidth; at the TR_SMALL local sweep (8 partitions, B=64, about
 5,000 valid tiles, 82 MB) that is 0.0245 ms on an H100 SXM at 3.35 TB/s,
 and 0.0553 ms for the boundary consume (11,295 valid tiles, 185 MB).
 
+The query axis: for Q lanes of x (the reference ``vmap``s the TPU
+kernel over them), one launch folds every lane.  A CTA walks its chunk
+once per lane group (up to 8 lanes, ``walk_plan.lane_group``), and each
+weight it reads serves every lane of the group, so Q = 32 lanes do 32
+times the operations on the bytes of one: the operations, not the bytes,
+bound that launch (about 0.04 ms of add-min pairs at the card's float32
+issue rate for the TR_SMALL local sweep).
+
 What the design does about it: the TPU kernel walks the (P, T) tile list
 sequentially and carries ``y`` in VMEM.  Here sorted columns make each
 output block's tiles one contiguous run, and the walk plan
@@ -58,14 +66,16 @@ def spmv_blocked_cuda(
     tiles: torch.Tensor,  # (T, B, B) or (P, T, B, B) float32
     rows: torch.Tensor,  # (T,) or (P, T) int32, -1 = padding
     cols: torch.Tensor,  # (T,) or (P, T) int32, sorted valid prefix
-    x: torch.Tensor,  # (nvb*B,) or (Px, nvb*B) float32, Px in {P, 1}
+    x: torch.Tensor,  # (nvb*B,), (Px, nvb*B) or (Q, Px, nvb*B) float32
     sr: Semiring,
     *,
     n_out_blocks: Optional[int] = None,
     nnz=None,  # valid-tile count: () / (1,) or (P,) int32
     plan: Optional[WalkPlan] = None,  # device plan of (cols, nnz)
 ) -> torch.Tensor:
-    """Blocked semiring SpMV.  Returns ``(nob*B,)`` or ``(P, nob*B)``.
+    """Blocked semiring SpMV.  Returns ``(nob*B,)``, ``(P, nob*B)`` or,
+    for Q lanes of x (the query axis, ``Px`` in {P, 1}), ``(Q, P,
+    nob*B)`` from one launch.
 
     ``plan``: the walk plan of ``cols`` (and ``nnz``) for ``nob`` output
     blocks, as :func:`~repro_torch.kernels.walk_plan.to_device` makes it;
@@ -87,43 +97,56 @@ def spmv_blocked_cuda(
     _need(rows.shape == (P, T) and cols.shape == (P, T),
           lambda: f"rows/cols must be {(P, T)}, got {tuple(rows.shape)}/"
           f"{tuple(cols.shape)}")
-    _need(x.ndim == 2 and x.shape[0] in (1, P) and x.shape[1] % B == 0,
-          lambda: f"x must be (P or 1, nvb*B), got {tuple(x.shape)}")
+    lanes = x.ndim == 3
+    xq = x if lanes else x[None]
+    _need(xq.ndim == 3 and xq.shape[1] in (1, P) and xq.shape[2] % B == 0,
+          lambda: f"x must be (P or 1, nvb*B) or (Q, P or 1, nvb*B), got "
+          f"{tuple(x.shape)}")
     _need(tiles.dtype == torch.float32 and x.dtype == torch.float32,
           "tiles and x must be float32")
     _need(rows.dtype == torch.int32 and cols.dtype == torch.int32,
           "rows and cols must be int32")
     _need(all(t.device == tiles.device for t in (rows, cols, x)),
           "all tensors must be on one device")
-    _need(all(t.is_contiguous() for t in (tiles, rows, cols, x)),
-          "all tensors must be contiguous")
+    _need(all(t.is_contiguous() for t in (tiles, rows, cols)),
+          "tiles, rows and cols must be contiguous")
+    # x is read a float at a time: each (lane, partition) row must be
+    # contiguous, the lane and partition strides may be anything
+    _need(xq.stride(2) == 1 or xq.shape[2] == 1,
+          "x's rows (the last axis) must be contiguous")
     _need(B % 4 == 0 and B <= 1024,
           lambda: f"block size {B} must be a multiple of 4, at most "
           f"1024")
     _need(tiles.data_ptr() % 16 == 0, "tiles must be 16-byte aligned")
-    nob = n_out_blocks if n_out_blocks is not None else x.shape[1] // B
+    nob = n_out_blocks if n_out_blocks is not None else xq.shape[2] // B
     if nnz is not None:
         nnz = torch.as_tensor(nnz, device=tiles.device)
         _need(nnz.dtype == torch.int32 and nnz.numel() == P,
               lambda: f"nnz must be int32 with {P} entries")
         nnz = nnz.reshape(P).contiguous()
-    y = torch.empty((P, nob * B), dtype=torch.float32, device=tiles.device)
+    Q = xq.shape[0]
+    y = torch.empty((Q, P, nob * B), dtype=torch.float32,
+                    device=tiles.device)
     if y.numel():
-        plan, partials = kernel_plan(plan, cols, nob, nnz, B, _need)
+        plan, partials = kernel_plan(plan, cols, nob, nnz, B, _need, Q)
         lib = _build.library()
         code = lib.spmv_blocked_f32(
-            tiles.data_ptr(), rows.data_ptr(), x.data_ptr(),
+            tiles.data_ptr(), rows.data_ptr(), xq.data_ptr(),
             plan.chunks.data_ptr(), plan.first.data_ptr(),
             plan.count.data_ptr(), plan.counters.data_ptr(),
             partials.data_ptr(), y.data_ptr(), T, B, plan.chunks.shape[0],
-            plan.chunk, 0 if x.shape[0] == 1 else x.shape[1], nob,
+            plan.chunk, P, Q, xq.stride(0),
+            0 if xq.shape[1] == 1 else xq.stride(1), nob,
             _build.SEMIRING_CODES[sr.name],
             torch.cuda.current_stream(tiles.device).cuda_stream)
         _build.check(code, "spmv_blocked_cuda")
         spmv_blocked_cuda.launches += 1
-    return y[0] if single else y
+    if lanes:
+        return y
+    return y[0, 0] if single else y[0]
 
 
 #: launches of the CUDA kernel in this process (the plain CPU path and
-#: empty outputs launch nothing and count nothing)
+#: empty outputs launch nothing and count nothing); a launch serves every
+#: lane of the query axis
 spmv_blocked_cuda.launches = 0

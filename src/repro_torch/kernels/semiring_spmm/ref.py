@@ -14,7 +14,9 @@ the kernel's walk does.
 Two forms: one partition ``(T, B, B)`` tiles with ``(T,)`` rows/cols and
 an ``(nvb*B,)`` state, or all partitions at once: ``(P, T, B, B)`` tiles,
 ``(P, T)`` rows/cols and an ``(Px, nvb*B)`` state with ``Px`` in {P, 1}
-(1 = one state shared by every partition, the boundary consume).
+(1 = one state shared by every partition, the boundary consume).  The
+query axis adds a leading Q to the state of the second form: ``(Q, Px,
+nvb*B)`` gives ``(Q, P, nob*B)``, lane by lane.
 """
 from __future__ import annotations
 
@@ -34,6 +36,11 @@ def spmv_blocked_ref(
     n_out_blocks: Optional[int] = None,
     nnz=None,
 ) -> torch.Tensor:
+    if x.ndim == 3:  # the query axis: each lane on its own
+        return torch.stack([
+            spmv_blocked_ref(tiles, rows, cols, xq, sr,
+                             n_out_blocks=n_out_blocks, nnz=nnz)
+            for xq in x.unbind(0)])
     single = tiles.ndim == 3
     if single:
         tiles, rows, cols, x = tiles[None], rows[None], cols[None], x[None]

@@ -10,6 +10,10 @@ For every partition at once:
 ``x_comb=None`` gives x_out = y (untouched blocks ``sr.zero``);
 ``x_ref=None`` skips the vote and returns ``changed=None``.
 
+The query axis adds a leading Q to ``x_in``, ``x_comb``, ``x_ref``, the
+output and the vote (``changed (Q, P, 1)``); ``vmask`` has none.  Lanes
+run one by one.
+
 Min-plus is bitwise equal to the kernel (min is exact in any order);
 plus-mul reassociates the per-tile sums and is compared with a tolerance.
 """
@@ -35,7 +39,16 @@ def fused_step_ref(
     *,
     n_out_blocks: Optional[int] = None,  # NVB, when x_comb is None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns ``(x_out (P, NVB, B), changed (P, 1) int32 or None)``."""
+    """Returns ``(x_out ([Q,] P, NVB, B), changed ([Q,] P, 1) int32 or
+    None)``."""
+    if x_in.ndim == 4:  # the query axis: each lane on its own
+        outs = [fused_step_ref(
+            tiles, rows, cols, x_in[q],
+            None if x_comb is None else x_comb[q],
+            None if x_ref is None else x_ref[q], vmask, sr,
+            n_out_blocks=n_out_blocks) for q in range(x_in.shape[0])]
+        return (torch.stack([o for o, _ in outs]),
+                None if x_ref is None else torch.stack([c for _, c in outs]))
     P, B = tiles.shape[0], tiles.shape[-1]
     nvb = n_out_blocks if x_comb is None else x_comb.shape[1]
     # untouched output blocks carry sr.zero out of the SpMV, and

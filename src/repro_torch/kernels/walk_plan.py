@@ -218,19 +218,28 @@ def fold_by_plan(tiles: torch.Tensor, rows: torch.Tensor, x: torch.Tensor,
     return y.reshape(P, n_out * B)
 
 
-# the kernels' limit on a chunk's x values (floats of shared memory)
+# the kernels' limit on a chunk's x values (floats of shared memory, all
+# the lanes of a lane group)
 MAX_CHUNK_X_FLOATS = 16384
 
 
+def lane_group(n_lanes: int) -> int:
+    """Lanes the kernels fold together from one weight read, for a call
+    with ``n_lanes`` lanes (``lane_group`` in ``csrc/blocked_walk.cuh``):
+    1, 4 up to four lanes, else 8."""
+    return 1 if n_lanes <= 1 else (4 if n_lanes <= 4 else 8)
+
+
 def kernel_plan(plan: Optional[WalkPlan], cols: torch.Tensor, n_out: int,
-                nnz: Optional[torch.Tensor], B: int, need):
+                nnz: Optional[torch.Tensor], B: int, need, n_lanes: int = 1):
     """The plan a kernel wrapper launches with, and the scratch of its
     multi-chunk combine (``torch.empty``, one partial of B floats per
-    chunk).  ``plan=None`` builds one on ``cols``' device
+    chunk and lane).  ``plan=None`` builds one on ``cols``' device
     (:func:`walk_plan_torch` at :func:`default_chunk`); a given plan is
     checked against the call (``need(cond, msg)`` raises; ``msg`` a
     string or a function that makes one) and is trusted to have been
-    built from this ``cols`` and ``nnz``."""
+    built from this ``cols`` and ``nnz``.  One CTA folds a chunk for
+    every lane, so the plan's run tickets serve any ``n_lanes``."""
     P = cols.shape[0]
     if plan is None:
         plan = walk_plan_torch(cols, n_out, nnz=nnz, chunk=default_chunk(B))
@@ -244,9 +253,10 @@ def kernel_plan(plan: Optional[WalkPlan], cols: torch.Tensor, n_out: int,
     need(tuple(plan.first.shape) == (P, n_out),
          lambda: f"plan first/count/counters must be {(P, n_out)}, got "
          f"{tuple(plan.first.shape)}")
-    need(plan.chunk * B <= MAX_CHUNK_X_FLOATS,
-         lambda: f"plan chunk {plan.chunk} x block {B} is more than "
-         f"{MAX_CHUNK_X_FLOATS} x values")
-    partials = torch.empty((plan.chunks.shape[0], B), dtype=torch.float32,
-                           device=cols.device)
+    L = lane_group(n_lanes)
+    need(plan.chunk * B * L <= MAX_CHUNK_X_FLOATS,
+         lambda: f"plan chunk {plan.chunk} x block {B} x lane group {L} "
+         f"is more than {MAX_CHUNK_X_FLOATS} x values")
+    partials = torch.empty((plan.chunks.shape[0] * n_lanes, B),
+                           dtype=torch.float32, device=cols.device)
     return plan, partials

@@ -801,3 +801,165 @@ def test_session_on_card_matches_cpu(cuda, tmp_path):
         assert gpu.last_run_report == cpu.last_run_report
     # the session's streams filled pinned buffers
     assert pinned_ring(cuda).peak_bytes > 0
+
+
+# --------------------------------------------------------------------------
+# the query axis: both kernels in their Q-lane form
+# --------------------------------------------------------------------------
+
+def _lanes(rng, sr, P, Q, nvb, B):
+    """Q lanes of a (P, nvb, B) state; min-plus lanes with unreached
+    blocks."""
+    x = rng.random((Q, P, nvb, B)).astype(np.float32)
+    if sr is MIN_PLUS:
+        x[::2, :, 0] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("B", [32, 64])
+@pytest.mark.parametrize("sr", [MIN_PLUS, PLUS_MUL], ids=lambda s: s.name)
+@pytest.mark.parametrize("Q", [1, 3, 4, 9, 32])
+def test_q_lane_kernels_match_plain(cuda, B, sr, Q):
+    """Q lanes in one launch of each kernel against the plain version:
+    the local sweep (x per partition), the consume (one boundary shared by
+    partitions, not by lanes) on skewed runs, the vote per (lane,
+    partition); and each lane bitwise equal to the kernel's own rank-2
+    call on that lane (one fold order whatever Q is)."""
+    tiles, rows, brows, cols, _, xb1, vm = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(
+            sr, np.random.default_rng(10 + Q), B=B)]
+    P, _, _, _ = tiles.shape
+    nvb, nbb = vm.shape[1], xb1.shape[1]
+    rng = np.random.default_rng(Q)
+    x = torch.as_tensor(_lanes(rng, sr, P, Q, nvb, B), device=cuda)
+    xb = torch.as_tensor(_lanes(rng, sr, 1, Q, nbb, B), device=cuda)
+    x_ref = x.flip(3).contiguous()
+    n0 = (spmv_blocked_cuda.launches, fused_step_cuda.launches)
+    for r, xin, ref in ((rows, x, x), (brows, xb, x_ref)):
+        flat = xin.reshape(Q, xin.shape[1], -1)
+        k = spmv_blocked_cuda(tiles, r, cols, flat, sr, n_out_blocks=nvb)
+        assert k.shape == (Q, P, nvb * B)
+        _agree(k, spmv_blocked_ref(tiles, r, cols, flat, sr,
+                                   n_out_blocks=nvb), sr)
+        ko, kc = fused_step_cuda(tiles, r, cols, xin, x, ref, vm, sr)
+        po, pc = fused_step_ref(tiles, r, cols, xin, x, ref, vm, sr)
+        _agree(ko, po, sr)
+        assert kc.shape == (Q, P, 1) and torch.equal(kc, pc)
+        for q in range(Q):
+            assert torch.equal(k[q], spmv_blocked_cuda(
+                tiles, r, cols, flat[q], sr, n_out_blocks=nvb))
+            oq, cq = fused_step_cuda(tiles, r, cols, xin[q], x[q], ref[q],
+                                     vm, sr)
+            assert torch.equal(ko[q], oq) and torch.equal(kc[q], cq)
+    # one launch per call, whatever Q is (the per-lane calls add 2 Q each)
+    assert spmv_blocked_cuda.launches - n0[0] == 2 + 2 * Q
+    assert fused_step_cuda.launches - n0[1] == 2 + 2 * Q
+
+
+@pytest.mark.parametrize("sr", [MIN_PLUS, PLUS_MUL], ids=lambda s: s.name)
+def test_q_lane_kernels_take_a_lane_stride(cuda, sr):
+    """x with a lane stride that is not the lane's size (a slice of a wider
+    buffer) and a shared boundary whose lane stride is its own length:
+    both kernels read each lane where its stride puts it."""
+    tiles, rows, brows, cols, _, xb1, vm = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(
+            sr, np.random.default_rng(21))]
+    P, _, B, _ = tiles.shape
+    nvb, nbb, Q = vm.shape[1], xb1.shape[1], 6
+    rng = np.random.default_rng(22)
+    wide = torch.as_tensor(_lanes(rng, sr, P + 2, Q, nvb, B), device=cuda)
+    x = wide[:, 1:P + 1]  # lane stride (P + 2) * nvb * B, offset one
+    assert not x.is_contiguous()
+    flat = x.reshape(Q, P, -1)
+    k = spmv_blocked_cuda(tiles, rows, cols, flat, sr, n_out_blocks=nvb)
+    _agree(k, spmv_blocked_ref(tiles, rows, cols, flat.contiguous(), sr,
+                               n_out_blocks=nvb), sr)
+    bnd = torch.as_tensor(_lanes(rng, sr, 1, Q, nbb + 1, B), device=cuda)
+    b = bnd[:, :, 1:]  # shared by partitions, lanes (nbb + 1) * B apart
+    xs = x.contiguous()
+    ko, kc = fused_step_cuda(tiles, brows, cols, b, xs, xs.flip(3).
+                             contiguous(), vm, sr)
+    po, pc = fused_step_ref(tiles, brows, cols, b.contiguous(), xs,
+                            xs.flip(3).contiguous(), vm, sr)
+    _agree(ko, po, sr)
+    assert torch.equal(kc, pc)
+    # a state that starts 4 bytes off: contiguous, but no lane is aligned
+    off = torch.empty(xs.numel() + 1, device=cuda)[1:].view(xs.shape)
+    off.copy_(xs)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_step_cuda(tiles, rows, cols, xs, off, None, None, sr)
+
+
+def test_q_lane_graph_replay_is_bitwise(cuda):
+    """Q-lane launches captured in one CUDA graph and replayed give the
+    eager outputs; the run tickets reset themselves."""
+    from repro_torch.kernels.walk_plan import (
+        default_chunk, to_device, walk_plan)
+
+    tiles, rows, brows, cols, _, xb1, vm = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(
+            PLUS_MUL, np.random.default_rng(23))]
+    P, _, B, _ = tiles.shape
+    nvb, nbb, Q = vm.shape[1], xb1.shape[1], 9
+    rng = np.random.default_rng(24)
+    x = torch.as_tensor(_lanes(rng, PLUS_MUL, P, Q, nvb, B), device=cuda)
+    xb = torch.as_tensor(_lanes(rng, PLUS_MUL, 1, Q, nbb, B), device=cuda)
+    plan = to_device(walk_plan(cols.cpu().numpy(), nvb,
+                               chunk=default_chunk(B)), cuda)
+
+    def call():
+        return (spmv_blocked_cuda(tiles, brows, cols, xb.reshape(Q, 1, -1),
+                                  PLUS_MUL, n_out_blocks=nvb, plan=plan),
+                *fused_step_cuda(tiles, brows, cols, xb, x, x + 1, vm,
+                                 PLUS_MUL, plan=plan))
+
+    eager = call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(g):
+        for _ in range(10):
+            outs.append(call())
+    g.replay()
+    torch.cuda.synchronize()
+    for out in outs:
+        for got, want in zip(out, eager):
+            assert torch.equal(got, want)
+    assert int(plan.counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("mode", ["spmv", "fused"])
+def test_query_axis_on_card_matches_cpu(cuda, mode):
+    """TR_TINY with 9 sources on the card, lanes halting at different
+    supersteps (and some stopped by a cap): equal to the CPU run and to
+    each source's own run on the card, bitwise; the sweeps take one
+    launch for all lanes."""
+    col = generate_collection(TR_TINY)
+    t = col.template
+    bg = build_blocked(t, partition_graph(t, TR_TINY.num_partitions),
+                       TR_TINY.block_size)
+    lat = np.stack([col.edge_values(i, "latency") for i in range(len(col))])
+    srcs = [0, 3, 9, 31, 64, 101, 200, 333, 511]
+    for cap in (64, 5):
+        prog = T.min_plus_program("sssp", init=T.sources_init(srcs),
+                                  max_supersteps=cap)
+        want = T.TemporalEngine(bg, device="cpu").run(
+            prog, lat, pattern="sequential")
+        ss = want.stats["supersteps"]
+        assert len(np.unique(ss)) > 1  # lanes halt at different supersteps
+        eng = T.TemporalEngine(bg, use_pallas=mode)
+        n0 = spmv_blocked_cuda.launches + fused_step_cuda.launches
+        got = eng.run(prog, lat, pattern="sequential")
+        n = spmv_blocked_cuda.launches + fused_step_cuda.launches - n0
+        _same_run(got, want)
+        # a launch per sweep and per consume of the batched run, for all
+        # lanes: at least the slowest lane's count, far under the sum
+        per_lane = ss + want.stats["local_sweeps"]
+        assert per_lane.max(0).sum() <= n < per_lane.sum()
+        for q, s in enumerate(srcs):
+            one = eng.run(T.min_plus_program(
+                "sssp", init=T.source_init(s), max_supersteps=cap), lat,
+                pattern="sequential")
+            assert np.array_equal(got.values[q], one.values)
+            for k in ("supersteps", "local_sweeps"):
+                assert np.array_equal(got.stats[k][q], one.stats[k])

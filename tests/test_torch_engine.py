@@ -205,12 +205,16 @@ def test_not_ported_paths_raise(slice_env):
     prog = T.min_plus_program("sssp", init=T.source_init(0))
     w = slice_env["lat"][:1]
     eng = T.TemporalEngine(bg, device="cpu")
-    with pytest.raises(NotImplementedError, match="query axis.*item 2"):
-        eng.run(prog, w, pattern="sequential",
-                x0=np.stack([prog.init(bg)] * 2))
-    with pytest.raises(NotImplementedError, match="query axis.*item 2"):
-        eng.run(prog, w, pattern="sequential", staging="async",
-                x0=np.stack([prog.init(bg)] * 2))
+    # the query axis is ported: a rank-3 x0 runs, sync and async, and
+    # each lane is the scalar run (tests/test_torch_query.py holds it
+    # against the reference)
+    one = eng.run(prog, w, pattern="sequential")
+    for staging in ("sync", "async"):
+        two = eng.run(prog, w, pattern="sequential", staging=staging,
+                      x0=np.stack([prog.init(bg)] * 2))
+        assert two.n_sources == 2
+        for q in range(2):
+            assert np.array_equal(two.values[q], one.values)
     with pytest.raises(NotImplementedError, match="item 6"):
         T.TemporalEngine(bg, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="item 7"):

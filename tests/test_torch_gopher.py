@@ -1,8 +1,8 @@
 """The port's Gopher session (registry, planner, run/run_many) against the
 JAX package's (``tests/test_gopher.py``'s cases, on the port).
 
-* Registry: the same analytics (``tracking`` waits for the query axis)
-  with the same staging contracts and parameters.
+* Registry: the same analytics with the same staging contracts and
+  parameters.
 * Plans: a reference ``GopherSession`` and the port's on the same
   collection (a GoFS deployment opened by both, ``from_blocked``, and a
   ``TimeSeriesGraph``) give plans equal field by field except ``kernel``,
@@ -162,10 +162,12 @@ def _same_result(got, want):
 # --------------------------------------------------------------------------
 
 def test_stock_analytics_registered():
-    assert list_analytics() == ["components", "nhop", "pagerank", "sssp"]
+    assert list_analytics() == ["components", "nhop", "pagerank", "sssp",
+                                "tracking"]
 
 
-@pytest.mark.parametrize("name", ["components", "nhop", "pagerank", "sssp"])
+@pytest.mark.parametrize("name", ["components", "nhop", "pagerank", "sssp",
+                                  "tracking"])
 def test_registry_entry_matches_reference(name):
     a, j = get_analytic(name), j_get_analytic(name)
     for f in ("name", "pattern", "attr", "zero_fill", "graph", "merge",
@@ -593,10 +595,12 @@ def test_not_ported_paths_raise(env):
         sess.tail("sssp", source=0)
     with pytest.raises(NotImplementedError, match="item 7"):
         sess.run(sess.plan("sssp", source=0), checkpoint_dir="/nowhere")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        sess.run(sess.plan("sssp", source=[0, 1]))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        sess.run(sess.plan("nhop", source=[0, 1]))
+    # the query axis is ported: a sequence of sources runs
+    # (tests/test_torch_query.py holds it against the reference)
+    assert sess.run(sess.plan("sssp", source=[0, 1])).output[
+        "final"].shape[0] == 2
+    assert sess.run(sess.plan("nhop", source=[0, 1])).output[
+        "histograms"].shape[0] == 2
     with pytest.raises(NotImplementedError, match="item 6"):
         GopherSession(GoFSStore(env["root"]), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="item 7"):
