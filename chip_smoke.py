@@ -32,7 +32,10 @@ Phases (any failure exits non-zero before the result lines):
    phase 5's run; the batched run's launches equal its vote reads, at
    least the slowest lanes' count and under the single runs' sum; its
    launches are counted by call shape on their own, and both kernels
-   must have launched in their Q-lane form;
+   must have launched in their Q-lane form; on every graph path the
+   launches by walk (``launches_by_walk``) must match the launches by
+   call shape, every min-plus call of ``walk_plan.LANE_WALK_MIN`` lanes
+   or more on the lane walk;
 6. the same graph path from a GoFS deployment (``gofs_path``): the
    collection deployed with ``deploy_collection`` (latency tile maps and
    the delta chain) into a temporary directory; host iBSP SSSP
@@ -69,10 +72,16 @@ Phases (any failure exits non-zero before the result lines):
    share, and, for plus-mul, one PyTorch call computing the same
    function (a dense batched product); then a skewed control, partition
    0's boundary runs gathered into one output block, held against plain
-   and timed; then each call shape in its Q-lane form at Q = 1, 4 and
-   32 (QUERY_SWEEP), min-plus bitwise and plus-mul within
+   and timed; then each call shape in its Q-lane form at Q = 1, 4, 20
+   and 32 (QUERY_SWEEP), min-plus bitwise and plus-mul within
    :func:`plus_mul_limit`, timed beside the plain version and, for
-   plus-mul, ``torch.bmm`` over the lanes; a skewed control at Q = 32;
+   plus-mul, ``torch.bmm`` over the lanes, each row naming the walk it
+   launched; a skewed control at Q = 32; the lane walk at Q = 20 and 32
+   on tiles with signed-zero weights and a -inf and a NaN weight, with
+   lanes of signed zeros, NaN and -inf, against the plain version
+   (:func:`same_bits`) and lane by lane against the one-lane kernel;
+   the two-tile ±0 control (every walk gives -0 in both tile orders);
+   MIN_PLUS's plain folds on the card on ±0 in both orders;
    and wrong controls that must fail the comparison (lanes rolled by
    one; a plus-mul tile dropped). Bounds: bytes over HBM bandwidth, or
    FP32 instructions (an add-min pair is two, an FMA one) over FP32_ISSUE,
@@ -133,8 +142,9 @@ HBM_CARD, HBM_RATE = "H100 80GB HBM3", 3.35e12
 # sheet's 67 TFLOP/s counts an FMA as two operations (132 SMs x 128 lanes
 # x 1.98 GHz); an add or a min is one instruction, as an FMA is
 FP32_ISSUE = 67e12 / 2
-# lanes of the Q-lane kernel sweep (phase 7)
-QUERY_SWEEP = (1, 4, 32)
+# lanes of the Q-lane kernel sweep (phase 7): one, N-hop's four,
+# tracking's twenty, the query phase's thirty-two
+QUERY_SWEEP = (1, 4, 20, 32)
 
 
 class SmokeFailure(AssertionError):
@@ -192,6 +202,57 @@ def compare(kern, plain, sr_name: str, what: str):
     need(used <= 1.0, f"{what}: plus-mul error {err} is {used:.3g}x the "
                       f"limit of plus_mul_limit")
     return err, used
+
+
+def same_bits(kern, plain, what):
+    """Min-plus controls that hold NaN: NaN where the plain version has
+    NaN, every other entry bit for bit (-0 is not +0).  NaN payloads are
+    not compared: the kernels' min.NaN gives the canonical NaN where
+    torch.minimum passes an input NaN through."""
+    import torch
+
+    need(kern.shape == plain.shape, f"{what}: shape {tuple(kern.shape)} vs "
+                                    f"{tuple(plain.shape)}")
+    nan = torch.isnan(plain)
+    need(torch.equal(torch.isnan(kern), nan), f"{what}: nan pattern differs")
+    need(torch.equal(kern[~nan].view(torch.int32),
+                     plain[~nan].view(torch.int32)),
+         f"{what}: min-plus not bitwise")
+
+
+def walk_counts():
+    """The graph kernels' launches so far by walk (``launches_by_walk``):
+    {kernel: {walk: launches}}."""
+    from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+    from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
+
+    return {k.__name__: dict(k.launches_by_walk)
+            for k in (spmv_blocked_cuda, fused_step_cuda)}
+
+
+def check_walks(what, shapes, before, after):
+    """The launches of a path by walk (``after`` less ``before``, from
+    :func:`walk_counts`) against its launches by call shape: each call
+    shape's launches on the walk that ``walk_plan.walk_form`` gives its
+    lanes and semiring (every min-plus call of ``LANE_WALK_MIN`` lanes or
+    more on the lane walk).  Returns the launches by walk."""
+    import re
+
+    from repro_torch.kernels.walk_plan import walk_form
+
+    out = {}
+    for kernel, walks in after.items():
+        got = {w: n - before[kernel][w] for w, n in walks.items()}
+        want = dict.fromkeys(got, 0)
+        for (k, call), n in shapes.items():
+            if k == kernel:
+                m = re.search(r" Q=(\d+)", call)
+                sr = "min_plus" if "min_plus" in call else "plus_mul"
+                want[walk_form(int(m.group(1)) if m else 1, sr)] += n
+        need(got == want, f"{what}: {kernel} launches by walk {got}, by "
+                          f"call shape {want}")
+        out[kernel] = got
+    return out
 
 
 def random_structure(rng, P, T_valid, T, nvb_out, nvb_in):
@@ -1330,7 +1391,13 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
         FP32 instruction each for plus-mul (FMA), two for min-plus (add,
         min).  ``lanes``: Q of a Q-lane call, whose launches are the query
         path's."""
+        wrapper = spmv_blocked_cuda if kernel == "spmv_blocked_cuda" \
+            else fused_step_cuda
+        before = dict(wrapper.launches_by_walk)
         kout, pout = kfn(), pfn()
+        walk = [w for w, n in wrapper.launches_by_walk.items()
+                if n > before[w]]
+        need(len(walk) == 1, f"{name}: launched walks {walk}")
         if isinstance(kout, tuple):
             kc, pc = kout[1], pout[1]
             need((kc is None and pc is None) or torch.equal(kc, pc),
@@ -1354,7 +1421,7 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
             "bytes_ms": t_bytes * 1e3, "issue_ms": t_ops * 1e3,
             "bytes": moved, "instructions": instr,
             "max_abs_err": err, "limit_used": used,
-            "max_abs_plain": float(pout.abs().max()),
+            "max_abs_plain": float(pout.abs().max()), "walk": walk[0],
         }
         if lanes is not None:
             rec["lanes"] = lanes
@@ -1568,6 +1635,122 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
                                            vm3) + Q * P * 4,
            n_bound * B * B * Q, lanes=Q)
 
+    # signed zeros, infinities and NaN through the lane walk (min-plus,
+    # Q = 20 and 32, the main path's local sweep and consume): tiles with
+    # a third of their weights +0 or -0, one -inf and one NaN weight;
+    # lanes of signed zeros, lanes with NaN and lanes with -inf; held
+    # against the plain version (same_bits) and, lane by lane, against
+    # the one-lane kernel (bit for bit, NaN included)
+    sgen = torch.Generator(device=x_mp.device).manual_seed(19)
+
+    def signed_zero_tiles(t):
+        t = t.clone()
+        pick = torch.isfinite(t) & (torch.rand(t.shape, generator=sgen,
+                                               device=t.device) < 0.33)
+        sign = torch.rand(t.shape, generator=sgen, device=t.device) < 0.5
+        t[pick] = torch.where(sign, -0.0, 0.0)[pick]
+        nz = torch.nonzero(torch.isfinite(t[0]))
+        t[0][tuple(nz[0])] = float("-inf")
+        t[0][tuple(nz[-1])] = float("nan")
+        return t
+
+    def special_lanes(x):
+        x = x.clone()
+        sign = torch.rand(x[1::4].shape, generator=sgen,
+                          device=x.device) < 0.5
+        x[1::4] = torch.where(sign, -0.0, 0.0)
+        x[2::4, ..., 3::7] = float("nan")
+        x[3::4, ..., 5::11] = float("-inf")
+        return x
+
+    ztl = signed_zero_tiles(keep["sssp_tiles"])
+    zbtl = signed_zero_tiles(keep["sssp_btiles"])
+    special = []
+    for Q in (20, QUERY_SWEEP[-1]):
+        xq, bq = q_states[("min_plus", Q)]
+        xq, bq = special_lanes(xq), special_lanes(bq)
+        xs4, b4 = xq.reshape(Q, P, nvb, B), bq.reshape(Q, 1, nbb, B)
+        xref4 = torch.flip(xs4, (3,)).contiguous()
+        vm3 = vmask.reshape(P, nvb, B)
+        n0 = walk_counts()
+        for name, kfn, pfn, one in (
+                ("local sweep",
+                 lambda: spmv_blocked_cuda(ztl, rows, cols, xq, MIN_PLUS,
+                                           plan=plan),
+                 lambda: spmv_blocked_ref(ztl, rows, cols, xq, MIN_PLUS),
+                 lambda q: spmv_blocked_cuda(ztl, rows, cols, xq[q],
+                                             MIN_PLUS, plan=plan)),
+                ("consume",
+                 lambda: fused_step_cuda(zbtl, brows, bcols, b4, xs4, xref4,
+                                         vm3, MIN_PLUS, plan=bplan),
+                 lambda: fused_step_ref(zbtl, brows, bcols, b4, xs4, xref4,
+                                        vm3, MIN_PLUS),
+                 lambda q: fused_step_cuda(zbtl, brows, bcols, b4[q], xs4[q],
+                                           xref4[q], vm3, MIN_PLUS,
+                                           plan=bplan))):
+            what = f"{name} min_plus Q={Q}, ±0/±inf/NaN control"
+            k, p_ = kfn(), pfn()
+            if isinstance(k, tuple):
+                need(torch.equal(k[1], p_[1]), f"{what}: votes differ")
+                k, p_ = k[0], p_[0]
+            same_bits(k, p_, what)
+            lanes_checked = sorted({0, 1, 2, 3, Q - 1})
+            for q in lanes_checked:
+                o = one(q)
+                o = o[0] if isinstance(o, tuple) else o
+                need(torch.equal(k[q].view(torch.int32),
+                                 o.view(torch.int32)),
+                     f"{what}: lane {q} differs from the one-lane kernel")
+            special.append({"control": what, "passed": True,
+                            "signed_zero_outputs": int(
+                                ((p_ == 0) & torch.signbit(p_)).sum()),
+                            "nan_outputs": int(torch.isnan(p_).sum()),
+                            "lanes_vs_one_lane": lanes_checked})
+        by_walk = {kk: v["lane_walk"] - n0[kk]["lane_walk"]
+                   for kk, v in walk_counts().items()}
+        need(by_walk == {"spmv_blocked_cuda": 1, "fused_step_cuda": 1},
+             f"signed-zero controls at Q={Q}: lane-walk launches {by_walk}")
+    # the two-tile control: one output block, x = -0 at both tiles' rows,
+    # weights +0 in one tile and -0 in the other, both orders, chunks of
+    # one tile (the two meet in the run's combine): -0 at every output on
+    # every walk
+    for Q in (1, 4, 8, QUERY_SWEEP[-1]):
+        for rev in (False, True):
+            tt = torch.stack([torch.zeros(B, B), torch.full((B, B), -0.0)])
+            rr = torch.tensor([0, 1], dtype=torch.int32)
+            if rev:
+                tt, rr = tt.flip(0), rr.flip(0)
+            tt, rr = tt[None].contiguous().cuda(), rr[None].contiguous().cuda()
+            cc = torch.zeros_like(rr)
+            tplan = to_device(walk_plan(cc.cpu().numpy(), 1, chunk=1), "cuda")
+            xz = torch.full((Q, 1, 2 * B), -0.0, device="cuda")
+            y = spmv_blocked_cuda(tt, rr, cc, xz, MIN_PLUS, n_out_blocks=1,
+                                  plan=tplan)
+            need(bool(((y == 0) & torch.signbit(y)).all()),
+                 f"two-tile ±0 control Q={Q} reverse={rev}: not -0")
+    special.append({"control": "two-tile ±0, Q 1, 4, 8, 32, both orders",
+                    "passed": True})
+    # the plain folds on the card: MIN_PLUS.add is torch's CUDA minimum,
+    # its reductions repaired; -0 wherever a -0 meets +0, both orders
+    for n in (2, 100000):
+        zz = torch.zeros(n, device="cuda")
+        zz[n // 2:] = -0.0
+        for t in (zz, zz.flip(0)):
+            outs = (MIN_PLUS.add(t[:1].expand(n), t), MIN_PLUS.add(t, t.flip(0)),
+                    MIN_PLUS.add_reduce(t, 0), MIN_PLUS.segment_reduce(
+                        t, torch.zeros(n, dtype=torch.long, device="cuda"), 1),
+                    MIN_PLUS.scatter_add(
+                        torch.full((1,), float("inf"), device="cuda"),
+                        torch.zeros(n, dtype=torch.long, device="cuda"), t))
+            need(all(bool((o == 0).all()) for o in outs)
+                 and bool(torch.signbit(outs[1]).all())
+                 and all(bool(torch.signbit(o).all()) for o in outs[2:]),
+                 f"MIN_PLUS folds on the card: a -0 lost (n={n})")
+    special.append({"control": "MIN_PLUS add, add_reduce, segment_reduce, "
+                    "scatter_add on the card, ±0 both orders",
+                    "passed": True})
+    print("signed-zero controls: " + json.dumps(special))
+
     # wrong controls: the Q-lane outputs against the plain version's with
     # the lanes rolled by one, and (plus-mul) with one tile dropped
     for sr, tl in ((MIN_PLUS, keep["sssp_tiles"]), (PLUS_MUL,
@@ -1617,9 +1800,9 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
             "q_lanes": {r["call"]: {k: r[k] for k in (
                 "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "bytes_ms", "issue_ms", "bound_share",
-                "launches")} for r in recs
+                "launches", "walk")} for r in recs
                 if r.get("lanes") == QUERY_SWEEP[-1]},
-            "controls": controls,
+            "controls": controls, "signed_zero_controls": special,
             "calls": recs, "card": card,
         })
     return out
@@ -2337,13 +2520,17 @@ def main() -> int:
     for k in (spmv_blocked_cuda, fused_step_cuda):
         k.launches = 0
     reset_attn_launches()
+    w0 = walk_counts()
     with call_shapes() as shape_launches:
         keep = main_path(TR_SMALL, "cuda")
     launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
                 "fused_step_cuda": fused_step_cuda.launches}
+    walks = {"main": check_walks("main path", shape_launches, w0,
+                                 walk_counts())}
     print(f"main path launches: {json.dumps(launches)}")
     print("main path launches by call shape: " + json.dumps(
         {f"{k} {c}": n for (k, c), n in sorted(shape_launches.items())}))
+    print(f"main path launches by walk: {json.dumps(walks['main'])}")
     for k, v in launches.items():
         need(sum(n for (kk, _), n in shape_launches.items() if kk == k)
              == v, f"{k}: launches by call shape do not sum to {v}")
@@ -2358,10 +2545,17 @@ def main() -> int:
     for k in (spmv_blocked_cuda, fused_step_cuda):
         k.launches = 0
     t0 = time.perf_counter()
+    w0 = walk_counts()
     with call_shapes() as query_shapes:
         query = query_phase(keep, "cuda")
     query_launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
                       "fused_step_cuda": fused_step_cuda.launches}
+    walks["query"] = check_walks("query path", query_shapes, w0,
+                                 walk_counts())
+    print(f"query path launches by walk: {json.dumps(walks['query'])}")
+    for k, v in walks["query"].items():
+        need(v["lane_walk"] > 0, f"{k}: no launch on the lane walk on the "
+                                 f"query path")
     print(f"phase query: {json.dumps({'seconds': time.perf_counter() - t0})}")
     print(f"query path launches: {json.dumps(query_launches)}")
     print("query path launches by call shape: " + json.dumps(
@@ -2377,10 +2571,13 @@ def main() -> int:
     for k in (spmv_blocked_cuda, fused_step_cuda):
         k.launches = 0
     t0 = time.perf_counter()
+    w0 = walk_counts()
     with call_shapes() as gofs_shapes:
         gofs = gofs_path(TR_SMALL, keep, "cuda")
     gofs_launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
                      "fused_step_cuda": fused_step_cuda.launches}
+    walks["gofs"] = check_walks("gofs path", gofs_shapes, w0, walk_counts())
+    print(f"gofs path launches by walk: {json.dumps(walks['gofs'])}")
     print(f"phase gofs_path: {json.dumps({'seconds': time.perf_counter() - t0})}")
     print(f"gofs path launches: {json.dumps(gofs_launches)}")
     print("gofs path launches by call shape: " + json.dumps(
@@ -2407,6 +2604,7 @@ def main() -> int:
             "seconds", "launches", "host_syncs", "slowest_lane_launches",
             "sum_over_lanes_launches")} for m in ("spmv", "fused")}
         rec["query"]["single_source_runs"] = query["single_source_runs"]
+        rec["launches_by_walk"] = {path: w[k] for path, w in walks.items()}
         rec["gofs_launches"] = gofs_launches[k]
         rec["gofs_launches_by_call_shape"] = {
             c: n for (kk, c), n in sorted(gofs_shapes.items()) if kk == k}

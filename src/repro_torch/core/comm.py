@@ -34,10 +34,13 @@ COMM_BACKENDS = ("dense", "ring", "ring-rs", "host")
 def _stack_fold(buf: torch.Tensor, sr: Semiring) -> torch.Tensor:
     """Left-fold the partition axis (-2) with the semiring add, for every
     lane of a leading query axis.  Fixed association 0..P-1 — every
-    backend shares it."""
+    backend shares it.  Min-plus folds in one reduction: its add is exact
+    and orders -0 below +0, so every association gives the same bits."""
     parts = buf.unbind(-2)
     if len(parts) == 1:
         return parts[0]
+    if sr.name == "min_plus":
+        return sr.add_reduce(buf, -2)
     return functools.reduce(sr.add, parts)
 
 

@@ -30,8 +30,10 @@ HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD = HERE / "build"
 LIB_NAME = "librepro_torch_kernels.so"
-# semiring argument of the C entry points
+# semiring and walk arguments of the graph kernels' C entry points
 SEMIRING_CODES = {"min_plus": 0, "plus_mul": 1}
+WALK_CODES = {"one_lane": 0, "groups_of_4": 0, "groups_of_8": 0,
+              "lane_walk": 1}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC",
@@ -124,10 +126,10 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.spmv_blocked_f32.argtypes = [vp] * 9 + [i32] * 6 + [i64] * 2 + [
-        i32, i32, vp]
+        i32, i32, i32, vp]
     lib.spmv_blocked_f32.restype = i32
     lib.fused_step_f32.argtypes = [vp] * 13 + [i32] * 6 + [i64] * 2 + [
-        i32, i32, vp]
+        i32, i32, i32, vp]
     lib.fused_step_f32.restype = i32
     f32 = ctypes.c_float
     lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, *[i32] * 6,

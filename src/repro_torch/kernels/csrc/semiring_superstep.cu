@@ -30,11 +30,13 @@
 // (semiring_spmm.cu): the valid tiles once plus the states, about 82 MB
 // for the TR_SMALL local sweep and 185 MB for its boundary consume,
 // 0.0245 and 0.0553 ms at 3.35 TB/s; at Q = 32 the operations on the same
-// tiles.  The design is the SpMV's walk (blocked_walk.cuh): one CTA per
+// tiles.  The design is the SpMV's walks (blocked_walk.cuh): one CTA per
 // chunk of the walk plan for every lane, TMA bulk copies into a ring of
-// stages, lane groups of up to 8 lanes folded from one weight read, and
-// a fixed-order combine of a run's chunks by the CTA that finishes the
-// run; that CTA applies x_comb, writes x_out and votes, lane by lane.
+// stages, lane groups of up to 8 lanes folded from one weight read (the
+// group walk) or, min-plus at kLaneWalkMin lanes or more, every lane of a
+// pass from one walk of the chunk (the lane walk), and a fixed-order
+// combine of a run's chunks by the CTA that finishes the run; that CTA
+// applies x_comb, writes x_out and votes, lane by lane.
 // Every block has at least one chunk (an empty run one empty chunk), so
 // every block of every lane is written and votes.
 // Grid (W), block (B/4, G) flattened; B must be a multiple of 4 and at
@@ -120,6 +122,36 @@ int launch_fused(const float* t, const int* r, const float* xi,
   return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kLaneThreads, 2) fused_lane_walk_kernel(
+    const float* __restrict__ tiles, const int* __restrict__ rows,
+    const float* __restrict__ x_in, const float* __restrict__ x_comb,
+    const float* __restrict__ x_ref, const uint8_t* __restrict__ vmask,
+    float* __restrict__ x_out, int* __restrict__ changed, Plan plan, int T,
+    LaneWalk wk, Lanes ln, int P, int nvb) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int4 ch = plan.chunks[blockIdx.x];  // (p, c, t0, t1)
+  const int pc = ch.x * nvb + ch.y;
+  const bool empty = ch.y >= 0 && ch.z == ch.w && plan.count[pc] == 1;
+  FusedOut<MinPlus> out{x_comb, x_ref, vmask, x_out, changed,
+                        (long long)P * nvb * wk.B, wk.B, P, ch.x, pc, empty,
+                        wk.Lp};
+  walk_chunk_lanes(wk, plan, tiles, rows, x_in, ln, T, nvb, smem, out);
+}
+
+int launch_fused_lane_walk(const float* t, const int* r, const float* xi,
+                           const float* xc, const float* xr,
+                           const uint8_t* vm, float* xo, int* ch, Plan plan,
+                           int T, LaneWalk wk, Lanes ln, int P, int nvb,
+                           int W, cudaStream_t s) {
+  const size_t smem = wk.smem_bytes();
+  static size_t allowed = 0;
+  const int err = allow_lane_smem(fused_lane_walk_kernel, smem, allowed);
+  if (err) return err;
+  fused_lane_walk_kernel<<<W, wk.threads(), smem, s>>>(
+      t, r, xi, xc, xr, vm, xo, ch, plan, T, wk, ln, P, nvb);
+  return (int)cudaGetLastError();
+}
+
 template <class SR>
 int launch_fused_lanes(const float* t, const int* r, const float* xi,
                        const float* xc, const float* xr, const uint8_t* vm,
@@ -144,8 +176,9 @@ int launch_fused_lanes(const float* t, const int* r, const float* xi,
 // C entry point (bound with ctypes).  Q lanes: x_in lane l, partition p
 // at x_in + l * xin_lstride + p * xin_pstride (xin_pstride 0 = shared by
 // partitions); x_comb, x_ref, x_out (Q, P, nvb, B) and changed (Q, P)
-// contiguous.  The plan as for spmv_blocked_f32.  semiring: 0 =
-// min_plus, 1 = plus_mul.  Returns cudaGetLastError() after the launch.
+// contiguous.  The plan, and ``walk``, as for spmv_blocked_f32.
+// semiring: 0 = min_plus, 1 = plus_mul.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int fused_step_f32(const void* tiles, const void* rows,
                               const void* x_in, const void* x_comb,
                               const void* x_ref, const void* vmask,
@@ -154,12 +187,12 @@ extern "C" int fused_step_f32(const void* tiles, const void* rows,
                               void* counters, void* partials, int T, int B,
                               int W, int chunk, int P, int Q,
                               long long xin_lstride, long long xin_pstride,
-                              int nvb, int semiring, void* stream) {
+                              int nvb, int semiring, int walk, void* stream) {
   using namespace semiring_kernels;
-  if (B <= 0 || B % 4 != 0 || B > 4 * kThreads || chunk <= 0 || Q <= 0)
+  if (B <= 0 || B % 4 != 0 || B > 4 * kThreads || chunk <= 0 || Q <= 0 ||
+      (semiring != 0 && semiring != 1) || walk != walk_of(Q, semiring == 0))
     return (int)cudaErrorInvalidValue;
   if (W == 0) return 0;
-  const Walk wk = Walk::make(B, chunk, lane_group(Q));
   const Plan plan{(const int4*)chunks, (const int*)first, (const int*)count,
                   (int*)counters, (float4*)partials};
   const Lanes ln{Q, xin_lstride, xin_pstride};
@@ -172,11 +205,18 @@ extern "C" int fused_step_f32(const void* tiles, const void* rows,
   auto* xo = (float*)x_out;
   auto* ch = (int*)changed;
   cudaStream_t s = (cudaStream_t)stream;
+  if (walk == 1) {
+    LaneWalk lw = LaneWalk::make(B, chunk, Q);
+    lw.x_vec = (uintptr_t)x_in % 16 == 0 && xin_lstride % 4 == 0 &&
+               xin_pstride % 4 == 0;
+    if (!lw.valid()) return (int)cudaErrorInvalidValue;
+    return launch_fused_lane_walk(t, r, xi, xc, xr, vm, xo, ch, plan, T, lw,
+                                  ln, P, nvb, W, s);
+  }
+  const Walk wk = Walk::make(B, chunk, lane_group(Q));
   if (semiring == 0)
     return launch_fused_lanes<MinPlus>(t, r, xi, xc, xr, vm, xo, ch, plan,
                                        T, wk, ln, P, nvb, W, s);
-  if (semiring == 1)
-    return launch_fused_lanes<PlusMul>(t, r, xi, xc, xr, vm, xo, ch, plan,
-                                       T, wk, ln, P, nvb, W, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_fused_lanes<PlusMul>(t, r, xi, xc, xr, vm, xo, ch, plan,
+                                     T, wk, ln, P, nvb, W, s);
 }

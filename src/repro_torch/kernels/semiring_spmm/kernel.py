@@ -15,12 +15,18 @@ HBM bandwidth; at the TR_SMALL local sweep (8 partitions, B=64, about
 and 0.0553 ms for the boundary consume (11,295 valid tiles, 185 MB).
 
 The query axis: for Q lanes of x (the reference ``vmap``s the TPU
-kernel over them), one launch folds every lane.  A CTA walks its chunk
-once per lane group (up to 8 lanes, ``walk_plan.lane_group``), and each
-weight it reads serves every lane of the group, so Q = 32 lanes do 32
+kernel over them), one launch folds every lane, so Q = 32 lanes do 32
 times the operations on the bytes of one: the operations, not the bytes,
 bound that launch (about 0.04 ms of add-min pairs at the card's float32
-issue rate for the TR_SMALL local sweep).
+issue rate for the TR_SMALL local sweep).  Plus-mul calls, and min-plus
+calls of fewer than ``walk_plan.LANE_WALK_MIN`` lanes, take the group
+walk: a CTA walks its chunk once per lane group (up to 8 lanes,
+``walk_plan.lane_group``), each weight it reads serving the group.
+Min-plus calls of more lanes take the lane walk: one walk of the chunk
+for the up to 32 lanes of a pass, each thread holding 16 (lane, column)
+outputs in registers and folding each row with one add and one
+``min.NaN`` a pair (``walk_plan.walk_form`` names the walk; the C entry
+point checks it).
 
 What the design does about it: the TPU kernel walks the (P, T) tile list
 sequentially and carries ``y`` in VMEM.  Here sorted columns make each
@@ -50,7 +56,8 @@ import torch
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import _build
 from repro_torch.kernels.semiring_spmm.ref import spmv_blocked_ref
-from repro_torch.kernels.walk_plan import WalkPlan, kernel_plan
+from repro_torch.kernels.walk_plan import (
+    WALK_FORMS, WalkPlan, kernel_plan, walk_form)
 
 
 def _need(cond: bool, msg) -> None:
@@ -128,7 +135,9 @@ def spmv_blocked_cuda(
     y = torch.empty((Q, P, nob * B), dtype=torch.float32,
                     device=tiles.device)
     if y.numel():
-        plan, partials = kernel_plan(plan, cols, nob, nnz, B, _need, Q)
+        form = walk_form(Q, sr.name)
+        plan, partials = kernel_plan(plan, cols, nob, nnz, B, _need, Q,
+                                     form)
         lib = _build.library()
         code = lib.spmv_blocked_f32(
             tiles.data_ptr(), rows.data_ptr(), xq.data_ptr(),
@@ -137,10 +146,11 @@ def spmv_blocked_cuda(
             partials.data_ptr(), y.data_ptr(), T, B, plan.chunks.shape[0],
             plan.chunk, P, Q, xq.stride(0),
             0 if xq.shape[1] == 1 else xq.stride(1), nob,
-            _build.SEMIRING_CODES[sr.name],
+            _build.SEMIRING_CODES[sr.name], _build.WALK_CODES[form],
             torch.cuda.current_stream(tiles.device).cuda_stream)
         _build.check(code, "spmv_blocked_cuda")
         spmv_blocked_cuda.launches += 1
+        spmv_blocked_cuda.launches_by_walk[form] += 1
     if lanes:
         return y
     return y[0, 0] if single else y[0]
@@ -150,3 +160,7 @@ def spmv_blocked_cuda(
 #: empty outputs launch nothing and count nothing); a launch serves every
 #: lane of the query axis
 spmv_blocked_cuda.launches = 0
+#: the same launches by walk (``walk_plan.walk_form``): ``one_lane``,
+#: ``groups_of_4``, ``groups_of_8`` (the group walk) and ``lane_walk``
+#: (min-plus, ``walk_plan.LANE_WALK_MIN`` lanes or more)
+spmv_blocked_cuda.launches_by_walk = dict.fromkeys(WALK_FORMS, 0)

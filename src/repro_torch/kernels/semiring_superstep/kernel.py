@@ -38,9 +38,12 @@ and the SpMV mode agree bitwise, plus-mul included.
 The query axis: for Q lanes of states (the reference ``vmap``s the TPU
 kernel over them, which adds a grid axis over Q), one launch serves
 every lane, with a vote per lane and partition, ``changed (Q, P, 1)``.
-``vmask`` has no lane axis.  A CTA folds its chunk for every lane group
-(``walk_plan.lane_group``) from one read of each weight per group, as
-in the SpMV; at Q = 32 the operations bound the launch.
+``vmask`` has no lane axis.  A CTA folds its chunk for every lane, as
+in the SpMV: plus-mul calls and min-plus calls of fewer than
+``walk_plan.LANE_WALK_MIN`` lanes by the group walk (lane groups of
+``walk_plan.lane_group``), min-plus calls of more by the lane walk (one
+walk of the chunk for the lanes of a pass, 16 outputs a thread).  At
+Q = 32 the operations bound the launch.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises.
@@ -54,7 +57,8 @@ import torch
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import _build
 from repro_torch.kernels.semiring_superstep.ref import fused_step_ref
-from repro_torch.kernels.walk_plan import WalkPlan, kernel_plan
+from repro_torch.kernels.walk_plan import (
+    WALK_FORMS, WalkPlan, kernel_plan, walk_form)
 
 
 def _need(cond: bool, msg) -> None:
@@ -157,7 +161,9 @@ def fused_step_cuda(
         return None if t is None else t.data_ptr()
 
     if x_out.numel():
-        plan, partials = kernel_plan(plan, cols, nvb, None, B, _need, Q)
+        form = walk_form(Q, sr.name)
+        plan, partials = kernel_plan(plan, cols, nvb, None, B, _need, Q,
+                                     form)
         lib = _build.library()
         xq = x_in if lanes else x_in[None]
         code = lib.fused_step_f32(
@@ -167,10 +173,11 @@ def fused_step_cuda(
             plan.count.data_ptr(), plan.counters.data_ptr(),
             partials.data_ptr(), T, B, plan.chunks.shape[0], plan.chunk, P,
             Q, xq.stride(0), 0 if xq.shape[1] == 1 else xq.stride(1), nvb,
-            _build.SEMIRING_CODES[sr.name],
+            _build.SEMIRING_CODES[sr.name], _build.WALK_CODES[form],
             torch.cuda.current_stream(tiles.device).cuda_stream)
         _build.check(code, "fused_step_cuda")
         fused_step_cuda.launches += 1
+        fused_step_cuda.launches_by_walk[form] += 1
     return x_out, changed
 
 
@@ -178,3 +185,7 @@ def fused_step_cuda(
 #: empty outputs launch nothing and count nothing); a launch serves every
 #: lane of the query axis
 fused_step_cuda.launches = 0
+#: the same launches by walk (``walk_plan.walk_form``): ``one_lane``,
+#: ``groups_of_4``, ``groups_of_8`` (the group walk) and ``lane_walk``
+#: (min-plus, ``walk_plan.LANE_WALK_MIN`` lanes or more)
+fused_step_cuda.launches_by_walk = dict.fromkeys(WALK_FORMS, 0)

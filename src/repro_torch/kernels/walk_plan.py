@@ -36,6 +36,7 @@ partials, then each run's partials in chunk order), for the tests.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields, replace
 from typing import Optional, Union
 
@@ -222,16 +223,68 @@ def fold_by_plan(tiles: torch.Tensor, rows: torch.Tensor, x: torch.Tensor,
 # the lanes of a lane group)
 MAX_CHUNK_X_FLOATS = 16384
 
+# the min-plus lane walk (``walk_chunk_lanes`` in csrc/blocked_walk.cuh):
+# the fewest lanes it serves, the most lanes of one pass, and its limit
+# on a pass's x values (floats, each lane's chunk rows padded to an odd
+# number of float4s); the same constants as kLaneWalkMin, kMaxPassLanes
+# and kLaneXFloats there
+LANE_WALK_MIN = 5
+MAX_PASS_LANES = 32
+LANE_X_FLOATS = 16512
+# threads a lane-walk CTA has at most (kLaneThreads), and the bytes of a
+# ring stage (kStageBytes)
+LANE_THREADS = 256
+STAGE_BYTES = 16384
+
+#: the walk a launch takes, by :func:`walk_form`
+WALK_FORMS = ("one_lane", "groups_of_4", "groups_of_8", "lane_walk")
+
 
 def lane_group(n_lanes: int) -> int:
-    """Lanes the kernels fold together from one weight read, for a call
-    with ``n_lanes`` lanes (``lane_group`` in ``csrc/blocked_walk.cuh``):
-    1, 4 up to four lanes, else 8."""
+    """Lanes the group walk folds together from one weight read, for a
+    call with ``n_lanes`` lanes (``lane_group`` in
+    ``csrc/blocked_walk.cuh``): 1, 4 up to four lanes, else 8."""
     return 1 if n_lanes <= 1 else (4 if n_lanes <= 4 else 8)
 
 
+def walk_form(n_lanes: int, sr_name: str) -> str:
+    """The walk of a launch with ``n_lanes`` lanes: min-plus calls with at
+    least ``LANE_WALK_MIN`` lanes take the lane walk (one walk of each
+    chunk for every lane of a pass), every other call the group walk of
+    :func:`lane_group` lanes.  The C entry points check the same rule."""
+    if sr_name == "min_plus" and n_lanes >= LANE_WALK_MIN:
+        return "lane_walk"
+    return WALK_FORMS[(1, 4, 8).index(lane_group(n_lanes))]
+
+
+@functools.lru_cache(maxsize=256)
+def lane_walk(n_lanes: int, B: int, chunk: int) -> Optional[dict]:
+    """Geometry of the lane walk for ``n_lanes`` lanes, block size B and
+    plan chunk ``chunk`` (``LaneWalk::make`` in csrc/blocked_walk.cuh):
+    ``passes`` walks of each chunk, ``lanes`` per pass (a multiple of
+    four), ``groups`` row groups and ``threads`` per CTA, ``stage_rows``
+    rows of a ring stage, ``x_floats`` of shared memory for the x values.
+    None when not even four lanes of a chunk fit ``LANE_X_FLOATS``.
+    Cached: every launch's wrapper asks (the dict is not to be changed)."""
+    nq = B // 4
+    nr = ((chunk * B // 4) | 1) * 4
+    lq = min(LANE_THREADS // nq, MAX_PASS_LANES // 4,
+             LANE_X_FLOATS // (4 * nr))
+    if lq < 1:
+        return None
+    quads = -(-n_lanes // 4)
+    passes = -(-quads // lq)
+    per = -(-quads // passes)
+    groups = LANE_THREADS // (nq * per)
+    return dict(passes=passes, lanes=4 * per, groups=groups,
+                threads=nq * per * groups,
+                stage_rows=(STAGE_BYTES // (4 * B)) & ~3,
+                x_floats=max(4 * per * nr, (groups - 1) * nq * per * 16))
+
+
 def kernel_plan(plan: Optional[WalkPlan], cols: torch.Tensor, n_out: int,
-                nnz: Optional[torch.Tensor], B: int, need, n_lanes: int = 1):
+                nnz: Optional[torch.Tensor], B: int, need, n_lanes: int = 1,
+                form: str = "one_lane"):
     """The plan a kernel wrapper launches with, and the scratch of its
     multi-chunk combine (``torch.empty``, one partial of B floats per
     chunk and lane).  ``plan=None`` builds one on ``cols``' device
@@ -239,7 +292,10 @@ def kernel_plan(plan: Optional[WalkPlan], cols: torch.Tensor, n_out: int,
     checked against the call (``need(cond, msg)`` raises; ``msg`` a
     string or a function that makes one) and is trusted to have been
     built from this ``cols`` and ``nnz``.  One CTA folds a chunk for
-    every lane, so the plan's run tickets serve any ``n_lanes``."""
+    every lane, so the plan's run tickets serve any ``n_lanes``.
+    ``form``: the call's walk (:func:`walk_form`); both walks gather a
+    chunk's x values at once, so the plan's chunk must fit the shared
+    memory of the call's walk."""
     P = cols.shape[0]
     if plan is None:
         plan = walk_plan_torch(cols, n_out, nnz=nnz, chunk=default_chunk(B))
@@ -253,10 +309,16 @@ def kernel_plan(plan: Optional[WalkPlan], cols: torch.Tensor, n_out: int,
     need(tuple(plan.first.shape) == (P, n_out),
          lambda: f"plan first/count/counters must be {(P, n_out)}, got "
          f"{tuple(plan.first.shape)}")
-    L = lane_group(n_lanes)
-    need(plan.chunk * B * L <= MAX_CHUNK_X_FLOATS,
-         lambda: f"plan chunk {plan.chunk} x block {B} x lane group {L} "
-         f"is more than {MAX_CHUNK_X_FLOATS} x values")
+    if form == "lane_walk":
+        need(lane_walk(n_lanes, B, plan.chunk) is not None,
+             lambda: f"plan chunk {plan.chunk} x block {B}: four lanes of "
+             f"a chunk are more than the lane walk's {LANE_X_FLOATS} x "
+             f"values")
+    else:
+        L = lane_group(n_lanes)
+        need(plan.chunk * B * L <= MAX_CHUNK_X_FLOATS,
+             lambda: f"plan chunk {plan.chunk} x block {B} x lane group "
+             f"{L} is more than {MAX_CHUNK_X_FLOATS} x values")
     partials = torch.empty((plan.chunks.shape[0] * n_lanes, B),
                            dtype=torch.float32, device=cols.device)
     return plan, partials

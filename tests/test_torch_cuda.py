@@ -963,3 +963,239 @@ def test_query_axis_on_card_matches_cpu(cuda, mode):
             assert np.array_equal(got.values[q], one.values)
             for k in ("supersteps", "local_sweeps"):
                 assert np.array_equal(got.stats[k][q], one.stats[k])
+
+
+# --------------------------------------------------------------------------
+# the min-plus lane walk (one walk of each chunk for every lane) and the
+# signed zeros of the min
+# --------------------------------------------------------------------------
+
+def _same_bits(got, want):
+    """Min-plus outputs: NaN where the plain version has NaN, every other
+    entry bit for bit (-0 is not +0).  NaN payloads are not compared: the
+    kernel's min.NaN gives the canonical NaN where torch.minimum passes an
+    input NaN through."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+def _special_lanes(rng, Q, shape):
+    """Q min-plus lanes of ``shape`` holding ±0, ±inf and NaN among
+    positive values: lane q % 4 == 1 all signed zeros, == 2 with NaN at a
+    few rows, == 3 with -inf at a few rows."""
+    x = rng.random((Q,) + shape).astype(np.float32)
+    x[::2, ..., 0] = np.inf
+    x[1::4] = rng.choice(np.array([0.0, -0.0], np.float32),
+                         x[1::4].shape)
+    x[2::4, ..., 3] = np.nan
+    x[3::4, ..., 5] = -np.inf
+    return x
+
+
+def _special_tiles(tiles, rng):
+    """The skewed structure's tiles with ±0 in place of a third of the
+    weights, and a -inf and a NaN weight in partition 1."""
+    t = tiles.copy()
+    live = np.isfinite(t) & (rng.random(t.shape) < 0.33)
+    t[live] = rng.choice(np.array([0.0, -0.0], np.float32), int(live.sum()))
+    t[1, 10, 3, 4], t[1, 20, 5, 6] = -np.inf, np.nan
+    return t
+
+
+@pytest.mark.parametrize("B", [32, 64, 128])
+@pytest.mark.parametrize("Q", [5, 8, 20, 32, 33])
+def test_lane_walk_matches_plain(cuda, B, Q):
+    """The min-plus lane walk of both kernels against the plain version on
+    skewed runs (one run of 225 tiles, runs of 1..200), with ±0, ±inf and
+    NaN in the states and the weights: the local sweep (x per partition),
+    the consume (one boundary shared by partitions) with the combine and
+    the vote; each lane bitwise equal to the one-lane kernel's call on
+    that lane; every Q-lane launch on the lane walk."""
+    from repro_torch.kernels.walk_plan import default_chunk, lane_walk
+
+    rng = np.random.default_rng(100 * B + Q)
+    tiles, rows, brows, cols, _, xb1, vm = _skewed(MIN_PLUS, rng, B=B)
+    tiles = _special_tiles(tiles, rng)
+    P, nvb, nbb = tiles.shape[0], vm.shape[1], xb1.shape[1]
+    x = _special_lanes(rng, Q, (P, nvb, B))
+    xb = _special_lanes(rng, Q, (1, nbb, B))
+    tiles, rows, brows, cols, vm, x, xb = [
+        torch.as_tensor(a, device=cuda) for a in (
+            tiles, rows, brows, cols, vm, x, xb)]
+    x_ref = x.flip(3).contiguous()
+    assert lane_walk(Q, B, default_chunk(B)) is not None
+    n0 = dict(spmv_blocked_cuda.launches_by_walk)
+    f0 = dict(fused_step_cuda.launches_by_walk)
+    for r, xin, ref in ((rows, x, x), (brows, xb, x_ref)):
+        flat = xin.reshape(Q, xin.shape[1], -1)
+        k = spmv_blocked_cuda(tiles, r, cols, flat, MIN_PLUS,
+                              n_out_blocks=nvb)
+        _same_bits(k, spmv_blocked_ref(tiles, r, cols, flat, MIN_PLUS,
+                                       n_out_blocks=nvb))
+        ko, kc = fused_step_cuda(tiles, r, cols, xin, x, ref, vm, MIN_PLUS)
+        po, pc = fused_step_ref(tiles, r, cols, xin, x, ref, vm, MIN_PLUS)
+        _same_bits(ko, po)
+        assert torch.equal(kc, pc)
+        for q in range(Q):
+            assert torch.equal(k[q].view(torch.int32), spmv_blocked_cuda(
+                tiles, r, cols, flat[q], MIN_PLUS,
+                n_out_blocks=nvb).view(torch.int32))
+            oq, cq = fused_step_cuda(tiles, r, cols, xin[q], x[q], ref[q],
+                                     vm, MIN_PLUS)
+            assert torch.equal(ko[q].view(torch.int32),
+                               oq.view(torch.int32))
+            assert torch.equal(kc[q], cq)
+    assert spmv_blocked_cuda.launches_by_walk["lane_walk"] - \
+        n0["lane_walk"] == 2
+    assert fused_step_cuda.launches_by_walk["lane_walk"] - \
+        f0["lane_walk"] == 2
+
+
+@pytest.mark.parametrize("Q", [1, 4, 8, 32])
+@pytest.mark.parametrize("reverse", [False, True], ids=["ab", "ba"])
+def test_min_orders_signed_zeros_on_card(cuda, Q, reverse):
+    """The two-tile control: one output block, two tiles, x = -0 at both
+    tiles' rows, weights +0 in one tile and -0 in the other.  Every walk
+    (one lane, groups of 4, the lane walk) gives -0 at every output in
+    both tile orders, as the plain version and jnp.min do; chunks of one
+    tile make the two meet in the run's combine, and the fused combine
+    with x_comb = +0 keeps -0."""
+    from repro_torch.kernels.walk_plan import to_device, walk_plan
+
+    B = 64
+    tiles = np.stack([np.full((B, B), 0.0, np.float32),
+                      np.full((B, B), -0.0, np.float32)])[None]
+    rows = np.array([[0, 1]], np.int32)
+    if reverse:
+        tiles, rows = tiles[:, ::-1].copy(), rows[:, ::-1].copy()
+    cols = np.zeros((1, 2), np.int32)
+    x = np.full((Q, 1, 2, B), -0.0, np.float32)
+    t, r, c, xs = [torch.as_tensor(a, device=cuda)
+                   for a in (tiles, rows, cols, x)]
+    for chunk in (1, 2):
+        plan = to_device(walk_plan(cols, 1, chunk=chunk), cuda)
+        k = spmv_blocked_cuda(t, r, c, xs.reshape(Q, 1, -1), MIN_PLUS,
+                              n_out_blocks=1, plan=plan)
+        assert bool(torch.signbit(k).all()) and bool((k == 0).all())
+        comb = torch.zeros((Q, 1, 1, B), device=cuda)
+        ko, _ = fused_step_cuda(t, r, c, xs, comb, None, None, MIN_PLUS,
+                                plan=plan)
+        assert bool(torch.signbit(ko).all()) and bool((ko == 0).all())
+        po, _ = fused_step_ref(t, r, c, xs, comb, None, None, MIN_PLUS)
+        _same_bits(ko, po)
+
+
+def test_min_plus_folds_on_card(cuda):
+    """MIN_PLUS's folds on CUDA tensors order -0 below +0 in every order
+    and give NaN for a NaN operand, as on the CPU (where
+    tests/test_torch_signed_zero.py holds them against jnp): ``add``
+    (torch's own CUDA minimum), ``add_reduce``, ``segment_reduce`` and
+    ``scatter_add`` (torch's CUDA amin and scatter_reduce keep whichever
+    zero comes first; the repair makes the sign right)."""
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5, -1.5],
+                    np.float32)
+    a, b = (np.array(v, np.float32) for v in zip(
+        *[(x, y) for x in vals for y in vals]))
+    ta, tb = torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda)
+    _same_bits(MIN_PLUS.add(ta, tb).cpu(),
+               MIN_PLUS.add(ta.cpu(), tb.cpu()))
+    for n in (2, 33, 100000):
+        x = torch.zeros(n, device=cuda)
+        x[n // 2:] = -0.0
+        for t in (x, x.flip(0)):
+            assert bool(torch.signbit(MIN_PLUS.add_reduce(t, 0)))
+            assert bool(torch.signbit(MIN_PLUS.segment_reduce(
+                t, torch.zeros(n, dtype=torch.long, device=cuda), 1)[0]))
+            y = torch.full((1,), np.inf, device=cuda)
+            assert bool(torch.signbit(MIN_PLUS.scatter_add(
+                y, torch.zeros(n, dtype=torch.long, device=cuda), t)[0]))
+    assert bool(torch.isnan(MIN_PLUS.add(torch.tensor([np.nan], device=cuda),
+                                         torch.zeros(1, device=cuda))))
+
+
+def test_lane_walk_graph_replay_is_bitwise(cuda):
+    """Lane-walk launches (Q = 20 and 33, two passes) captured in one CUDA
+    graph and replayed give the eager outputs; the run tickets reset
+    themselves."""
+    from repro_torch.kernels.walk_plan import (
+        default_chunk, to_device, walk_plan)
+
+    rng = np.random.default_rng(31)
+    tiles, rows, brows, cols, _, xb1, vm = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(MIN_PLUS, rng)]
+    P, _, B, _ = tiles.shape
+    nvb, nbb = vm.shape[1], xb1.shape[1]
+    plan = to_device(walk_plan(cols.cpu().numpy(), nvb,
+                               chunk=default_chunk(B)), cuda)
+    ins = []
+    for Q in (20, 33):
+        x = torch.as_tensor(_special_lanes(rng, Q, (P, nvb, B)), device=cuda)
+        xb = torch.as_tensor(_special_lanes(rng, Q, (1, nbb, B)),
+                             device=cuda)
+        ins.append((x, xb))
+
+    def call():
+        out = []
+        for x, xb in ins:
+            Q = x.shape[0]
+            out.append(spmv_blocked_cuda(tiles, brows, cols,
+                                         xb.reshape(Q, 1, -1), MIN_PLUS,
+                                         n_out_blocks=nvb, plan=plan))
+            out.extend(fused_step_cuda(tiles, brows, cols, xb, x,
+                                       x.flip(3).contiguous(), vm, MIN_PLUS,
+                                       plan=plan))
+        return out
+
+    eager = call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(g):
+        for _ in range(10):
+            outs.append(call())
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            for got, want in zip(out, eager):
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+    assert int(plan.counters.abs().sum()) == 0
+
+
+def test_walk_argument_is_checked(cuda):
+    """The C entry points refuse a launch whose walk is not the rule's:
+    the group walk for a min-plus call of 32 lanes, the lane walk for a
+    plus-mul call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.walk_plan import kernel_plan
+
+    rng = np.random.default_rng(41)
+    tiles, rows, _, cols, x, _, _ = [
+        torch.as_tensor(a, device=cuda) for a in _skewed(MIN_PLUS, rng)]
+    P, T_, B, _ = tiles.shape
+    Q, nvb = 32, x.shape[1]
+    xq = x.reshape(1, P, -1).expand(Q, -1, -1).contiguous()
+    y = torch.empty((Q, P, nvb * B), device=cuda)
+
+    def need(cond, msg):
+        assert cond, msg
+
+    plan, partials = kernel_plan(None, cols, nvb, None, B, need, Q,
+                                 "lane_walk")
+    lib = _build.library()
+    for sr, walk in (("min_plus", 0), ("plus_mul", 1)):
+        code = lib.spmv_blocked_f32(
+            tiles.data_ptr(), rows.data_ptr(), xq.data_ptr(),
+            plan.chunks.data_ptr(), plan.first.data_ptr(),
+            plan.count.data_ptr(), plan.counters.data_ptr(),
+            partials.data_ptr(), y.data_ptr(), T_, B, plan.chunks.shape[0],
+            plan.chunk, P, Q, xq.stride(0), xq.stride(1), nvb,
+            _build.SEMIRING_CODES[sr], walk,
+            torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _build.check(code, "spmv_blocked_cuda")

@@ -13,7 +13,15 @@
   ``tests/test_torch_kernels.py`` runs them): min-plus bitwise, plus-mul
   within 2e-5 (``tests/test_kernels.py:46``).  A plan with one chunk
   dropped must fail that comparison.
+* The walk a launch takes (:func:`walk_form`) and the lane walk's
+  geometry (:func:`lane_walk`) against a brute force and against the
+  constants of ``csrc/blocked_walk.cuh``; its shared memory fits two CTAs
+  an SM at TR_SMALL's shape; :func:`kernel_plan` refuses a plan whose
+  chunk the call's walk cannot hold.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,9 +37,10 @@ from repro_torch.core.generator import generate_collection
 from repro_torch.core.partition import partition_graph
 from repro_torch.core.semiring import INF, MIN_PLUS, PLUS_MUL
 from repro_torch.kernels.semiring_spmm.ref import spmv_blocked_ref
+from repro_torch.kernels import walk_plan as wp
 from repro_torch.kernels.walk_plan import (
-    WalkPlan, default_chunk, fold_by_plan, kernel_plan, stack_plans,
-    to_device, walk_plan, walk_plan_torch)
+    WalkPlan, default_chunk, fold_by_plan, kernel_plan, lane_walk,
+    stack_plans, to_device, walk_form, walk_plan, walk_plan_torch)
 
 SR = {"min_plus": (MIN_PLUS, J_MIN_PLUS), "plus_mul": (PLUS_MUL, J_PLUS_MUL)}
 TOL = 2e-5  # tests/test_kernels.py:46
@@ -285,3 +294,107 @@ def test_dropped_chunk_fails_the_comparison(sr_name, which):
                    chunk=plan.chunk)
     with pytest.raises(AssertionError):
         _agree(fold_by_plan(t[0], t[1], t[3], cut, sr).numpy(), ref, sr_name)
+
+
+# ---------------------------------------------------------------------------
+# which walk a launch takes, and the lane walk's geometry
+# ---------------------------------------------------------------------------
+
+CUH = (Path(wp.__file__).parent / "csrc" / "blocked_walk.cuh").read_text()
+
+
+def _cuh_int(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", CUH).group(1))
+
+
+def test_rules_are_the_kernels_constants():
+    """walk_plan.py and csrc/blocked_walk.cuh hold one rule."""
+    assert _cuh_int("kLaneWalkMin") == wp.LANE_WALK_MIN
+    assert _cuh_int("kMaxPassLanes") == wp.MAX_PASS_LANES
+    assert _cuh_int("kLaneXFloats") == wp.LANE_X_FLOATS
+    assert _cuh_int("kLaneThreads") == wp.LANE_THREADS
+    assert _cuh_int("kStageBytes") == wp.STAGE_BYTES
+    assert "return Q <= 1 ? 1 : (Q <= 4 ? 4 : 8);" in CUH  # lane_group
+    assert "return min_plus && Q >= kLaneWalkMin ? 1 : 0;" in CUH
+
+
+@pytest.mark.parametrize("sr_name", ["min_plus", "plus_mul"])
+def test_walk_form(sr_name):
+    for q in range(1, 70):
+        form = walk_form(q, sr_name)
+        if sr_name == "min_plus" and q >= wp.LANE_WALK_MIN:
+            assert form == "lane_walk"
+        else:
+            assert form == {1: "one_lane", 4: "groups_of_4",
+                            8: "groups_of_8"}[wp.lane_group(q)]
+        assert form in wp.WALK_FORMS
+
+
+@pytest.mark.parametrize("B", [4, 8, 12, 32, 64, 100, 128, 256, 1024])
+def test_lane_walk_geometry_against_brute_force(B):
+    """For every Q: the fewest passes whose lanes (a multiple of four, at
+    most MAX_PASS_LANES, as many as the threads and the x array admit)
+    cover Q, and the fewest lanes a pass that do; the row groups fill at
+    most LANE_THREADS threads; the x array holds the pass's x values
+    (each lane's chunk rows padded to an odd number of float4s) and the
+    row groups' partials; a stage is whole rows, a multiple of four."""
+    nq = B // 4
+    srows = (wp.STAGE_BYTES // (4 * B)) // 4 * 4
+    assert srows >= 4 and srows * B * 4 <= wp.STAGE_BYTES
+    for chunk in sorted({1, 2, default_chunk(B), 3 * default_chunk(B)}):
+        nr = ((chunk * B // 4) | 1) * 4
+        assert nr >= chunk * B and (nr // 4) % 2 == 1
+        fits = [L for L in range(4, wp.MAX_PASS_LANES + 1, 4)
+                if nq * L // 4 <= wp.LANE_THREADS
+                and L * nr <= wp.LANE_X_FLOATS]
+        for Q in range(1, 70):
+            g = lane_walk(Q, B, chunk)
+            if not fits:
+                assert g is None
+                continue
+            passes = -(-Q // max(fits))
+            lanes = min(L for L in fits if passes * L >= Q)
+            assert (g["passes"], g["lanes"]) == (passes, lanes), (B, chunk, Q)
+            assert g["stage_rows"] == srows
+            assert g["groups"] == wp.LANE_THREADS // (nq * lanes // 4)
+            assert g["threads"] == nq * lanes // 4 * g["groups"] <= \
+                wp.LANE_THREADS
+            assert g["x_floats"] >= lanes * nr
+            assert g["x_floats"] >= (g["groups"] - 1) * nq * lanes * 4
+    # the default chunk admits a lane walk at every B the kernels take
+    assert lane_walk(32, B, default_chunk(B)) is not None
+
+
+def test_lane_walk_fits_two_ctas_an_sm_at_tr_small():
+    """B = 64 with its default chunk (8 tiles) and 32 lanes: one pass of
+    32 lanes, and the shared memory (three 16 KB stages, the x array, the
+    flags and the barriers; LaneWalk::smem_bytes) of two CTAs, with the
+    1 KB the card reserves for each, fits an H100 SM's 228 KB."""
+    g = lane_walk(32, 64, default_chunk(64))
+    assert (g["passes"], g["lanes"], g["groups"], g["threads"]) == \
+        (1, 32, 2, 256)
+    stages = _cuh_int("kLaneStages") * _cuh_int("kStageBytes")
+    flags = (g["lanes"] * 4 + 7) & ~7
+    smem = stages + g["x_floats"] * 4 + flags + 8 * _cuh_int("kLaneStages")
+    assert smem <= 227 * 1024
+    assert 2 * (smem + 1024 + 16) <= 228 * 1024  # 16: the ticket flag
+
+
+def test_kernel_plan_checks_the_walk():
+    """A plan whose chunk the lane walk cannot hold (not even four lanes
+    of its x values fit) is refused for a lane-walk call, and a chunk too
+    large for the group walk's gather for a group-walk call; the default
+    chunk fits both."""
+    cols, n_out = _skewed_cols()
+    ct = torch.from_numpy(cols)
+    plan, partials = kernel_plan(None, ct, n_out, None, 64, _raise, 32,
+                                 "lane_walk")
+    assert partials.shape == (plan.chunks.shape[0] * 32, 64)
+    big = to_device(walk_plan(cols, n_out, chunk=80), "cpu")
+    assert lane_walk(32, 64, 80) is None
+    with pytest.raises(ValueError, match="lane walk"):
+        kernel_plan(big, ct, n_out, None, 64, _raise, 32, "lane_walk")
+    with pytest.raises(ValueError, match="lane group 8"):
+        kernel_plan(big, ct, n_out, None, 64, _raise, 8, "groups_of_8")
+    kernel_plan(to_device(walk_plan(cols, n_out, chunk=32), "cpu"), ct,
+                n_out, None, 64, _raise, 32, "lane_walk")
