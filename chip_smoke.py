@@ -66,6 +66,26 @@ Phases (any failure exits non-zero before the result lines):
    memory and host peak RSS.  The graph kernels'
    launches on this path are counted by call shape, and the session's
    on their own;
+6b. streaming ingestion and warm serving (``stream_phase``), after phase
+   6 has removed its deployment: the first 40 of TR_SMALL's 48 instances
+   deployed with phase 6's knobs, then two appends of 4 instances from
+   this thread (the first opens a new time pack, the second rewrites
+   it) while a ``GopherService`` (a staging budget that holds the batch,
+   one admission of up to 36 queries) serves: phase 5b's 32 SSSP
+   sources before the appends, each lane bitwise equal to phase 5b's
+   over instances 0-39; the same 32 and N-hop with 4 sources in one
+   admission after them, every lane equal to phase 5b's in full and the
+   N-hop lanes to phase 6's session; its ``sssp`` subscription delivers
+   full, incremental, incremental (40, 4, 4 new instances), the last
+   equal to phase 6's cold session SSSP (values, final, supersteps,
+   sweeps); a second session with ``use_pallas="fused"`` tails the same
+   store to the same updates; after each append the staging cache
+   stages only the new instances' fill.  Records (each with the card):
+   deploy, append seconds and bytes written, free disk, refresh,
+   extension and re-upload seconds, tail seconds, the service's
+   latencies and batches, host peak RSS and peak device memory.  Its
+   launches are counted by call shape and by walk: the 32-lane batches
+   on the lane walk, N-hop's 4 lanes in groups of 4, the tails one lane;
 7. each graph kernel at that path's shapes, with the engine's walk
    plans: device time (20 calls replayed from one CUDA graph) and
    eager-call time, the plain version's device time, the bound and its
@@ -109,8 +129,9 @@ Phases (any failure exits non-zero before the result lines):
 11. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
-Each main path (graph, query, GoFS graph, the session within it,
-serving) runs with every kernel's launch count set to 0 just before it
+Each main path (graph, query, GoFS graph, the session within it, the
+stream phase, serving) runs with every kernel's launch count set to 0
+just before it
 and read just after; a kernel of the path that was not launched fails
 the smoke.
 
@@ -991,12 +1012,13 @@ def gofs_path(cfg, keep, device="cuda", log=print):
         report("pagerank", stage_seconds=stage_s, limit_used=used)
 
         # 6. the Gopher session on the same deployment
+        keep["session_held"] = {}
         recs["session"] = session_phase(
             root, tmpl, want={"spmv": dense_store_run,
                               "fused": mem["sssp"]["fused"],
                               "pagerank": store_pr["spmv"],
                               "query": keep["query"]},
-            device=device, log=log)
+            device=device, log=log, held=keep["session_held"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return recs
@@ -1025,7 +1047,7 @@ class PeakRSS:
         self.peak_gb = max(self.peak_gb, host_rss_gb()[0])
 
 
-def session_phase(root, tmpl, want, device="cuda", log=print):
+def session_phase(root, tmpl, want, device="cuda", log=print, held=None):
     """The Gopher session on the GoFS deployment at full width and depth
     (``GopherSession(store).plan/run/run_many``), held against phase 6's
     explicit engine runs in ``want``: SSSP bitwise in both kernel modes
@@ -1039,7 +1061,9 @@ def session_phase(root, tmpl, want, device="cuda", log=print):
     instance; ``tracking`` of the plate seen in the most timesteps, its
     trace equal to the host iBSP ``tracking.run_host`` on the store.
     The graph kernels' launches on this path are counted by call shape on
-    their own.  Returns the phase's records."""
+    their own.  ``held`` (a dict) receives what the stream phase is held
+    against: step 1's SSSP result and step 6's N-hop histograms.  Returns
+    the phase's records."""
     import numpy as np
     import torch
 
@@ -1216,6 +1240,8 @@ def session_phase(root, tmpl, want, device="cuda", log=print):
                         f"session nhop: lane {q} instance {i} differs "
                         f"from nhop.oracle")
             recs["nhop_q4"]["oracle_seconds"] = time.perf_counter() - t0
+            if held is not None:
+                held.update(sssp=r1.engine, nhop_q4=hq)
 
             # 7. tracking of one plate, against host iBSP on the store
             plates = GoFSStore(root).vertex_attr_matrix(
@@ -1264,6 +1290,288 @@ def session_phase(root, tmpl, want, device="cuda", log=print):
              f"{name}: session launches by call shape do not sum to {v}")
         need(not cuda or v > 0,
              f"{name} was not launched on the session path")
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: streaming ingestion and warm serving on a growing collection
+# ---------------------------------------------------------------------------
+
+# instances a stream-phase append adds: the first opens a new time pack,
+# the second rewrites that partial pack (TR_SMALL: 40 deployed, then 4
+# and 4, at 20 instances a pack)
+STREAM_APPEND = 4
+# the longest the stream phase waits on the service (every wait has one)
+STREAM_WAIT = 900.0
+
+
+def disk_files(root):
+    """{path: (bytes, mtime ns)} of every file under ``root``."""
+    import os
+
+    out = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+class Timed:
+    """Wrap the callable ``owner.name`` in place, recording each call's
+    (seconds, ``note(result)``) in ``calls`` (``note`` keeps no reference
+    to a large result); ``sync`` runs before the clock stops (a CUDA
+    synchronise, so the seconds cover the device work).  ``restore()``
+    puts the callable back."""
+
+    def __init__(self, owner, name, sync=None, note=lambda out: out):
+        self.owner, self.name, self.calls = owner, name, []
+        self.real = getattr(owner, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.real(*args, **kw)
+            if sync is not None:
+                sync()
+            self.calls.append((time.perf_counter() - t0, note(out)))
+            return out
+
+        setattr(owner, name, timed)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.real)
+
+
+def stream_phase(cfg, keep, card, device="cuda", log=print):
+    """Streaming ingestion and warm serving on a growing collection at
+    ``cfg``'s full width: the first ``I - 2 * STREAM_APPEND`` instances
+    deployed with phase 6's knobs, then two appends of STREAM_APPEND
+    instances from this thread while a ``GopherService`` serves (the
+    second append rewrites the tail pack the first opened).  The service
+    (a staging budget that holds the batch) answers the query phase's 32
+    SSSP sources before the appends, and the same 32 with an N-hop group
+    of 4 in one admission after them; its ``sssp`` subscription
+    (source 0) delivers full, incremental, incremental; a second session
+    with ``use_pallas="fused"`` tails the same store.  Everything is held
+    bit for bit against phases 5b and 6 (``keep["query"]``,
+    ``keep["session_held"]``).  Records, each with the card: deploy and
+    append seconds and bytes written, free disk, refresh, staged-batch
+    extension and re-upload seconds, each tail update's seconds, the
+    service's latencies and batches, staging-cache counters, host peak
+    RSS and peak device memory.  Returns the phase's records."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.core.engine as engine_mod
+    from repro_torch.core.graph import TimeSeriesGraph
+    from repro_torch.core.semiring import INF
+    from repro_torch.gofs import GoFSStore, append_instances, deploy_collection
+    from repro_torch.gofs.prefetch import release_pinned
+    from repro_torch.gopher import GopherService, GopherSession
+
+    cuda = device == "cuda"  # a CPU rehearsal checks control flow only
+    bg, col = keep["bg"], keep["in_memory"]["col"]
+    srcs, qref = keep["query"]["sources"], keep["query"]["result"]
+    held = keep["session_held"]
+    I, a = len(col), STREAM_APPEND
+    n0 = I - 2 * a
+    Q = len(srcs)
+    B = bg.block_size
+    per_instance = bg.n_parts * (bg.t_max + bg.tb_max) * B * B * 4
+    recs = {"card": card, "cut": {}}  # nothing of the configuration is cut
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def report(name, **kw):
+        cur, peak = host_rss_gb()
+        rec = dict(kw, host_rss_gb=cur, host_peak_rss_gb=peak, card=card)
+        if cuda:
+            rec["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        recs[name] = rec
+        log(f"phase stream_{name}: {json.dumps(rec)}")
+
+    def part(lo, hi):
+        return TimeSeriesGraph(template=col.template,
+                               instances=col.instances[lo:hi])
+
+    def same(got, want, what):  # bit for bit: -0 is not +0
+        same_bits(torch.as_tensor(np.asarray(got)),
+                  torch.as_tensor(np.asarray(want)), what)
+
+    def same_lane(eng, q, ref, n, what):
+        """Lane ``q`` of ``eng`` (values, final, counts) against lane ``q``
+        of ``ref`` over its first ``n`` instances."""
+        same(eng.values[q], ref.values[q][:n], f"{what}: values")
+        same(eng.final[q], ref.values[q][n - 1], f"{what}: final")
+        for k in ("supersteps", "local_sweeps"):
+            same(eng.stats[k][q], ref.stats[k][q][:n], f"{what}: {k}")
+
+    def same_run(got, want, what):
+        for f in ("values", "final"):
+            same(getattr(got, f), getattr(want, f), f"{what}: {f}")
+        for k in ("supersteps", "local_sweeps"):
+            same(got.stats[k], want.stats[k], f"{what}: {k}")
+
+    root = tempfile.mkdtemp(prefix="gofs_stream_")
+    uploads = Timed(engine_mod, "_device_put", sync,
+                    note=lambda t: int(t.nbytes))
+    svc = None
+    try:
+        # 1. deploy the prefix with phase 6's knobs
+        free0 = shutil.disk_usage(root).free
+        t0 = time.perf_counter()
+        deploy_collection(part(0, n0), cfg, root,
+                          sparse_absent={"latency": INF})
+        files = disk_files(root)
+        report("deploy", seconds=time.perf_counter() - t0, instances=n0,
+               collection_instances=I,
+               bytes_on_disk=sum(n for n, _ in files.values()),
+               disk_free_gb_before=free0 / 1e9,
+               disk_free_gb_after=shutil.disk_usage(root).free / 1e9)
+
+        # 2. the service, its subscription, the fused tail session
+        budget = int(1.25 * I * per_instance)  # holds the grown batch
+        svc = GopherService(GoFSStore(root), device=device,
+                            staging_cache_bytes=budget,
+                            max_batch_queries=Q + 4, poll_interval=0.05)
+        sess = svc.session
+        refreshes = Timed(sess, "refresh")
+        extends = Timed(sess, "_extend_staging_cache", sync)
+        tails = Timed(sess, "tail", sync, note=lambda u: u.mode)
+        fused = GopherSession(GoFSStore(root), device=device,
+                              use_pallas="fused")
+        f_updates, f_seconds = [], []
+
+        def fused_tail():
+            sync()
+            t0 = time.perf_counter()
+            f_updates.append(fused.tail("sssp", source=0))
+            sync()
+            f_seconds.append(time.perf_counter() - t0)
+
+        with PeakRSS() as rss, svc:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sub = svc.subscribe("sssp", source=0)
+            updates = [sub.wait_update(1, timeout=STREAM_WAIT)]
+            t0 = time.perf_counter()
+            before = [t.wait(STREAM_WAIT) for t in svc.submit_many(
+                [("sssp", {"source": s}) for s in srcs])]
+            before_s = time.perf_counter() - t0
+            stats = [sess.staging_cache_stats()]
+            report("serve_before", seconds=before_s, queries=Q,
+                   instances=n0, staging_cache=stats[0],
+                   upload_seconds=sum(s for s, _ in uploads.calls),
+                   upload_bytes=sum(n for _, n in uploads.calls),
+                   tail_seconds=tails.calls[0][0])
+            fused_tail()
+
+            # 3. two appends from this thread while the service runs
+            for k, (lo, hi) in enumerate(((n0, n0 + a), (n0 + a, I)), 2):
+                snap = disk_files(root)
+                free_b = shutil.disk_usage(root).free
+                n_ext, n_up = len(extends.calls), len(uploads.calls)
+                t0 = time.perf_counter()
+                meta = append_instances(part(lo, hi), root)
+                append_s = time.perf_counter() - t0
+                after = disk_files(root)
+                written = sum(n for p, (n, m) in after.items()
+                              if snap.get(p) != (n, m))
+                updates.append(sub.wait_update(k, timeout=STREAM_WAIT))
+                stats.append(sess.staging_cache_stats())
+                fused_tail()
+                grew = {f: stats[-1][f] - stats[-2][f] for f in (
+                    "staged_bytes", "staging_passes", "evictions", "hits")}
+                need(grew == {"staged_bytes": a * per_instance,
+                              "staging_passes": 1, "evictions": 0,
+                              "hits": 0},
+                     f"append {k - 1}: the staging cache grew by {grew}, "
+                     f"not the new {a} instances' fill once "
+                     f"({a * per_instance} bytes)")
+                report(f"append_{k - 1}", instances=[lo, hi],
+                       version=meta["version"], seconds=append_s,
+                       bytes_written=written,
+                       files_written=sum(1 for p, v in after.items()
+                                         if snap.get(p) != v),
+                       disk_free_gb_before=free_b / 1e9,
+                       disk_free_gb_after=shutil.disk_usage(root).free
+                       / 1e9,
+                       refresh_seconds=[s for s, changed in refreshes.calls
+                                        if changed][-1],
+                       extend_seconds=[s for s, _ in
+                                       extends.calls[n_ext:]],
+                       tail_seconds=tails.calls[-1][0],
+                       fused_tail_seconds=f_seconds[-1],
+                       new_uploads=len(uploads.calls) - n_up,
+                       staging_cache=stats[-1])
+
+            # 4. after the appends: 32 sources and N-hop 4, one admission
+            n_up = len(uploads.calls)
+            t0 = time.perf_counter()
+            after_res = [t.wait(STREAM_WAIT) for t in svc.submit_many(
+                [("sssp", {"source": s}) for s in srcs]
+                + [("nhop", {"source": s, "n_hops": 4}) for s in srcs[:4]])]
+            after_s = time.perf_counter() - t0
+            up = uploads.calls[n_up:]
+            rep = svc.report()
+            sub.cancel()
+        report("serve_after", seconds=after_s, queries=Q + 4,
+               instances=I, reupload_seconds=sum(s for s, _ in up),
+               reupload_bytes=sum(n for _, n in up),
+               service=rep, host_peak_rss_in_phase_gb=rss.peak_gb)
+        need(rep["batches"] == 2 and rep["widest_batch"] == Q + 4
+             and rep["appends_observed"] == 2,
+             f"stream: the service's batches {rep}")
+
+        # 5. checks, bit for bit
+        eng_b = before[0].engine
+        need(eng_b.values.shape == (Q, n0, len(bg.part_of)),
+             "stream: the first batch did not run the 32 lanes together")
+        for q in range(Q):
+            same_lane(eng_b, q, qref, n0, f"stream before the appends, "
+                                          f"lane {q} (source {srcs[q]})")
+            same(before[q].output["final"], eng_b.final[q],
+                 f"stream: ticket {q}'s final against its lane")
+        eng_a = after_res[0].engine
+        for q in range(Q):
+            same_lane(eng_a, q, qref, I, f"stream after the appends, "
+                                         f"lane {q} (source {srcs[q]})")
+            same(after_res[q].output["final"], qref.final[q],
+                 f"stream: ticket {q}'s final after the appends")
+        for q in range(4):
+            same(after_res[Q + q].output["histograms"], held["nhop_q4"][q],
+                 f"stream: N-hop lane {q} against phase 6's session")
+        modes = [(u.mode, u.new_instances) for u in updates]
+        need(modes == [("full", n0), ("incremental", a),
+                       ("incremental", a)],
+             f"stream: subscription updates {modes}")
+        need([(u.mode, u.new_instances) for u in f_updates] == modes,
+             "stream: the fused tail's updates differ in mode")
+        for i, (u, fu) in enumerate(zip(updates, f_updates)):
+            same_run(fu.result.engine, u.result.engine,
+                     f"stream: fused tail update {i}")
+        same_run(updates[-1].result.engine, held["sssp"],
+                 "stream: the last update against phase 6's cold session")
+        report("checks", lanes=Q, nhop_lanes=4,
+               updates=[dict(mode=m, new_instances=n) for m, n in modes],
+               tail_seconds=[s for s, _ in tails.calls],
+               fused_tail_seconds=f_seconds,
+               per_instance_fill_bytes=per_instance,
+               staging_cache_bytes=budget)
+    finally:
+        uploads.restore()
+        if svc is not None:
+            svc.stop()
+        release_pinned()
+        shutil.rmtree(root, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
     return recs
 
 
@@ -2588,7 +2896,39 @@ def main() -> int:
         need(sum(n for (kk, _), n in gofs_shapes.items() if kk == k) == v,
              f"{k}: GoFS-path launches by call shape do not sum to {v}")
         need(v > 0, f"{k} was not launched on the GoFS path")
+
+    # 6b. streaming ingestion and warm serving, launches counted
+    for k in (spmv_blocked_cuda, fused_step_cuda):
+        k.launches = 0
+    t0 = time.perf_counter()
+    w0 = walk_counts()
+    with call_shapes() as stream_shapes:
+        stream = stream_phase(TR_SMALL, keep, card, "cuda")
+    stream_launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
+                       "fused_step_cuda": fused_step_cuda.launches}
+    walks["stream"] = check_walks("stream path", stream_shapes, w0,
+                                  walk_counts())
+    print(f"stream path launches by walk: {json.dumps(walks['stream'])}")
+    print(f"phase stream: {json.dumps({'seconds': time.perf_counter() - t0, 'card': card})}")
+    print(f"stream path launches: {json.dumps(stream_launches)}")
+    print("stream path launches by call shape: " + json.dumps(
+        {f"{k} {c}": n for (k, c), n in sorted(stream_shapes.items())}))
+    print(f"stream path cuts: {json.dumps(stream['cut'])} (TR_SMALL: "
+          f"{TR_SMALL.num_instances} instances, the last "
+          f"{2 * STREAM_APPEND} appended)")
+    for k, v in stream_launches.items():
+        need(sum(n for (kk, _), n in stream_shapes.items() if kk == k) == v,
+             f"{k}: stream-path launches by call shape do not sum to {v}")
+        need(v > 0, f"{k} was not launched on the stream path")
+        need(any(n > 0 for (kk, c), n in stream_shapes.items()
+                 if kk == k and " Q=" not in c),
+             f"{k}: no one-lane (tail) launch on the stream path")
+    for lanes in (QUERY_LANES, 4):
+        need(any(n > 0 for (kk, c), n in stream_shapes.items()
+                 if kk == "spmv_blocked_cuda" and c.endswith(f" Q={lanes}")),
+             f"spmv_blocked_cuda: no Q={lanes} launch on the stream path")
     keep.pop("in_memory")
+    keep.pop("session_held")
     torch.cuda.empty_cache()
 
     # 7. the graph kernels at the main path's shapes
@@ -2614,6 +2954,9 @@ def main() -> int:
             c[len(k) + 1:]: n for c, n in
             gofs["session"]["launches_by_call_shape"].items()
             if c.startswith(k + " ")}
+        rec["stream_launches"] = stream_launches[k]
+        rec["stream_launches_by_call_shape"] = {
+            c: n for (kk, c), n in sorted(stream_shapes.items()) if kk == k}
     print(f"phase kernel_timing: {json.dumps({'seconds': time.perf_counter() - t0})}")
     del keep
     torch.cuda.empty_cache()

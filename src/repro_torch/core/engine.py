@@ -551,6 +551,23 @@ class TemporalEngine:
             self._staged_device.popitem(last=False)
         return dev
 
+    # ------------------------------------------------------ resumable state
+    def resume_seed(self, final: np.ndarray, *, pad: float) -> np.ndarray:
+        """Re-scatter a prior run's gathered ``EngineResult.final`` into
+        the engine's padded (P, Vp) state layout, in the form
+        ``RunSpec.x0`` takes: a tail run over appended instances passes
+        it as ``x0`` (with ``warm_start=True`` for fixpoints, or under the
+        sequential pattern, which carries state by definition) and
+        continues the instance chain where the previous run converged.
+        ``pad`` fills padding slots and must be the program's
+        ``zero_fill``.  A (Q, V) multi-source final maps to a (Q, P, Vp)
+        seed."""
+        f = np.asarray(final, np.float32)
+        if f.ndim == 1:
+            return self.bg.scatter_vertex(f, pad)
+        assert f.ndim == 2, f.shape
+        return np.stack([self.bg.scatter_vertex(fi, pad) for fi in f])
+
     # ----------------------------------------------------------------- run
     def run(
         self,

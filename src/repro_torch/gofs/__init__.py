@@ -9,11 +9,12 @@ slice caching (§V-E).  ``GoFSStore`` implements the iBSP engine's
 paper — and stages blocked batches for ``TemporalEngine``.
 
 ``gofs.prefetch.SlicePrefetcher`` stages streamed loads ahead of the
-engine.  Not ported yet: appending to a deployed collection (ROADMAP
-queue 1, item 5).
+engine; ``append_instances`` grows a deployed collection in place
+(streaming ingestion).
 """
 from repro_torch.gofs.cache import SliceCache
-from repro_torch.gofs.layout import deploy_collection
+from repro_torch.gofs.layout import append_instances, deploy_collection
 from repro_torch.gofs.store import GoFSStore
 
-__all__ = ["SliceCache", "deploy_collection", "GoFSStore"]
+__all__ = ["SliceCache", "append_instances", "deploy_collection",
+           "GoFSStore"]

@@ -15,9 +15,10 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+from numpy.lib import format as npformat
 
 
 @dataclass
@@ -39,20 +40,53 @@ class ReadStats:
         }
 
 
-def write_array_slice(path: str, arrays: Dict[str, np.ndarray]) -> int:
+def write_array_slice(
+    path: str, arrays: Dict[str, Union[np.ndarray, List[np.ndarray]]],
+) -> int:
     """Write a multi-array slice (npz, uncompressed).  Returns bytes.
+
+    A value given as a list of arrays is written as their concatenation
+    on the leading axis, part by part, without building it in memory
+    (an appended payload pool: the recorded payloads, then the new ones).
 
     The write is atomic (temp file + ``os.replace``): a concurrent reader
     sees either the previous slice or the new one, never a torn file.
     Append-time pack rewrites (``append_instances``) rely on this.
     """
+    import zipfile
+
     os.makedirs(os.path.dirname(path), exist_ok=True)
     final = path if path.endswith(".npz") else path + ".npz"
     tmp = final + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
+    with zipfile.ZipFile(tmp, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if isinstance(val, list):
+                    _write_parts(fid, val)
+                else:
+                    npformat.write_array(fid, np.asanyarray(val))
     os.replace(tmp, final)
     return os.path.getsize(final)
+
+
+def _write_parts(fid, parts: List[np.ndarray]) -> None:
+    """One ``.npy`` member holding ``np.concatenate(parts)``, streamed."""
+    parts = [np.ascontiguousarray(p) for p in parts]
+    dtype, tail = parts[0].dtype, parts[0].shape[1:]
+    assert all(p.dtype == dtype and p.shape[1:] == tail for p in parts)
+    header = {"descr": npformat.dtype_to_descr(dtype),
+              "fortran_order": False,
+              "shape": (sum(len(p) for p in parts),) + tail}
+    try:
+        npformat.write_array_header_1_0(fid, header)
+    except ValueError:  # a header too long for format 1.0
+        npformat.write_array_header_2_0(fid, header)
+    step = 1 << 26
+    for p in parts:
+        flat = p.reshape(-1).view(np.uint8)
+        for i in range(0, flat.size, step):
+            fid.write(flat[i:i + step])
 
 
 def read_array_slice(path: str, stats: Optional[ReadStats] = None) -> Dict[str, np.ndarray]:

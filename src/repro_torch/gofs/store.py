@@ -7,10 +7,9 @@ Counterpart of ``repro.gofs.store``; it reads the same on-disk format.
 host iBSP engine runs directly on GoFS, and ``load_blocked`` stages an
 edge attribute into the blocked batches ``TemporalEngine`` runs on the
 card (``load_blocked_stream``: chunk by chunk, behind a prefetcher).  The
-API only touches slices of the local deployment root.
-
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``refresh`` and ``append_instances`` (streaming ingestion, item 5).
+API only touches slices of the local deployment root.  ``refresh``
+observes an append made by another writer (``append_instances``) at one
+manifest read.
 """
 from __future__ import annotations
 
@@ -20,7 +19,6 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.blocked import SparseBlocked, pow2_bucket
-from repro_torch.core.engine import _not_ported
 from repro_torch.core.graph import AttributeDef
 from repro_torch.core.ibsp import InstanceProvider, SubgraphInstance
 from repro_torch.core.subgraph import SubgraphTopology
@@ -93,15 +91,56 @@ class GoFSStore(InstanceProvider):
 
     # ---------------- streaming ingestion ----------------------------------
     def refresh(self) -> bool:
-        """Observe an in-place append (re-read the manifest, rebind the
-        timeline, invalidate the rewritten slices).  Not ported yet."""
-        raise _not_ported("GoFSStore.refresh (streaming ingestion)", "5")
+        """Observe an in-place append: re-read the collection manifest and,
+        on a version change, rebind the timeline and invalidate exactly the
+        cache entries the append may have rewritten — the partial tail
+        pack's value slices plus every tile-map / delta-pool metadata slice
+        (their pinned payload pools would otherwise serve pre-append
+        values forever).  Untouched slices stay resident; template and
+        partition metadata never change across an append.
+
+        Returns True iff the collection changed.  An unreadable manifest
+        (e.g. mid-replace on a non-atomic filesystem) leaves the store at
+        its current version."""
+        try:
+            meta = read_json_slice(
+                os.path.join(self.root, "collection.json"), self.stats)
+        except (OSError, ValueError):
+            return False
+        version = int(meta.get("version", 0))
+        n_inst = int(meta["num_instances"])
+        if (version == self.version
+                and n_inst == int(self.meta["num_instances"])):
+            return False
+        old_n = int(self.meta["num_instances"])
+        k_dirty = old_n // self.ipack  # tail pack rewritten by the append
+        self.meta = meta
+        self.version = version
+        self._bind_timeline()
+
+        def stale(key: str) -> bool:
+            if key.startswith("tilemap/") or key.startswith("delta/"):
+                return True
+            name = key.partition("/")[2]
+            if not name.startswith("attr_"):
+                return False
+            try:
+                return int(name.rsplit("_t", 1)[1]) >= k_dirty
+            except (IndexError, ValueError):
+                return True  # unparseable attr key: drop, never serve stale
+
+        self.cache.invalidate(stale)
+        return True
 
     def append_instances(self, tsg_new) -> Dict:
-        """Append new instances to this store's collection in place.  Not
-        ported yet."""
-        raise _not_ported("GoFSStore.append_instances (streaming "
-                          "ingestion)", "5")
+        """Append new instances to this store's collection in place (see
+        :func:`repro_torch.gofs.layout.append_instances`) and refresh this
+        reader to the committed version."""
+        from repro_torch.gofs.layout import append_instances as _append
+
+        meta = _append(tsg_new, self.root)
+        self.refresh()
+        return meta
 
     # ---------------- InstanceProvider ------------------------------------
     def subgraph_ids(self) -> Sequence[int]:

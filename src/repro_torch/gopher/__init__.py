@@ -8,8 +8,8 @@ plans for registered analytics), ``run`` (execute one plan), and
 ``run_many`` (execute several with shared staging — one
 ``load_blocked``/prefetch pass feeding N engine runs).
 
-Registry → planner → executor.  ``GopherService`` (warm serving) is not
-ported yet (ROADMAP queue 1, item 5).
+Registry → planner → executor; ``GopherService`` serves queries from one
+warm session (source-axis batching, tailing subscriptions).
 """
 from repro_torch.gopher.planner import (
     ExecutionPlan, PlanChoice, SPARSE_OCCUPANCY_MAX)
@@ -20,6 +20,7 @@ from repro_torch.gopher.registry import (
     list_analytics,
     register_analytic,
 )
+from repro_torch.gopher.service import GopherService, QueryTicket
 from repro_torch.gopher.session import (
     AnalyticResult, GopherSession, PlanContext)
 
@@ -27,9 +28,11 @@ __all__ = [
     "Analytic",
     "AnalyticResult",
     "ExecutionPlan",
+    "GopherService",
     "GopherSession",
     "PlanChoice",
     "PlanContext",
+    "QueryTicket",
     "REQUIRED",
     "SPARSE_OCCUPANCY_MAX",
     "get_analytic",

@@ -34,8 +34,10 @@ Data sources (all expose the same verbs):
 
 The session runs on ``device`` (``"cuda"`` by default; ``"cpu"`` runs
 every kernel's plain PyTorch version) and passes it to every engine it
-builds.  Not ported yet, and raising ``NotImplementedError`` that names
-the ROADMAP item: ``refresh`` and ``tail`` (item 5), ``mesh=`` (item 6),
+builds.  ``refresh`` and ``tail`` follow a collection that grows in
+place (streaming ingestion); ``GopherService`` (:mod:`.service`) serves
+queries from one warm session.  Not ported yet, and raising
+``NotImplementedError`` that names the ROADMAP item: ``mesh=`` (item 6),
 ``cluster=`` and ``run(checkpoint_dir=...)`` (item 7).
 
 >>> import numpy as np
@@ -150,6 +152,37 @@ class _StagingCache:
 # ---------------------------------------------------------------------------
 # Results
 # ---------------------------------------------------------------------------
+
+@dataclass
+class TailUpdate:
+    """One ``GopherSession.tail`` observation over a growing collection.
+
+    ``result`` always reflects EVERY instance visible at the update
+    (full history, not just the appended tail); ``mode`` records how it
+    was obtained: ``"full"`` (cold run over the whole collection —
+    first call, or the incremental preconditions failed),
+    ``"incremental"`` (one warm-started step over just the appended
+    instances, seeded from the previous converged state), or ``"noop"``
+    (nothing new arrived; the held result is returned unchanged)."""
+
+    result: "AnalyticResult"
+    new_instances: int
+    mode: str  # "full" | "incremental" | "noop"
+    version: Optional[int] = None  # backing collection version observed
+
+
+@dataclass
+class _TailState:
+    """Held state of one tailing computation: how far the instance axis
+    has been consumed and the last combined result (whose engine
+    ``final`` seeds the next incremental step).  ``program`` is the
+    semiring program reused across steps: a tail key pins the analytic's
+    params, and programs do not change when the collection grows."""
+
+    processed: int
+    result: "AnalyticResult"
+    program: Any = None
+
 
 @dataclass
 class AnalyticResult:
@@ -305,6 +338,7 @@ class GopherSession:
         self._staging_cache: Optional[_StagingCache] = (
             _StagingCache(byte_budget=staging_cache_bytes)
             if staging_cache_bytes is not None else None)
+        self._tails: Dict[Tuple, _TailState] = {}
 
         if isinstance(source, GoFSStore):
             self.store = source
@@ -569,14 +603,190 @@ class GopherSession:
 
     # ----------------------------------------------------- streaming ingest
     def refresh(self) -> bool:
-        """Observe an append on the backing GoFS collection.  Not ported
-        yet (streaming ingestion, ROADMAP item 5)."""
-        raise _not_ported("GopherSession.refresh (streaming ingestion)", "5")
+        """Observe an append on the backing GoFS collection.
 
-    def tail(self, analytic: str, **kw):
-        """Incremental analytics over a growing collection.  Not ported
-        yet (streaming ingestion, ROADMAP item 5)."""
-        raise _not_ported("GopherSession.tail (streaming ingestion)", "5")
+        Polls the store's manifest (``GoFSStore.refresh``); when the
+        collection grew, rebinds ``num_instances`` and invalidates ONLY
+        the affected tail of the session's caches:
+
+        * ``("raw", attr)`` host matrices are tail-EXTENDED in place of a
+          drop — the appended rows are read and concatenated, so a warm
+          serving session keeps its history resident;
+        * derived entries (transformed weights, vertex attributes,
+          activity summaries) are dropped and recomputed lazily;
+        * session-lifetime staged batches (``staging_cache_bytes=``) are
+          tail-extended for dense raw template batches (new instance
+          tiles filled and concatenated into a NEW :class:`StagedBatch`
+          — a reader holding the old batch keeps a complete, unchanged
+          view) and dropped otherwise; topology-only ``__ones__``
+          batches do not change with an append and survive untouched.
+
+        Returns ``True`` iff a new collection version was observed.
+        Sessions over in-memory sources never refresh (``False``)."""
+        if self.store is None or not self.store.refresh():
+            return False
+        old_n = self.num_instances
+        new_n = self.store.num_timesteps()
+        self.num_instances = new_n
+        self._activity_cache.clear()
+        # a time-filtered view may not grow even though the store did;
+        # extension is only exact when the visible axis is the full axis
+        grew = new_n > old_n and self.store._time_range is None
+        for key in list(self._w_cache):
+            kind, name = key[0], key[1]
+            if kind == "raw" and name == ONES_ATTR:
+                continue  # one synthetic instance: append-invariant
+            w = self._w_cache[key]
+            if (grew and kind == "raw"
+                    and getattr(w, "shape", (0,))[0] == old_n):
+                rows = self.store.edge_attr_rows(name, range(old_n, new_n))
+                self._w_cache[key] = np.concatenate(
+                    [w, rows.astype(w.dtype, copy=False)])
+            else:
+                del self._w_cache[key]
+        if self._staging_cache is not None:
+            self._extend_staging_cache(old_n, new_n, grew)
+        return True
+
+    def _extend_staging_cache(self, old_n: int, new_n: int,
+                              grew: bool) -> None:
+        """Tail-extend or drop resident staged batches after an append."""
+        cache = self._staging_cache
+        for key in list(cache.entries):
+            graph, attr, transform, zero, layout = key
+            batch = cache.entries[key]
+            if attr == ONES_ATTR:
+                continue
+            extendable = (
+                grew and graph == "template" and transform == "raw"
+                and layout == "dense" and batch.tiles is not None
+                and batch.tiles.shape[0] == old_n
+            )
+            if not extendable:
+                cache.entries.pop(key)
+                cache.resident_bytes -= batch.nbytes
+                continue
+            rows = self.store.edge_attr_rows(attr, range(old_n, new_n))
+            bg = self._blocked(graph)
+            t_new = bg.fill_local_batch(rows, zero=zero)
+            b_new = bg.fill_boundary_batch(rows, zero=zero)
+            nb = t_new.nbytes + b_new.nbytes
+            cache.entries[key] = StagedBatch(
+                layout="dense",
+                tiles=np.concatenate([batch.tiles, t_new]),
+                btiles=np.concatenate([batch.btiles, b_new]),
+                nbytes=batch.nbytes + nb,
+            )
+            cache.staged_bytes += nb
+            cache.staging_passes += 1
+            cache.resident_bytes += nb
+        if cache.byte_budget is not None:
+            while cache.entries and cache.resident_bytes > cache.byte_budget:
+                _, old = cache.entries.popitem(last=False)
+                cache.resident_bytes -= old.nbytes
+                cache.evictions += 1
+
+    def tail(self, analytic: str, *, refresh: bool = True,
+             **kw) -> TailUpdate:
+        """Incremental analytics over a growing collection.
+
+        The first call runs ``analytic`` cold over everything visible
+        and holds the result.  After an append (observed via
+        :meth:`refresh`, or pass ``refresh=False`` when the caller
+        already polled), the next call runs ONE step over just the
+        appended instances, seeded from the held converged state:
+
+        * ``sequential`` programs carry their continuation state — the
+          suffix run's ``x0`` is the previous final, exact by the
+          pattern's definition;
+        * ``independent`` fixpoints under a warm plan seed the first new
+          instance from the previous final (exact for monotone min-plus,
+          the same contract as ``RunSpec.warm_start``); otherwise the
+          suffix cold-starts from the program's own init, exact because
+          instances never communicate.  Fixed-iterate programs are never
+          seeded (a warm seed would change their result).
+
+        Suffix values/stats are concatenated onto the held result, so
+        ``update.result`` always covers the full history.  Composite
+        analytics, eventually-merge plans, non-rowwise weight
+        transforms, variant graphs, and time-filtered views fall back to
+        a cold full re-run.  ``**kw`` takes the same params and knob
+        overrides as :meth:`plan`; each distinct combination tails
+        independently."""
+        if refresh:
+            self.refresh()
+        key = (analytic, _freeze_value(kw))
+        st = self._tails.get(key)
+        n = self.num_instances
+        version = self.store.version if self.store is not None else None
+        if st is not None and st.processed == n:
+            return TailUpdate(st.result, 0, "noop", version)
+        plan = self.plan(analytic, **kw)
+        a = get_analytic(analytic)
+        n_new = n - (st.processed if st is not None else 0)
+        prev = st.result.engine if st is not None else None
+        incremental = (
+            st is not None and 0 < n_new
+            and not a.composite
+            and plan.pattern in ("sequential", "independent")
+            and a.attr != ONES_ATTR
+            and a.graph == "template"
+            and (a.weights is None or a.rowwise)
+            and prev is not None
+            and (self.store is None or self.store._time_range is None)
+        )
+        if incremental:
+            raw = self._raw(a.attr)
+            incremental = raw.shape[0] >= n
+        if not incremental:
+            result = self.run_many([plan])[0]
+            self._tails[key] = _TailState(processed=n, result=result)
+            return TailUpdate(result, n_new, "full", version)
+
+        w = raw[st.processed:n]
+        if a.weights is not None:
+            w = a.weights(self, w)
+        cache = self._staging_cache if self._staging_cache is not None \
+            else _StagingCache()
+        ctx = PlanContext(self, plan, a, cache)
+        program = st.program
+        if program is None:
+            program = a.make_program(ctx, **plan.param_dict)
+        engine = self._engine(plan.graph, plan.comm.value,
+                              plan.kernel.value)
+        warm = bool(plan.warm.value) and program.kind == "fixpoint"
+        if plan.pattern == "sequential":
+            spec = RunSpec(program, plan.pattern,
+                           x0=engine.resume_seed(prev.final,
+                                                 pad=float(a.zero_fill)))
+        elif warm:
+            spec = RunSpec(program, plan.pattern,
+                           x0=engine.resume_seed(prev.final,
+                                                 pad=float(a.zero_fill)),
+                           warm_start=True)
+        else:
+            spec = RunSpec(program, plan.pattern)  # cold suffix: exact
+        # suffix rows are already in host memory — sync staging skips the
+        # prefetcher a store-backed plan would spin up for a full pass
+        res_new = engine.run_many([spec], w, staging="sync")[0]
+        combined = EngineResult(
+            pattern=res_new.pattern,
+            values=np.concatenate([prev.values, res_new.values], axis=-2),
+            final=res_new.final,
+            merged=None,
+            stats={k: np.concatenate([prev.stats[k], res_new.stats[k]],
+                                     axis=-1) for k in res_new.stats},
+            occupancy=res_new.occupancy,
+            warm_start=res_new.warm_start,
+            n_sources=res_new.n_sources,
+            _n_published=res_new._n_published,
+            _n_parts=res_new._n_parts,
+            _num_vertices=res_new._num_vertices,
+        )
+        result = self._wrap(plan, a, combined, cache)
+        self._tails[key] = _TailState(processed=n, result=result,
+                                      program=program)
+        return TailUpdate(result, n_new, "incremental", version)
 
     # ------------------------------------------------------------ internals
     def _wrap(self, plan: ExecutionPlan, a: Analytic, res: EngineResult,
@@ -774,6 +984,19 @@ class GopherSession:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+def _freeze_value(v) -> Any:
+    """Hashable key for request params (tail states, subscriptions and the
+    service's group keys): lists and dicts become tuples, arrays their
+    contents."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze_value(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze_value(x) for x in v)
+    if isinstance(v, np.ndarray):
+        return (v.shape, v.tobytes())
+    return v
+
 
 class _CountedChunks:
     """Pass a stream's chunks through, accounting their staged bytes so

@@ -262,7 +262,9 @@ def test_import_loads_no_jax():
         "repro_torch.dist.sharding, repro_torch.train.serve_step, "
         "repro_torch.launch.serve, repro_torch.gofs, "
         "repro_torch.gofs.layout, repro_torch.gofs.store, "
-        "repro_torch.core.subgraph, repro_torch.core.ibsp\n"
+        "repro_torch.core.subgraph, repro_torch.core.ibsp, "
+        "repro_torch.gopher.service, repro_torch.launch.run_graph, "
+        "repro_torch.launch.serve_graph, repro_torch.launch.tail_graph\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

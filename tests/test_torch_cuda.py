@@ -1199,3 +1199,121 @@ def test_walk_argument_is_checked(cuda):
             torch.cuda.current_stream().cuda_stream)
         with pytest.raises(RuntimeError, match="invalid argument"):
             _build.check(code, "spmv_blocked_cuda")
+
+
+# ---------------------------------------------------------------------------
+# streaming ingestion and warm serving on the card
+# ---------------------------------------------------------------------------
+
+WAIT = 300  # seconds: the longest a card test waits on a service
+
+
+def _growing_tiny(tmp_path, n0=3):
+    """TR_TINY deployed up to ``n0`` instances (latency tile maps and the
+    delta chain), and a function appending instances [lo, hi)."""
+    from repro_torch.core.graph import TimeSeriesGraph
+    from repro_torch.gofs import append_instances, deploy_collection
+
+    col = generate_collection(TR_TINY)
+    root = str(tmp_path / "live")
+
+    def part(lo, hi):
+        return TimeSeriesGraph(template=col.template,
+                               instances=col.instances[lo:hi])
+
+    deploy_collection(part(0, n0), TR_TINY, root,
+                      sparse_absent={"latency": float("inf")})
+    return root, lambda lo, hi: append_instances(part(lo, hi), root)
+
+
+def test_tail_on_card_matches_cpu(cuda, tmp_path):
+    """``tail`` on the card (spmv and fused; one source and five, which
+    take the lane walk) equals the CPU session's tail bitwise, update by
+    update over two appends (the second rewrites the tail pack)."""
+    from repro_torch.gofs import GoFSStore
+    from repro_torch.gopher import GopherSession
+
+    root, append = _growing_tiny(tmp_path)
+    sessions = [GopherSession(GoFSStore(root), device=d, use_pallas=m)
+                for d, m in (("cuda", "spmv"), ("cuda", "fused"),
+                             ("cpu", None))]
+    asks = [dict(source=0), dict(source=[0, 7, 11, 20, 33]),
+            dict(source=3, pattern="independent", warm=True)]
+    for lo, hi in ((None, None), (3, 4), (4, 6)):
+        if lo is not None:
+            append(lo, hi)
+        for kw in asks:
+            *gpu, cpu = [s.tail("sssp", **kw) for s in sessions]
+            for u in gpu:
+                assert (u.mode, u.new_instances, u.version) == \
+                    (cpu.mode, cpu.new_instances, cpu.version)
+                _same_run(u.result.engine, cpu.result.engine)
+    assert cpu.mode == "incremental" and cpu.result.engine.values.shape[
+        -2] == 6
+
+
+def test_service_on_card_matches_cpu(cuda, tmp_path):
+    """The service on the card answers a 32-source SSSP batch and an N-hop
+    group as the CPU service does, bitwise, and its subscription's updates
+    over an append equal the CPU's.  Its loop thread runs on the session's
+    device and on the stream that was current where the service started;
+    a streamed run driven from that thread fills pinned buffers."""
+    import threading
+
+    from repro_torch.gofs import GoFSStore
+    from repro_torch.gofs.prefetch import pinned_ring, release_pinned
+    from repro_torch.gopher import GopherService, GopherSession
+
+    root, append = _growing_tiny(tmp_path)
+    side = torch.cuda.Stream(cuda)
+    seen = []
+
+    def on_update(u):  # runs on the serve thread
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_device(),
+                     torch.cuda.current_stream() == side))
+        if len(seen) == 1:  # a streamed run from the loop thread
+            release_pinned()
+            s = GopherSession(GoFSStore(root), device="cuda")
+            r = s.run(s.plan("sssp", source=0, staging="async"))
+            seen.append(("streamed", r.engine, pinned_ring(cuda).peak_bytes))
+
+    srcs = [int(v) for v in np.random.default_rng(0).choice(
+        TR_TINY.num_vertices, 32, replace=False)]
+    reqs = [("sssp", {"source": v}) for v in srcs] + \
+        [("nhop", {"source": v, "n_hops": 3}) for v in srcs[:4]]
+    with torch.cuda.stream(side):
+        gpu = GopherService(GoFSStore(root), device="cuda",
+                            max_batch_queries=36, poll_interval=0.01).start()
+    cpu = GopherService(GoFSStore(root), device="cpu",
+                        max_batch_queries=36, poll_interval=0.01).start()
+    try:
+        subs = [gpu.subscribe("sssp", source=0, callback=on_update),
+                cpu.subscribe("sssp", source=0)]
+        firsts = [s.wait_update(1, timeout=WAIT) for s in subs]
+        outs = [[t.wait(WAIT) for t in svc.submit_many(reqs)]
+                for svc in (gpu, cpu)]
+        append(3, 5)
+        seconds = [s.wait_update(2, timeout=WAIT) for s in subs]
+        reps = [svc.report() for svc in (gpu, cpu)]
+    finally:
+        gpu.stop()
+        cpu.stop()
+    for a, b in zip(*outs):
+        for k, v in b.output.items():
+            if isinstance(v, np.ndarray):
+                assert np.array_equal(a.output[k], v, equal_nan=True), k
+    _same_run(outs[0][0].engine, outs[1][0].engine)
+    for a, b in (firsts, seconds):
+        assert (a.mode, a.new_instances) == (b.mode, b.new_instances)
+        _same_run(a.result.engine, b.result.engine)
+    assert seconds[0].mode == "incremental"
+    assert reps[0]["batches"] == reps[1]["batches"] == 1
+    assert reps[0]["staging_cache"] == reps[1]["staging_cache"]
+    loop = [x for x in seen if x[0] == "gopher-serve"]
+    assert len(loop) == 2
+    assert all(dev == torch.cuda.current_device() and on_side
+               for _, dev, on_side in loop)
+    _, streamed, pinned = next(x for x in seen if x[0] == "streamed")
+    _same_run(streamed, firsts[1].result.engine)
+    assert pinned > 0

@@ -259,7 +259,7 @@ def test_tile_pool_dedups_exact_bytes():
     ids = [pool.intern(t) for t in (z, nz, nan, z, nan.copy(), nz)]
     assert ids == [0, 1, 2, 0, 2, 1]
     assert len(pool) == 3
-    _eq(pool.payloads().view(np.uint32),
+    _eq(np.concatenate(pool.parts()).view(np.uint32),
         np.stack([z, nz, nan]).view(np.uint32))
 
 

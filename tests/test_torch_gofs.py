@@ -35,6 +35,7 @@ from repro_torch.configs.base import GraphConfig
 from repro_torch.core.algorithms import pagerank, sssp
 from repro_torch.core.blocked import build_blocked
 from repro_torch.core.generator import generate_collection
+from repro_torch.core.graph import TimeSeriesGraph
 from repro_torch.core.ibsp import InMemoryProvider
 from repro_torch.core.partition import discover_subgraphs, partition_graph
 from repro_torch.core.subgraph import build_subgraphs
@@ -235,16 +236,41 @@ def test_deployments_of_one_collection_are_equal(deployments, kind):
             _eq_dict(a, b, f)
 
 
-def test_append_is_not_ported(deployments, col):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        append_instances(col, deployments["port_plain"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        deploy_collection(col, TINY, deployments["port_plain"], append=True)
-    store = GoFSStore(deployments["port_plain"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        store.refresh()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        store.append_instances(col)
+def test_append_is_not_ported(col, tmp_path):
+    """Streaming ingestion through its three entry points (the test keeps
+    the name it had while they raised): ``append_instances``,
+    ``deploy_collection(append=True)`` and ``GoFSStore.append_instances``
+    with ``refresh``, each growing a prefix deployment to the collection
+    that a one-shot deploy writes (``tests/test_torch_stream.py`` holds
+    the files against the reference's)."""
+    def part(lo, hi):
+        return TimeSeriesGraph(template=col.template,
+                               instances=col.instances[lo:hi])
+
+    full = str(tmp_path / "full")
+    deploy_collection(col, TINY, full, sparse_absent={"latency": INF})
+    root = str(tmp_path / "grown")
+    deploy_collection(part(0, 1), TINY, root, sparse_absent={"latency": INF})
+    reader = GoFSStore(root)
+    assert reader.num_timesteps() == 1
+    meta = append_instances(part(1, 2), root)
+    assert (meta["num_instances"], meta["version"]) == (2, 1)
+    assert reader.refresh() is True and reader.refresh() is False
+    assert (reader.num_timesteps(), reader.version) == (2, 1)
+    meta = deploy_collection(part(2, 3), TINY, root, append=True)
+    assert (meta["num_instances"], meta["version"]) == (3, 2)
+    writer = GoFSStore(root)
+    writer.append_instances(part(3, 3))  # nothing new: no version bump
+    assert writer.version == 2
+    assert reader.refresh() is True
+    want = GoFSStore(full)
+    for name in ("latency", "active"):
+        _eq(reader.edge_attr_matrix(name), want.edge_attr_matrix(name), name)
+    _eq_dict(reader.edge_tile_maps("latency"), want.edge_tile_maps("latency"),
+             "tile maps")
+    _eq_dict(reader.edge_delta_index("latency"),
+             {**want.edge_delta_index("latency"),
+              "n_instances": np.asarray(3, np.int64)}, "delta chain")
 
 
 # ---------------------------------------------------------------------------
