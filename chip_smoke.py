@@ -11,7 +11,10 @@ Phases (any failure exits non-zero before the result lines):
    both semirings, B in {32, 64, 128}, padding, an empty structure,
    ``nnz`` and the fused call shapes (with and without the combine and
    the vote): min-plus bitwise (same inf pattern), plus-mul within the
-   limit of :func:`plus_mul_limit`, halt votes exactly equal;
+   limit of :func:`plus_mul_limit`, halt votes exactly equal; and a
+   cluster shard's call shapes (``shard_sweep``: P_local = 4 at B = 64,
+   each shard with its own walk plans), with a control that must fail
+   (a shard walked with the other shard's plan);
 4. the attention kernels against theirs on FLASH_CASES and DECODE_CASES
    (the sweeps of ``tests/test_kernels.py`` plus ragged tails, G = 9,
    windows past the sequence, length-1 caches, many splits), within
@@ -39,7 +42,9 @@ Phases (any failure exits non-zero before the result lines):
 6. the same graph path from a GoFS deployment (``gofs_path``): the
    collection deployed with ``deploy_collection`` (latency tile maps and
    the delta chain) into a temporary directory; host iBSP SSSP
-   (``sssp.run_host``) on the ``GoFSStore``, against the oracle; the
+   (``sssp.run_host``) on the ``GoFSStore`` over its first time pack
+   (HOST_IBSP_PACKS; listed on the ``gofs path cuts`` line), against the
+   oracle over the same instances; the
    dense ``load_blocked`` batch equal to the in-memory fill, and
    sequential SSSP from it in both kernel modes equal to phase 5's runs;
    sparse loads from the delta chain and from the full value slices,
@@ -66,6 +71,19 @@ Phases (any failure exits non-zero before the result lines):
    memory and host peak RSS.  The graph kernels'
    launches on this path are counted by call shape, and the session's
    on their own;
+6c. the cluster runtime on the same deployment (``cluster_phase``):
+   two worker processes of ``repro_torch.launch.cluster_graph`` share the
+   card over the TCP exchange, each owning 4 of the 8 partitions and
+   staging its shard through ``shard_stream``; their SSSP and PageRank
+   bitwise equal to phase 6's session runs, their staged bytes below the
+   single-process session's; each worker counts its launches by call
+   shape and by walk, and runs SSSP again in the kernel mode its auto
+   plans did not launch (bitwise too), so both kernels run at their
+   P_local = 4 shapes; then a checkpointed SSSP (spans of 12) killed in
+   its second span in a child process, exactly one snapshot committed,
+   resumed bitwise equal to phase 6's session SSSP.  Records: seconds
+   per worker, the exchange's operations and bytes, staged bytes per
+   host, host peak RSS, the resume's seconds;
 6b. streaming ingestion and warm serving (``stream_phase``), after phase
    6 has removed its deployment: the first 40 of TR_SMALL's 48 instances
    deployed with phase 6's knobs, then two appends of 4 instances from
@@ -87,7 +105,9 @@ Phases (any failure exits non-zero before the result lines):
    launches are counted by call shape and by walk: the 32-lane batches
    on the lane walk, N-hop's 4 lanes in groups of 4, the tails one lane;
 7. each graph kernel at that path's shapes, with the engine's walk
-   plans: device time (20 calls replayed from one CUDA graph) and
+   plans, and at each cluster shard's P_local = 4 partitions with the
+   shard's own plans and phase 6c's launches: device time (20 calls
+   replayed from one CUDA graph) and
    eager-call time, the plain version's device time, the bound and its
    share, and, for plus-mul, one PyTorch call computing the same
    function (a dense batched product); then a skewed control, partition
@@ -141,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -391,8 +412,100 @@ def kernel_sweep(device="cuda", seed=0):
             need(torch.equal(xo, xs) and bool((ch == 1).all()),
                  f"empty fused B={B} {sr.name}")
             n += 2
+    n += shard_sweep(device, rng)
     if device == "cuda":
         torch.cuda.synchronize()
+    return n
+
+
+# a cluster shard's call shapes (phase 6c): P_local = 4 of TR_SMALL's 8
+# partitions at B = 64, with runs of a shard's size (NVB, NBB, T)
+SHARD_SHAPE = dict(P=4, B=64, nvb=32, nbb=40, T=160)
+
+
+def shard_sweep(device, rng):
+    """Phase 3's P_local = 4 cases: a random 8-partition structure cut
+    into two shards of 4, each shard's calls (both kernels, both
+    semirings, the engine's call shapes) with its own walk plans against
+    the plain version; then a control that must fail: shard 0's tiles
+    walked with shard 1's plan.  Returns the comparisons made."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL
+    from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+    from repro_torch.kernels.semiring_spmm.ref import spmv_blocked_ref
+    from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
+    from repro_torch.kernels.semiring_superstep.ref import fused_step_ref
+    from repro_torch.kernels.walk_plan import (
+        default_chunk, to_device, walk_plan)
+
+    P, B, nvb, nbb, T = (SHARD_SHAPE[k] for k in ("P", "B", "nvb", "nbb",
+                                                  "T"))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    def plan_of(cols):
+        return to_device(walk_plan(cols, nvb, chunk=default_chunk(B)),
+                         device)
+
+    n = 0
+    for sr in (MIN_PLUS, PLUS_MUL):
+        tv = rng.integers(T // 2, T + 1, 2 * P)
+        rows, cols = random_structure(rng, 2 * P, tv, T, nvb, nvb)
+        brows, bcols = random_structure(rng, 2 * P, tv, T, nvb, nbb)
+        tiles = random_tiles(rng, rows, B, 0.05, sr.zero)
+        btiles = random_tiles(rng, brows, B, 0.05, sr.zero)
+        x = rng.random((2 * P, nvb * B)).astype(np.float32)
+        b = rng.random((1, nbb * B)).astype(np.float32)
+        vm = t(rng.random((P, nvb, B)) < 0.9)
+        plans = {}
+        for lo in (0, P):
+            sl = slice(lo, lo + P)
+            loc = (t(tiles[sl]), t(rows[sl]), t(cols[sl]))
+            bnd = (t(btiles[sl]), t(brows[sl]), t(bcols[sl]))
+            pl, bpl = plan_of(cols[sl]), plan_of(bcols[sl])
+            plans[lo] = (loc, pl)
+            xs, bs = t(x[sl]), t(b)
+            tag = f"P_local={P} [{lo}:{lo + P}] {sr.name}"
+            compare(spmv_blocked_cuda(*loc, xs, sr, plan=pl),
+                    spmv_blocked_ref(*loc, xs, sr), sr.name,
+                    f"spmv local sweep {tag}")
+            compare(spmv_blocked_cuda(*bnd, bs, sr, n_out_blocks=nvb,
+                                      plan=bpl),
+                    spmv_blocked_ref(*bnd, bs, sr, n_out_blocks=nvb),
+                    sr.name, f"spmv consume {tag}")
+            x3, b3 = xs.reshape(P, nvb, B), bs.reshape(1, nbb, B)
+            if sr is MIN_PLUS:
+                shapes = {"sweep": (loc, pl, x3, x3, x3),
+                          "consume": (bnd, bpl, b3, x3,
+                                      torch.flip(x3, (2,)).contiguous())}
+            else:
+                shapes = {"spmv": (loc, pl, x3, None, None),
+                          "consume": (bnd, bpl, b3, None, None)}
+            for name, (st, p_, xin, comb, xref) in shapes.items():
+                m = None if xref is None else vm
+                ko, kc = fused_step_cuda(*st, xin, comb, xref, m, sr,
+                                         n_out_blocks=nvb, plan=p_)
+                po, pc = fused_step_ref(*st, xin, comb, xref, m, sr,
+                                        n_out_blocks=nvb)
+                compare(ko, po, sr.name, f"fused {name} {tag}")
+                need((kc is None and pc is None) or torch.equal(kc, pc),
+                     f"fused {name} {tag}: votes differ")
+            n += 4
+        # the control: shard 0's tiles walked with shard 1's plan
+        (loc, _), (_, other) = plans[0], plans[P]
+        xs = t(x[:P])
+        try:
+            compare(spmv_blocked_cuda(*loc, xs, sr, plan=other),
+                    spmv_blocked_ref(*loc, xs, sr), sr.name,
+                    f"control: shard 0 with shard 1's plan {sr.name}")
+        except SmokeFailure:
+            n += 1
+        else:
+            raise SmokeFailure(f"wrong control passed: shard 0 walked "
+                               f"with shard 1's plan ({sr.name})")
     return n
 
 
@@ -773,6 +886,12 @@ def check_upload(what, t, dtype):
          f"{what}: strides {t.stride()} x {es} bytes not 16-byte aligned")
 
 
+# time packs of phase 6's host iBSP SSSP (TR_SMALL: 20 of the 48
+# instances).  The smoke's first cut against its time limit: over all 48
+# the host run took 69-100 s of a 1,013 s smoke
+HOST_IBSP_PACKS = 1
+
+
 def gofs_path(cfg, keep, device="cuda", log=print):
     """Drive the graph path from a GoFS deployment of the collection the
     in-memory path ran (``keep["in_memory"]``), and hold every result
@@ -836,16 +955,26 @@ def gofs_path(cfg, keep, device="cuda", log=print):
                delta_unique_ratio=float(tm["delta_unique_ratio"]),
                delta_monotone=int(tm["delta_monotone"]))
 
-        # 2. host iBSP SSSP on the store (the quickstart's step 3)
+        # 2. host iBSP SSSP on the store (the quickstart's step 3), over
+        # the first HOST_IBSP_PACKS time packs (a time_range prefix: the
+        # smoke's first cut against its time limit)
+        ts = np.asarray(meta["timestamps"])
+        n_host = min(I, HOST_IBSP_PACKS * int(meta["instances_per_slice"]))
+        if n_host < I:
+            recs["cut"]["host_ibsp_instances"] = n_host
         store = GoFSStore(root, vertex_projection=(),
-                          edge_projection=("latency", "active"))
+                          edge_projection=("latency", "active"),
+                          time_range=(float(ts[0]),
+                                      float(ts[n_host - 1]) + 1.0))
+        need(store.num_timesteps() == n_host, "host iBSP: time filter")
         t0 = time.perf_counter()
         dists, res = sssp.run_host(store, 0)
         host_s = time.perf_counter() - t0
         d_host = np.full(V, INF)
         for g, d in dists.items():
             d_host[store.get_topology(g).vertices] = d
-        ref = mem["sssp_oracle"]
+        ref = mem["sssp_oracle"] if n_host == I else sssp.oracle(
+            tmpl.src, tmpl.dst, lat[:n_host], V, 0)
         fin = np.isfinite(ref)
         need(np.array_equal(np.isfinite(d_host), fin),
              "host sssp on GoFS: reachability differs from the oracle")
@@ -1019,6 +1148,10 @@ def gofs_path(cfg, keep, device="cuda", log=print):
                               "pagerank": store_pr["spmv"],
                               "query": keep["query"]},
             device=device, log=log, held=keep["session_held"])
+
+        # 6c. the cluster runtime on the same deployment
+        recs["cluster"] = cluster_phase(root, cfg, keep["session_held"],
+                                        device=device, log=log)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return recs
@@ -1181,6 +1314,10 @@ def session_phase(root, tmpl, want, device="cuda", log=print, held=None):
             recs["run_many"].update(checks)
             log(f"phase session_checks: {json.dumps(checks)}")
             nhop0 = many[1].output["histograms"]
+            if held is not None:
+                held.update(pagerank=many[2].engine,
+                            staged_bytes=recs["sssp_spmv"]["report"][
+                                "staged_bytes"])
             del many, sess
             if cuda:
                 torch.cuda.empty_cache()
@@ -1290,6 +1427,256 @@ def session_phase(root, tmpl, want, device="cuda", log=print, held=None):
              f"{name}: session launches by call shape do not sum to {v}")
         need(not cuda or v > 0,
              f"{name} was not launched on the session path")
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the cluster runtime on the GoFS deployment
+# ---------------------------------------------------------------------------
+
+# worker processes of phase 6c, sharing the one card (TR_SMALL's 8
+# partitions: 4 each)
+CLUSTER_PROCESSES = 2
+# the longest phase 6c waits on its workers, and on its killed child
+CLUSTER_WAIT = 900.0
+# instances a span of the resumable run covers (TR_SMALL: 4 spans of 12)
+RESUME_CHUNK = 12
+
+# the killed child of phase 6c: a checkpointed SSSP that dies during its
+# second span ("mid-superstep"), after the first span's snapshot
+RESUME_CHILD = """\
+import os, sys
+root, ckdir, chunk, device = sys.argv[1:5]
+from repro_torch.core.engine import TemporalEngine
+real, calls = TemporalEngine.run_many, {"n": 0}
+def dying_run_many(self, *a, **k):
+    calls["n"] += 1
+    if calls["n"] == 2:
+        os._exit(1)
+    return real(self, *a, **k)
+TemporalEngine.run_many = dying_run_many
+from repro_torch.gofs import GoFSStore
+from repro_torch.gopher import GopherSession
+sess = GopherSession(GoFSStore(root), device=device)
+sess.run(sess.plan("sssp", source=0), checkpoint_dir=ckdir,
+         checkpoint_chunk=int(chunk))
+os._exit(0)  # unreachable: the second span dies first
+"""
+
+
+def cluster_worker(spec) -> int:
+    """One worker process of phase 6c (``chip_smoke.py --cluster-worker
+    SPEC``): ``repro_torch.launch.cluster_graph.worker_run`` on its shard
+    with the graph kernels' launches counted by call shape and by walk,
+    then SSSP again in each kernel mode its auto plans did not launch,
+    held bitwise against its first SSSP.  Writes its record beside its
+    ``.npz``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster.runtime import init_cluster
+    from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+    from repro_torch.kernels.semiring_superstep.kernel import \
+        fused_step_cuda
+    from repro_torch.launch import cluster_graph as cg
+
+    args = cg.build_parser().parse_args(spec["argv"])
+    kernels = {"spmv": spmv_blocked_cuda, "fused": fused_step_cuda}
+    rt = init_cluster(transport=args.transport, timeout=CLUSTER_WAIT)
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        w0 = walk_counts()
+        t0 = time.perf_counter()
+        with PeakRSS() as rss, call_shapes() as shapes:
+            results = cg.worker_run(args, rt)
+            auto = {k.__name__: k.launches for k in kernels.values()}
+            others = [m for m, k in kernels.items() if k.launches == 0]
+            for mode in others:
+                _cfg, sess = cg.open_session(args, rt, use_pallas=mode)
+                again = cg.run_apps(sess, ["sssp"])["sssp"]
+                for key in ("values", "final", "supersteps"):
+                    need(cg.same_bits(again[key], results["sssp"][key]),
+                         f"worker {rt.process_id}: sssp ({mode}) {key} "
+                         f"differs from its auto plan's")
+                del sess
+        seconds = time.perf_counter() - t0
+        rec = {
+            "process_id": rt.process_id,
+            "parts": list(rt.partition_shard(spec["n_parts"])),
+            "device": args.device,
+            "card": torch.cuda.get_device_name(0)
+            if torch.cuda.is_available() else None,
+            "seconds": seconds,
+            "launches": {k.__name__: k.launches for k in kernels.values()},
+            "auto_plan_launches": auto,
+            "rerun_modes": others,
+            "launches_by_call_shape": {
+                f"{k} {c}": n for (k, c), n in sorted(shapes.items())},
+            "launches_by_walk": check_walks(
+                f"cluster worker {rt.process_id}", shapes, w0,
+                walk_counts()),
+            "exchange": rt.exchange.stats(),
+            "staged_bytes": {app: int(r["staged_bytes"])
+                             for app, r in results.items()},
+            "host_peak_rss_gb": rss.peak_gb,
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9
+            if torch.cuda.is_available() else None,
+        }
+        with open(os.path.join(args.out,
+                               f"worker_{rt.process_id}.json"), "w") as f:
+            json.dump(rec, f)
+        rt.barrier("done")
+    finally:
+        rt.close()
+    return 0
+
+
+def cluster_phase(root, cfg, held, device="cuda", log=print):
+    """Phase 6c: the cluster runtime on phase 6's deployment.
+
+    CLUSTER_PROCESSES worker processes (:func:`cluster_worker`, each
+    driving ``repro_torch.launch.cluster_graph``'s worker over the TCP
+    exchange) share the card, each staging its half of the partitions
+    through ``shard_stream``; their SSSP and PageRank are held bitwise
+    against phase 6's session runs (``held``), their staged bytes below
+    the single-process session's, and their launches, by call shape and
+    by walk, must reach both graph kernels.  Then a checkpointed SSSP
+    (spans of RESUME_CHUNK) in a child process that dies in its second
+    span; exactly one snapshot must be committed, and the resumed run
+    must be bitwise equal to phase 6's session SSSP.  Returns the phase's
+    records."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.gofs import GoFSStore
+    from repro_torch.gopher import GopherSession
+    from repro_torch.launch import cluster_graph as cg
+    from repro_torch.train import checkpoint as ckpt
+
+    cuda = device == "cuda"  # a CPU rehearsal checks control flow only
+    out = tempfile.mkdtemp(prefix="cluster_smoke_")
+    recs = {}
+    try:
+        # 1. the workers, launches counted in each
+        argv = ["--worker", "--num-processes", str(CLUSTER_PROCESSES),
+                "--size", cfg.name.rsplit("-", 1)[-1], "--deploy", root,
+                "--out", out, "--apps", "sssp,pagerank",
+                "--transport", "tcp", "--device", device]
+        spec = json.dumps({"argv": argv, "n_parts": cfg.num_partitions})
+        coordinator = f"127.0.0.1:{cg.free_port()}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--cluster-worker",
+             spec], env=cg.worker_env(coordinator, CLUSTER_PROCESSES, pid,
+                                      "tcp"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in range(CLUSTER_PROCESSES)]
+        try:
+            cg.wait_workers(procs, CLUSTER_WAIT)
+        except SystemExit as e:
+            raise SmokeFailure(f"cluster: {e}") from None
+        wall = time.perf_counter() - t0
+        workers = []
+        for pid in range(CLUSTER_PROCESSES):
+            with open(os.path.join(out, f"worker_{pid}.json")) as f:
+                workers.append(json.load(f))
+            res = np.load(cg.worker_results_path(out, pid))
+            w = workers[-1]
+            need(w["device"] == device and (not cuda or w["card"]),
+                 f"cluster worker {pid} ran on {w['device']}")
+            for app in ("sssp", "pagerank"):
+                ref = held[app]
+                for key, want in (("values", ref.values),
+                                  ("final", ref.final),
+                                  ("supersteps", ref.stats["supersteps"])):
+                    need(cg.same_bits(res[f"{app}/{key}"], want),
+                         f"cluster worker {pid}: {app} {key} differ from "
+                         f"phase 6's single-process session")
+                need(w["staged_bytes"][app] < held["staged_bytes"],
+                     f"cluster worker {pid}: {app} staged "
+                     f"{w['staged_bytes'][app]} bytes, the single-process "
+                     f"session {held['staged_bytes']}")
+        launches = {k: sum(w["launches"][k] for w in workers)
+                    for k in workers[0]["launches"]}
+        by_shape: dict = {}
+        for w in workers:
+            for c, n in w["launches_by_call_shape"].items():
+                by_shape[c] = by_shape.get(c, 0) + n
+        for k, v in launches.items():
+            need(sum(n for c, n in by_shape.items()
+                     if c.startswith(k + " ")) == v,
+                 f"{k}: cluster launches by call shape do not sum to {v}")
+            need(not cuda or all(w["launches"][k] > 0 for w in workers),
+                 f"{k} was not launched by every cluster worker")
+        recs.update(
+            processes=CLUSTER_PROCESSES, wall_seconds=wall,
+            parts=[w["parts"] for w in workers],
+            worker_seconds=[w["seconds"] for w in workers],
+            exchange=[w["exchange"] for w in workers],
+            staged_bytes_per_host=[w["staged_bytes"] for w in workers],
+            staged_bytes_single_process=held["staged_bytes"],
+            host_peak_rss_gb=[w["host_peak_rss_gb"] for w in workers],
+            peak_device_gb=[w["peak_device_gb"] for w in workers],
+            rerun_modes=[w["rerun_modes"] for w in workers],
+            launches=launches, launches_by_call_shape=by_shape,
+            launches_by_walk=[w["launches_by_walk"] for w in workers],
+            worker_launches_by_call_shape=[w["launches_by_call_shape"]
+                                           for w in workers])
+
+        # 2. a resumable run killed in its second span, then resumed
+        ckdir = os.path.join(out, "ckpt")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", RESUME_CHILD, root, ckdir,
+             str(RESUME_CHUNK), device],
+            env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+            text=True, timeout=CLUSTER_WAIT)
+        killed_s = time.perf_counter() - t0
+        need(child.returncode == 1, f"resumable child exited with "
+                                    f"{child.returncode}:\n{child.stderr}")
+        steps = ckpt.list_steps(ckdir)
+        need(steps == [RESUME_CHUNK], f"resumable run: committed snapshots "
+                                      f"{steps}, want [{RESUME_CHUNK}]")
+        sess = GopherSession(GoFSStore(root), device=device)
+        plan = sess.plan("sssp", source=0)
+        t0 = time.perf_counter()
+        res = sess.run(plan, checkpoint_dir=ckdir,
+                       checkpoint_chunk=RESUME_CHUNK, resume=True)
+        resume_s = time.perf_counter() - t0
+        ref = held["sssp"]
+        for key, got, want in (
+                ("values", res.engine.values, ref.values),
+                ("final", res.engine.final, ref.final),
+                ("supersteps", res.engine.stats["supersteps"],
+                 ref.stats["supersteps"])):
+            need(cg.same_bits(got, want),
+                 f"resumed sssp: {key} differ from phase 6's session")
+        recs.update(killed_child_seconds=killed_s,
+                    resume_seconds=resume_s,
+                    snapshots_after_kill=steps,
+                    snapshots_after_resume=ckpt.list_steps(ckdir))
+        del sess, res
+        if cuda:
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log("phase cluster: " + json.dumps({
+        k: recs[k] for k in (
+            "processes", "parts", "wall_seconds", "worker_seconds",
+            "exchange", "staged_bytes_per_host",
+            "staged_bytes_single_process", "host_peak_rss_gb",
+            "peak_device_gb", "rerun_modes", "killed_child_seconds",
+            "resume_seconds", "snapshots_after_kill")}))
+    log(f"cluster path launches: {json.dumps(recs['launches'])}")
+    log("cluster path launches by call shape: "
+        + json.dumps(recs["launches_by_call_shape"]))
+    log("cluster path launches by walk: "
+        + json.dumps(recs["launches_by_walk"]))
     return recs
 
 
@@ -1649,7 +2036,7 @@ def dense_operator(tiles, rows, cols, nvb_out, nvb_in):
 
 
 def kernel_report(keep, launches, shape_launches, query_launches, card,
-                  rate):
+                  rate, cluster=None):
     """One JSON record per kernel: the top-level numbers are its hot
     main-path call (the min-plus local sweep of the SSSP fixpoint); every
     main-path call shape is listed under ``calls``, with its launches on
@@ -1659,11 +2046,13 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
     library call), with its launches on the query path
     (``query_launches``), a skewed control at Q = 32, and wrong controls
     that must fail the comparison.  ``q_lanes`` summarises the Q = 32
-    calls."""
+    calls.  ``cluster`` (phase 6c's records) adds each call shape at a
+    cluster shard's P_local = 4 partitions, both shards, with the
+    launches of the worker that owns the shard."""
     import torch
 
     from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL
-    from repro_torch.core.superstep import _publish
+    from repro_torch.core.superstep import _publish, graph_plans
     from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
     from repro_torch.kernels.semiring_spmm.ref import spmv_blocked_ref
     from repro_torch.kernels.semiring_superstep.kernel import fused_step_cuda
@@ -1692,13 +2081,14 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
 
     calls = {"spmv_blocked_cuda": [], "fused_step_cuda": []}
 
-    def record(kernel, name, sr, kfn, pfn, lfn, moved, pairs, lanes=None):
+    def record(kernel, name, sr, kfn, pfn, lfn, moved, pairs, lanes=None,
+               launched=None):
         """Hold ``kfn`` against ``pfn`` (and ``lfn``, the library call,
         where there is one) and time all three.  ``moved``: the bytes the
         call must move; ``pairs``: its multiply-add (add-min) pairs, one
         FP32 instruction each for plus-mul (FMA), two for min-plus (add,
         min).  ``lanes``: Q of a Q-lane call, whose launches are the query
-        path's."""
+        path's; ``launched``: the launches of a call of another path."""
         wrapper = spmv_blocked_cuda if kernel == "spmv_blocked_cuda" \
             else fused_step_cuda
         before = dict(wrapper.launches_by_walk)
@@ -1720,7 +2110,8 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
         src = shape_launches if lanes is None else query_launches
         rec = {
             "call": name, "semiring": sr.name,
-            "launches": src.get((kernel, name), 0),
+            "launches": src.get((kernel, name), 0) if launched is None
+            else launched,
             "ms": cuda_ms(kfn), "eager_ms": cuda_ms(kfn, graph=False),
             "plain_ms": cuda_ms(pfn),
             "library_ms": None if lfn is None else cuda_ms(lfn),
@@ -1824,6 +2215,84 @@ def kernel_report(keep, launches, shape_launches, query_launches, card,
            None, n_bound * tile_b + nbytes(brows, skew, b3, xs3, xs3, xref,
                                            vm3) + P * 4,
            n_bound * B * B)
+
+    # -- a cluster shard's call shapes: P_local = 4, both shards ----------
+    for pid, (lo, hi) in enumerate(cluster["parts"] if cluster else ()):
+        wl = cluster["worker_launches_by_call_shape"][pid]
+        sh = slice(lo, hi)
+        s_rows, s_cols, s_brows, s_bcols = (a[sh] for a in eng._index)
+        s_plans = graph_plans(bg, s_cols.device, parts=(lo, hi))
+        s_vm3 = vmask[sh].reshape(hi - lo, nvb, B)
+        s_nl, s_nb = int((s_cols >= 0).sum()), int((s_bcols >= 0).sum())
+        sfx = f" P={hi - lo} [{lo}:{hi}]"
+        for sr, x, bnd, tl, btl in (
+                (MIN_PLUS, x_mp, b_mp, keep["sssp_tiles"],
+                 keep["sssp_btiles"]),
+                (PLUS_MUL, x_pm, b_pm, keep["pr_tiles"],
+                 keep["pr_btiles"])):
+            stl, sbtl, sx = tl[sh], btl[sh], x[sh].contiguous()
+            Pl = hi - lo
+            lib = {}  # plus-mul yardsticks: the shard's dense operators
+            if sr is PLUS_MUL:
+                s_loc = dense_operator(stl, s_rows, s_cols, nvb, nvb)
+                s_bnd = dense_operator(sbtl, s_brows, s_bcols, nvb, nbb)
+                lib = {"local": lambda: torch.bmm(s_loc, sx[..., None]),
+                       "consume": lambda: torch.matmul(
+                           s_bnd, bnd[None, :, None]),
+                       "spmv": lambda: torch.bmm(s_loc, sx[..., None])}
+            record("spmv_blocked_cuda", f"local sweep {sr.name}{sfx}", sr,
+                   lambda stl=stl, sx=sx, sr=sr: spmv_blocked_cuda(
+                       stl, s_rows, s_cols, sx, sr, plan=s_plans["plan"]),
+                   lambda stl=stl, sx=sx, sr=sr: spmv_blocked_ref(
+                       stl, s_rows, s_cols, sx, sr),
+                   lib.get("local"), s_nl * tile_b + nbytes(s_rows, s_cols, sx)
+                   + Pl * Vp * 4, s_nl * B * B,
+                   launched=wl.get(f"spmv_blocked_cuda local sweep "
+                                   f"{sr.name}", 0))
+            record("spmv_blocked_cuda", f"consume {sr.name}{sfx}", sr,
+                   lambda sbtl=sbtl, bnd=bnd, sr=sr: spmv_blocked_cuda(
+                       sbtl, s_brows, s_bcols, bnd[None], sr,
+                       n_out_blocks=nvb, plan=s_plans["bplan"]),
+                   lambda sbtl=sbtl, bnd=bnd, sr=sr: spmv_blocked_ref(
+                       sbtl, s_brows, s_bcols, bnd[None], sr,
+                       n_out_blocks=nvb),
+                   lib.get("consume"),
+                   s_nb * tile_b + nbytes(s_brows, s_bcols, bnd)
+                   + Pl * Vp * 4, s_nb * B * B,
+                   launched=wl.get(f"spmv_blocked_cuda consume {sr.name}",
+                                   0))
+            xs3 = sx.reshape(Pl, nvb, B)
+            b3 = bnd.reshape(1, nbb, B)
+            if sr is MIN_PLUS:
+                fshapes = {"sweep": (stl, s_rows, s_cols, xs3, xs3, xs3,
+                                     "plan"),
+                           "consume": (sbtl, s_brows, s_bcols, b3, xs3,
+                                       torch.flip(xs3, (2,)).contiguous(),
+                                       "bplan")}
+            else:
+                fshapes = {"spmv": (stl, s_rows, s_cols, xs3, None, None,
+                                    "plan"),
+                           "consume": (sbtl, s_brows, s_bcols, b3, None,
+                                       None, "bplan")}
+            for name, (tt, rr, cc, xin, comb, xref, pk) in fshapes.items():
+                n_t = s_nl if pk == "plan" else s_nb
+                vm = None if xref is None else s_vm3
+                states = nbytes(xs3) + sum(
+                    nbytes(t_) for t_ in (comb, xref, vm) if t_ is not None
+                ) + (Pl * 4 if xref is not None else 0)
+                record("fused_step_cuda", f"{name} {sr.name}{sfx}", sr,
+                       lambda tt=tt, rr=rr, cc=cc, xin=xin, comb=comb,
+                       xref=xref, vm=vm, pk=pk, sr=sr: fused_step_cuda(
+                           tt, rr, cc, xin, comb, xref, vm, sr,
+                           n_out_blocks=nvb, plan=s_plans[pk]),
+                       lambda tt=tt, rr=rr, cc=cc, xin=xin, comb=comb,
+                       xref=xref, vm=vm, sr=sr: fused_step_ref(
+                           tt, rr, cc, xin, comb, xref, vm, sr,
+                           n_out_blocks=nvb),
+                       lib.get(name), n_t * tile_b + nbytes(rr, cc, xin)
+                       + states, n_t * B * B,
+                       launched=wl.get(f"fused_step_cuda {name} {sr.name}",
+                                       0))
 
     # -- the query axis: each call shape with Q lanes ---------------------
     gen = torch.Generator(device=x_mp.device).manual_seed(7)
@@ -2934,7 +3403,7 @@ def main() -> int:
     # 7. the graph kernels at the main path's shapes
     t0 = time.perf_counter()
     report = kernel_report(keep, launches, shape_launches, query_shapes, card,
-                           rate)
+                           rate, cluster=gofs["cluster"])
     for rec in report:
         k = rec["name"]
         rec["query_launches"] = query_launches[k]
@@ -2953,6 +3422,12 @@ def main() -> int:
         rec["session_launches_by_call_shape"] = {
             c[len(k) + 1:]: n for c, n in
             gofs["session"]["launches_by_call_shape"].items()
+            if c.startswith(k + " ")}
+        # the cluster workers' launches (phase 6c), summed over workers
+        rec["cluster_launches"] = gofs["cluster"]["launches"][k]
+        rec["cluster_launches_by_call_shape"] = {
+            c[len(k) + 1:]: n for c, n in
+            sorted(gofs["cluster"]["launches_by_call_shape"].items())
             if c.startswith(k + " ")}
         rec["stream_launches"] = stream_launches[k]
         rec["stream_launches_by_call_shape"] = {
@@ -2982,4 +3457,6 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cluster-worker"]:
+        sys.exit(cluster_worker(json.loads(sys.argv[2])))
     sys.exit(main())

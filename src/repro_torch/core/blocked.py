@@ -220,13 +220,33 @@ class BlockedGraph:
     # ------------------------------------------------------- batched staging
     # One flat scatter for ALL instances at once (the edge -> tile-slot map
     # is instance-invariant, so the instance axis broadcasts).
+    @staticmethod
+    def _part_filter(
+        parts: Tuple[int, int], part: np.ndarray, flat: np.ndarray,
+        edge_id: np.ndarray,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Restrict a fill map to the half-open partition range ``parts``,
+        rebasing partition indices to the range — the shard-local staging
+        hook (``repro_torch.cluster.staging``): a process fills ONLY the
+        tile slots of partitions it owns into a (I, hi-lo, ...) buffer."""
+        lo, hi = parts
+        m = (part >= lo) & (part < hi)
+        return part[m] - lo, flat[m], edge_id[m]
+
+    def _n_parts(self, parts: Optional[Tuple[int, int]]) -> int:
+        return self.n_parts if parts is None else parts[1] - parts[0]
+
     def _fill_batch(
         self, weights: np.ndarray, zero: float, part: np.ndarray,
         flat: np.ndarray, edge_id: np.ndarray, t_count: int,
         out: Optional[np.ndarray], slots_unique: bool,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> np.ndarray:
         B = self.block_size
-        I, P = weights.shape[0], self.n_parts
+        if parts is not None:
+            part, flat, edge_id = self._part_filter(parts, part, flat,
+                                                    edge_id)
+        I, P = weights.shape[0], self._n_parts(parts)
         per_inst = P * t_count * B * B
         vals = _out_or_full(out, (I, P, t_count, B, B), zero)
         slot = part.astype(np.int64) * (t_count * B * B) + flat
@@ -259,35 +279,40 @@ class BlockedGraph:
     def fill_local_batch(
         self, weights: np.ndarray, zero: float = INF,
         out: Optional[np.ndarray] = None,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> np.ndarray:
         """Instance edge weights (I, E) -> local tiles (I, P, T, B, B).
 
         ``out``: optional (I, P, T, B, B) float32 buffer filled in place
         (see ``alloc_batch_buffers``), so the prefetcher fills chunk
-        buffers it owns with no second copy."""
+        buffers it owns with no second copy.  ``parts=(lo, hi)``: fill
+        only that half-open partition range (shard-local staging) — the
+        result's partition axis is ``hi - lo``."""
         return self._fill_batch(
             np.asarray(weights, np.float32), zero, self.le_part,
             self.le_flat, self.le_edge_id, self.t_max, out,
-            self._local_slots_unique(),
+            self._local_slots_unique(), parts=parts,
         )
 
     def fill_boundary_batch(
         self, weights: np.ndarray, zero: float = INF,
         out: Optional[np.ndarray] = None,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> np.ndarray:
         """Instance edge weights (I, E) -> boundary tiles (I, P, Tb, B, B).
 
-        ``out``: as in ``fill_local_batch``."""
+        ``out``/``parts``: as in ``fill_local_batch``."""
         return self._fill_batch(
             np.asarray(weights, np.float32), zero, self.re_part,
             self.re_flat, self.re_edge_id, self.tb_max, out,
-            self._boundary_slots_unique(),
+            self._boundary_slots_unique(), parts=parts,
         )
 
     def alloc_batch_buffers(
         self, max_instances: int, *,
         bucket: Optional[int] = None, bbucket: Optional[int] = None,
         empty: Callable[[Tuple[int, ...]], np.ndarray] = None,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Allocate one (local, boundary) fill-buffer pair sized for
         ``max_instances`` — the unit the prefetcher fills.
@@ -296,13 +321,13 @@ class BlockedGraph:
         padded power-of-two buckets instead of the dense ``t_max``/
         ``tb_max``.  ``empty(shape)`` makes each float32 buffer
         (``np.empty`` by default); on CUDA the engine passes one that
-        hands out views of pinned host memory."""
+        hands out views of pinned host memory.  ``parts`` sizes the
+        partition axis to a shard-local range."""
         B = self.block_size
+        P = self._n_parts(parts)
         make = empty or (lambda shape: np.empty(shape, np.float32))
-        return (make((max_instances, self.n_parts, bucket or self.t_max,
-                      B, B)),
-                make((max_instances, self.n_parts, bbucket or self.tb_max,
-                      B, B)))
+        return (make((max_instances, P, bucket or self.t_max, B, B)),
+                make((max_instances, P, bbucket or self.tb_max, B, B)))
 
     # ------------------------------------------------------- sparse staging
     # A tile is ACTIVE for an instance iff at least one edge mapping into it
@@ -313,10 +338,15 @@ class BlockedGraph:
     def _active_tiles(
         self, w: np.ndarray, zero: float, part: np.ndarray,
         flat: np.ndarray, edge_id: np.ndarray, t_count: int,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> np.ndarray:
-        """(I, E) weights -> (I, P, t_count) bool active-tile mask."""
+        """(I, E) weights -> (I, P, t_count) bool active-tile mask
+        (``parts``: of that partition range only)."""
         B2 = self.block_size * self.block_size
-        I, P = w.shape[0], self.n_parts
+        if parts is not None:
+            part, flat, edge_id = self._part_filter(parts, part, flat,
+                                                    edge_id)
+        I, P = w.shape[0], self._n_parts(parts)
         act = np.zeros((I, P * t_count), bool)
         if len(edge_id):
             tile_key = part.astype(np.int64) * t_count + flat // B2  # (L,)
@@ -380,14 +410,24 @@ class BlockedGraph:
         flat: np.ndarray, edge_id: np.ndarray, t_count: int,
         rc: np.ndarray, bucket: Optional[int], out: Optional[np.ndarray],
         slots_unique: bool, act: Optional[np.ndarray],
+        parts: Optional[Tuple[int, int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Packed-tile fill.  Returns (vals (I, P, K, B, B), rows (I, P, K),
-        cols (I, P, K), nnz (I, P))."""
+        cols (I, P, K), nnz (I, P)); ``parts``: of that partition range
+        only (a full-width ``act`` is sliced to it)."""
         B = self.block_size
         B2 = B * B
-        I, P = w.shape[0], self.n_parts
+        I, P = w.shape[0], self._n_parts(parts)
+        if act is not None and parts is not None \
+                and act.shape[1] == self.n_parts:
+            act = act[:, parts[0]:parts[1]]
         if act is None:
-            act = self._active_tiles(w, zero, part, flat, edge_id, t_count)
+            act = self._active_tiles(w, zero, part, flat, edge_id, t_count,
+                                     parts=parts)
+        if parts is not None:
+            rc = rc[parts[0]:parts[1]]
+            part, flat, edge_id = self._part_filter(parts, part, flat,
+                                                    edge_id)
         assert act.shape == (I, P, t_count), act.shape
         rows, cols, nnz, slot = self.pack_tile_index(act, rc, bucket=bucket)
         K = rows.shape[2]
@@ -415,47 +455,51 @@ class BlockedGraph:
         self, weights: np.ndarray, zero: float = INF, *,
         bucket: Optional[int] = None, out: Optional[np.ndarray] = None,
         act: Optional[np.ndarray] = None,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Instance edge weights (I, E) -> packed local tiles.
 
         Returns (vals (I, P, K, B, B), rows (I, P, K), cols (I, P, K),
         nnz (I, P)) with K = ``bucket`` or the pow2 bucket of the batch's
         max active-tile count.  ``act``: precomputed (I, P, T) active-tile
-        mask; ``out``: a buffer filled in place, as in
-        ``fill_local_batch``."""
+        mask; ``out``: a buffer filled in place, and ``parts``: a
+        shard-local partition range, as in ``fill_local_batch``."""
         return self._fill_batch_sparse(
             np.asarray(weights, np.float32), zero, self.le_part,
             self.le_flat, self.le_edge_id, self.t_max, self.tiles_rc,
-            bucket, out, self._local_slots_unique(), act,
+            bucket, out, self._local_slots_unique(), act, parts=parts,
         )
 
     def fill_boundary_batch_sparse(
         self, weights: np.ndarray, zero: float = INF, *,
         bucket: Optional[int] = None, out: Optional[np.ndarray] = None,
         act: Optional[np.ndarray] = None,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Instance edge weights (I, E) -> packed boundary tiles (see
         ``fill_local_batch_sparse``)."""
         return self._fill_batch_sparse(
             np.asarray(weights, np.float32), zero, self.re_part,
             self.re_flat, self.re_edge_id, self.tb_max, self.btiles_rc,
-            bucket, out, self._boundary_slots_unique(), act,
+            bucket, out, self._boundary_slots_unique(), act, parts=parts,
         )
 
     def active_tile_maps(
-        self, weights: np.ndarray, zero: float = INF
+        self, weights: np.ndarray, zero: float = INF,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """(I, E) weights -> ((I, P, T), (I, P, Tb)) bool active-tile maps
         — the per-pack record GoFS deployment persists next to the
-        attribute slices (``repro_torch.gofs.layout``)."""
+        attribute slices (``repro_torch.gofs.layout``); ``parts``: of
+        that partition range only."""
         w = np.asarray(weights, np.float32)
         if w.ndim == 1:
             w = w[None]
         return (
             self._active_tiles(w, zero, self.le_part, self.le_flat,
-                               self.le_edge_id, self.t_max),
+                               self.le_edge_id, self.t_max, parts=parts),
             self._active_tiles(w, zero, self.re_part, self.re_flat,
-                               self.re_edge_id, self.tb_max),
+                               self.re_edge_id, self.tb_max, parts=parts),
         )
 
     def sparse_buckets(
@@ -473,16 +517,21 @@ class BlockedGraph:
         bucket: Optional[int] = None, bbucket: Optional[int] = None,
         act_local: Optional[np.ndarray] = None,
         act_boundary: Optional[np.ndarray] = None,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> SparseBlocked:
-        """(I, E) edge weights -> :class:`SparseBlocked` packed batch."""
+        """(I, E) edge weights -> :class:`SparseBlocked` packed batch.
+
+        ``parts=(lo, hi)`` stages only that partition range (shard-local
+        cluster staging) — tiles then carry a ``hi - lo`` partition axis.
+        """
         w = np.asarray(weights, np.float32)
         if w.ndim == 1:
             w = w[None]
         tiles, rows, cols, nnz = self.fill_local_batch_sparse(
-            w, zero=zero, bucket=bucket, act=act_local,
+            w, zero=zero, bucket=bucket, act=act_local, parts=parts,
         )
         btiles, brows, bcols, bnnz = self.fill_boundary_batch_sparse(
-            w, zero=zero, bucket=bbucket, act=act_boundary,
+            w, zero=zero, bucket=bbucket, act=act_boundary, parts=parts,
         )
         return SparseBlocked(
             block_size=self.block_size,

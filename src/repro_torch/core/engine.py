@@ -43,8 +43,16 @@ pass.  Every kernel launch serves all Q lanes, every lane halts at its
 own fixpoint, and each lane's values, final state and counts are bitwise
 those of its own run; results gain a leading Q.
 
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``mesh=`` and ``cluster=``.
+Cluster placement (``cluster=``, a distributed
+:class:`repro_torch.cluster.runtime.ClusterRuntime`): the engine becomes
+ONE SHARD of an N-process run.  It holds only its process's contiguous
+partition range — the tile index, staged tiles and states are sliced to
+it — the boundary exchange and the halt vote go through the
+inter-process :class:`repro_torch.cluster.gather.ClusterGather`, and
+results are re-assembled across processes in rank order before the
+vertex gather, bitwise equal to the single-process stacked run.  Not
+ported yet, and raising ``NotImplementedError`` that names the ROADMAP
+item: ``mesh=``.
 
 Stats are reported in the same :class:`repro_torch.core.ibsp.BSPStats`
 shape as the host engine, plus the device-to-host reads the halt votes
@@ -324,7 +332,9 @@ class TemporalEngine:
 
     **Comm backend**: ``"dense"`` (device fold), ``"ring"``/``"ring-rs"``
     (the same fold, stacked) or ``"host"`` (numpy fold on the host) —
-    bitwise identical for both semirings.
+    bitwise identical for both semirings.  A cluster shard (``cluster=``,
+    module docstring) takes ``"dense"``, ``"host"`` or ``"cluster"`` and
+    exchanges through ``ClusterGather`` whatever it is given.
 
     **Layout**: ``"dense"`` stages (I, P, T, B, B) tiles; ``"sparse"``
     packs each instance's active tiles (``result.occupancy`` reports the
@@ -394,11 +404,24 @@ class TemporalEngine:
     ):
         if mesh is not None:
             raise _not_ported("mesh placement", "6")
-        if cluster is not None:
-            raise _not_ported("cluster placement", "7")
         assert staging in ("sync", "async"), staging
         assert layout in ("dense", "sparse"), layout
         self.bg = bg
+        # ``cluster``: a repro_torch.cluster.runtime.ClusterRuntime.  When
+        # it is distributed, this engine is ONE SHARD of the run (module
+        # docstring); a single-process runtime (or None) changes nothing.
+        self.cluster = cluster if (cluster is not None
+                                   and cluster.is_distributed) else None
+        self.parts: Optional[Tuple[int, int]] = None
+        if self.cluster is not None:
+            from repro_torch.cluster.gather import ClusterGather
+
+            self.parts = self.cluster.partition_shard(bg.n_parts)
+            if not isinstance(comm, ClusterGather):
+                assert comm in ("dense", "host", "cluster"), \
+                    f"cluster runs exchange through ClusterGather; " \
+                    f"comm={comm!r} has no inter-process form"
+                comm = ClusterGather(runtime=self.cluster)
         self.device = resolve_device(device)
         self.kernel_mode = kernel_mode(use_pallas, self.device)
         self.staging = staging
@@ -410,8 +433,9 @@ class TemporalEngine:
         self.last_stream_report: Optional[Dict[str, Any]] = None
         out_mask = np.arange(bg.o_max)[None, :] < bg.n_out[:, None]
 
-        def put(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        def put(a):  # partition-lead structure -> this shard's rows
+            return torch.as_tensor(np.ascontiguousarray(self._shard_axis(
+                a, axis=0)), device=self.device)
 
         # template tile index (rows, cols, brows, bcols) — replaced per
         # instance by the packed index in the sparse layout — and the
@@ -424,7 +448,7 @@ class TemporalEngine:
                       put(bg.global_of >= 0))
         # the kernels' walk plans of the template index, built once; the
         # sparse layout walks the plans staged with each packed batch
-        self._plans = graph_plans(bg, self.device)
+        self._plans = graph_plans(bg, self.device, parts=self.parts)
         # staged-batch device cache: host-array identity (weakly held) ->
         # device tensors, so repeated runs over one staged batch upload
         # once without extending the batch's lifetime
@@ -434,22 +458,51 @@ class TemporalEngine:
     def stage(
         self, instance_weights: np.ndarray, zero_fill: float
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(I, E) edge weights -> device tile tensors, batched scatter."""
+        """(I, E) edge weights -> device tile tensors, batched scatter.
+        A cluster shard fills only its own partition range."""
         w = np.asarray(instance_weights, np.float32)
         if w.ndim == 1:
             w = w[None]
         return (
-            torch.as_tensor(self.bg.fill_local_batch(w, zero=zero_fill),
-                            device=self.device),
-            torch.as_tensor(self.bg.fill_boundary_batch(w, zero=zero_fill),
-                            device=self.device),
+            torch.as_tensor(self.bg.fill_local_batch(
+                w, zero=zero_fill, parts=self.parts), device=self.device),
+            torch.as_tensor(self.bg.fill_boundary_batch(
+                w, zero=zero_fill, parts=self.parts), device=self.device),
         )
 
     def stage_sparse(
         self, instance_weights: np.ndarray, zero_fill: float
     ) -> SparseBlocked:
-        """(I, E) edge weights -> packed active-tile batch (host arrays)."""
-        return self.bg.stage_sparse(instance_weights, zero=zero_fill)
+        """(I, E) edge weights -> packed active-tile batch (host arrays),
+        of this shard's partitions on a cluster."""
+        return self.bg.stage_sparse(instance_weights, zero=zero_fill,
+                                    parts=self.parts)
+
+    # ------------------------------------------------- cluster shard slicing
+    def _shard_axis(self, a, axis: int = 1):
+        """Slice a full-width partition axis to this shard's range.  A
+        no-op for a single-process engine or an array whose axis is
+        already shard-wide (``hi - lo``)."""
+        if a is None or self.parts is None:
+            return a
+        lo, hi = self.parts
+        if a.shape[axis] == hi - lo:
+            return a
+        assert a.shape[axis] == self.bg.n_parts, (a.shape, axis)
+        idx = [slice(None)] * a.ndim
+        idx[axis] = slice(lo, hi)
+        return a[tuple(idx)]
+
+    def _occupancy(self, nnz, bnnz, n_instances: int) -> float:
+        """Active-tile fraction of ``n_instances`` packed instances over
+        this engine's partitions' template tiles (the shard's on a
+        cluster; a full-width index is cut to it)."""
+        lo, hi = (0, self.bg.n_parts) if self.parts is None else self.parts
+        total = n_instances * int(self.bg.n_tiles[lo:hi].sum()
+                                  + self.bg.n_btiles[lo:hi].sum())
+        active = int(self._shard_axis(nnz).sum()
+                     + self._shard_axis(bnnz).sum())
+        return active / total if total else 0.0
 
     # ------------------------------------------------------- instance step
     def _device_graph(self, tiles_l, btiles_l, index,
@@ -541,7 +594,9 @@ class TemporalEngine:
                                    zip(hit[0], host_arrays)):
             self._staged_device.move_to_end(key)
             return hit[1]
-        dev = tuple(_device_put(a, self.device) for a in host_arrays)
+        # a cluster shard uploads its own partitions of a full-width batch
+        dev = tuple(_device_put(np.ascontiguousarray(self._shard_axis(a)),
+                                self.device) for a in host_arrays)
         if extra is not None:
             dev += (extra(),)
         self._staged_device[key] = (
@@ -561,7 +616,8 @@ class TemporalEngine:
         continues the instance chain where the previous run converged.
         ``pad`` fills padding slots and must be the program's
         ``zero_fill``.  A (Q, V) multi-source final maps to a (Q, P, Vp)
-        seed."""
+        seed.  The seed is full-width on a cluster shard too: ``run``
+        keeps the shard's partitions of every ``x0``."""
         f = np.asarray(final, np.float32)
         if f.ndim == 1:
             return self.bg.scatter_vertex(f, pad)
@@ -662,6 +718,9 @@ class TemporalEngine:
             if x0.ndim not in (2, 3):
                 raise ValueError(
                     f"x0 must be (P, Vp) or (Q, P, Vp), got {x0.shape}")
+            # program inits and resume_seed scatter globally: a cluster
+            # shard keeps its own partitions
+            x0 = np.ascontiguousarray(self._shard_axis(x0, axis=-2))
             x0s.append(torch.as_tensor(x0, device=self.device))
 
         if (stream is None and staging == "async" and tiles is None
@@ -692,7 +751,8 @@ class TemporalEngine:
                 assert instance_weights is not None, \
                     "need instance_weights or a SparseBlocked batch"
                 sparse = self.stage_sparse(instance_weights, zero_fill)
-            occ = sparse.occupancy()
+            occ = self._occupancy(sparse.nnz, sparse.bnnz,
+                                  sparse.num_instances)
             tiles, btiles, *idx, plans = self._cached_device(
                 (sparse.tiles, sparse.btiles, sparse.rows, sparse.cols,
                  sparse.brows, sparse.bcols),
@@ -708,7 +768,8 @@ class TemporalEngine:
                 # host-staged dense batch: upload once per identity
                 tiles, btiles = self._cached_device((tiles, btiles))
             else:
-                tiles, btiles = tiles.to(self.device), btiles.to(self.device)
+                tiles = self._shard_axis(tiles).to(self.device)
+                btiles = self._shard_axis(btiles).to(self.device)
         return [
             self._wrap_result(
                 s.pattern, self._scan_instances(
@@ -720,9 +781,12 @@ class TemporalEngine:
 
     def _host_plans(self, batch) -> Dict[str, WalkPlan]:
         """A packed batch's (``SparseBlocked`` or sparse ``StagedChunk``)
-        walk plans on the host, with a leading instance axis."""
-        return {"plan": self.bg.packed_plans(batch.cols, batch.nnz),
-                "bplan": self.bg.packed_plans(batch.bcols, batch.bnnz)}
+        walk plans on the host, with a leading instance axis (of this
+        shard's partitions on a cluster)."""
+        sh = self._shard_axis
+        return {"plan": self.bg.packed_plans(sh(batch.cols), sh(batch.nnz)),
+                "bplan": self.bg.packed_plans(sh(batch.bcols),
+                                              sh(batch.bnnz))}
 
     def _sparse_plans(self, sparse: SparseBlocked) -> Dict[str, Any]:
         """The packed batch's walk plans (leading instance axis) on the
@@ -756,6 +820,9 @@ class TemporalEngine:
         arrays = (ch.tiles, ch.btiles)
         if ch.is_sparse:
             arrays += (ch.rows, ch.cols, ch.brows, ch.bcols)
+        # a cluster shard keeps its partitions of a full-width chunk (a
+        # shard-local stream's chunks are shard-wide already)
+        arrays = tuple(self._shard_axis(a) for a in arrays)
         if self.device.type != "cuda":
             bufs = tuple(_device_put(a, self.device) for a in arrays)
             return bufs, self._chunk_plans(ch)
@@ -811,8 +878,8 @@ class TemporalEngine:
         xs_p: List[list] = [[] for _ in range(N)]
         st_p: List[list] = [[] for _ in range(N)]
         carry = list(x0s)
-        n_total = nnz_total = up_bytes = 0
-        sparse_seen = False
+        n_total = up_bytes = 0
+        nnz_seen: List[Tuple[np.ndarray, np.ndarray]] = []
         wait_s = upload_s = host_s = 0.0
         marks = []  # CUDA events around each chunk's compute
         it = iter(chunks)
@@ -827,8 +894,7 @@ class TemporalEngine:
                 n = int(ch.tiles.shape[0])
                 n_total += n
                 if ch.is_sparse:
-                    sparse_seen = True
-                    nnz_total += int(ch.nnz.sum()) + int(ch.bnnz.sum())
+                    nnz_seen.append((ch.nnz, ch.bnnz))
                 bufs, plans = self._upload_chunk(ch)
                 up_bytes += sum(int(b.nbytes) for b in bufs)
                 idx = bufs[2:] if ch.is_sparse else None
@@ -875,10 +941,10 @@ class TemporalEngine:
                 if s.pattern == "eventually" and s.merge == "mean" else None
             outs.append((xs, carry[k], merged, stats))
         occ = None
-        if sparse_seen:
-            total = n_total * (int(self.bg.n_tiles.sum())
-                               + int(self.bg.n_btiles.sum()))
-            occ = nnz_total / total if total else 0.0
+        if nnz_seen:
+            occ = self._occupancy(np.concatenate([a for a, _ in nnz_seen]),
+                                  np.concatenate([b for _, b in nnz_seen]),
+                                  n_total)
         if cuda:
             marks[-1][1].synchronize()  # the compute stream's last chunk
             compute_s = sum(a.elapsed_time(b) for a, b in marks) / 1e3
@@ -897,18 +963,37 @@ class TemporalEngine:
                      warm: bool = False,
                      x0: Optional[torch.Tensor] = None) -> EngineResult:
         """Gather device outputs back to global vertex order + stats; a
-        rank-3 ``x0`` sets ``n_sources``."""
+        rank-3 ``x0`` sets ``n_sources``.  A cluster shard first
+        re-assembles the global partition axis in rank order (contiguous
+        shards: plain concatenation rebuilds the stacked layout).  Its
+        superstep counts equal every other process's (the global halt
+        vote keeps the loops in lockstep), so stats stay local."""
         xs, final, merged, stats = out
         bg = self.bg
 
+        def host(x, what):  # (..., P_local, Vp) -> the stacked (..., P, Vp)
+            x = x.cpu().numpy()
+            if self.parts is not None:
+                x = self.cluster.allgather_concat(x, axis=-2,
+                                                  tag=f"gather/{what}")
+            return x
+
         def gather(x):  # (..., P, Vp) -> (..., V)
-            return x.cpu().numpy()[..., bg.part_of, bg.local_of]
+            return x[..., bg.part_of, bg.local_of]
+
+        xs, final = host(xs, "xs"), host(final, "final")
+        if merged is not None and self.parts is not None:
+            # the Merge again over the whole partition axis, on the
+            # device, as one process computes it: a mean's association
+            # can depend on the shape of the tensor it reduces
+            merged = torch.mean(torch.as_tensor(xs, device=self.device),
+                                dim=xs.ndim - 3)
 
         return EngineResult(
             pattern=pattern,
             values=gather(xs),
             final=gather(final),
-            merged=None if merged is None else gather(merged),
+            merged=None if merged is None else gather(merged.cpu().numpy()),
             stats=stats,
             occupancy=occ,
             warm_start=warm,

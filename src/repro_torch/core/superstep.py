@@ -147,13 +147,17 @@ def device_graph(
     )
 
 
-def graph_plans(bg: BlockedGraph, device) -> Dict[str, WalkPlan]:
-    """``plan`` and ``bplan`` of ``bg``'s local and boundary tile index,
-    built on the host and put on ``device``."""
+def graph_plans(bg: BlockedGraph, device,
+                parts: Optional[Tuple[int, int]] = None
+                ) -> Dict[str, WalkPlan]:
+    """``plan`` and ``bplan`` of ``bg``'s local and boundary tile index
+    (``parts``: of that half-open partition range only, a cluster
+    shard's), built on the host and put on ``device``."""
     nvb, chunk = bg.vp // bg.block_size, default_chunk(bg.block_size)
-    return {"plan": to_device(walk_plan(bg.tiles_rc[:, :, 1], nvb,
+    lo, hi = (0, bg.n_parts) if parts is None else parts
+    return {"plan": to_device(walk_plan(bg.tiles_rc[lo:hi, :, 1], nvb,
                                         chunk=chunk), device),
-            "bplan": to_device(walk_plan(bg.btiles_rc[:, :, 1], nvb,
+            "bplan": to_device(walk_plan(bg.btiles_rc[lo:hi, :, 1], nvb,
                                          chunk=chunk), device)}
 
 

@@ -124,8 +124,9 @@ class StagedChunk:
 # reader(start, end) -> (end - start, E) float32 edge weights for the
 # visible-instance span [start, end)
 Reader = Callable[[int, int], np.ndarray]
-# alloc(n, bucket=None, bbucket=None) -> (local, boundary) float32 fill
-# buffers for n instances (see BlockedGraph.alloc_batch_buffers)
+# alloc(n, bucket=None, bbucket=None, parts=None) -> (local, boundary)
+# float32 fill buffers for n instances (see
+# BlockedGraph.alloc_batch_buffers; ``parts`` sizes a shard's partitions)
 Alloc = Callable[..., Tuple[np.ndarray, np.ndarray]]
 
 
@@ -434,19 +435,22 @@ class SlicePrefetcher:
         with one."""
 
         def alloc(n: int, bucket: Optional[int] = None,
-                  bbucket: Optional[int] = None):
+                  bbucket: Optional[int] = None,
+                  parts: Optional[Tuple[int, int]] = None):
             if self.ring is None:
-                return self.bg.alloc_batch_buffers(n, bucket=bucket,
-                                                   bbucket=bbucket)
+                return self.bg.alloc_batch_buffers(
+                    n, bucket=bucket, bbucket=bbucket, parts=parts)
             assert not leases, "one pinned buffer per chunk"
             B = self.bg.block_size
-            per = self.bg.n_parts * B * B * 4
-            need = n * per * ((bucket or self.bg.t_max)
-                              + (bbucket or self.bg.tb_max)) + 2 * _ALIGN
+            P = self.bg.n_parts if parts is None else parts[1] - parts[0]
+            need = n * P * B * B * 4 * ((bucket or self.bg.t_max)
+                                        + (bbucket or self.bg.tb_max)) \
+                + 2 * _ALIGN
             lease = self.ring.acquire(need, self.window + 2, self._stop)
             leases.append(lease)
             return self.bg.alloc_batch_buffers(
-                n, bucket=bucket, bbucket=bbucket, empty=lease.empty)
+                n, bucket=bucket, bbucket=bbucket, empty=lease.empty,
+                parts=parts)
 
         return alloc
 

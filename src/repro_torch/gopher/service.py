@@ -94,7 +94,7 @@ import torch
 
 from repro_torch.gopher.registry import get_analytic
 from repro_torch.gopher.session import (
-    AnalyticResult, GopherSession, TailUpdate, _StagingCache, _freeze_value)
+    AnalyticResult, GopherSession, TailUpdate, _StagingCache)
 
 # default session-lifetime staging budget for a serving process: enough
 # for every stock analytic's staged batch over the bench-scale
@@ -198,6 +198,9 @@ class GopherService:
     promoted to one (``staging_cache_bytes``).  ``max_batch_queries``
     caps how many requests one admission drains into a single
     ``run_many`` batch (source-merged groups are chunked to it as well).
+    ``auto_refresh=False`` pins the service to the collection version it
+    opened on: the loop never polls the store, so no append is observed
+    and no subscription takes a tail step.
     """
 
     def __init__(
@@ -208,6 +211,7 @@ class GopherService:
         staging_cache_bytes: float = DEFAULT_CACHE_BYTES,
         max_batch_queries: int = 32,
         poll_interval: float = 0.05,
+        auto_refresh: bool = True,
         **session_kw,
     ):
         if session is None:
@@ -231,6 +235,7 @@ class GopherService:
         # executed batch sees one consistent collection version (queries
         # racing an append observe pre- or post-append state, never a mix)
         self.poll_interval = float(poll_interval)
+        self.auto_refresh = bool(auto_refresh)
         self._queue: "deque[QueryTicket]" = deque()
         self._cond = threading.Condition()
         self._stopping = False
@@ -443,6 +448,8 @@ class GopherService:
         append, then drive every live subscription one tail step.  Runs
         between batches — never inside one — so each batch executes
         against a single collection version."""
+        if not self.auto_refresh:
+            return
         changed = self.session.refresh()
         if changed:
             self._appends_observed += 1
@@ -480,7 +487,7 @@ class GopherService:
 
     def _group_key(self, t: QueryTicket, axis: str) -> Tuple:
         rest = tuple(sorted(
-            (k, _freeze_value(v)) for k, v in t.params.items() if k != axis))
+            (k, _freeze(v)) for k, v in t.params.items() if k != axis))
         return (t.analytic, rest, tuple(sorted(t.plan_kw.items())))
 
     def _execute(self, batch: List[QueryTicket]) -> None:
@@ -561,6 +568,27 @@ class GopherService:
             "subscriptions": len(self._subs),
             "appends_observed": self._appends_observed,
         }
+
+
+def _freeze(v: Any) -> Any:
+    """Hashable view of a request parameter (group keys): an array by its
+    values and shape, NumPy scalars as Python numbers, so requests whose
+    parameters hold equal values merge whatever their dtypes.
+
+    >>> _freeze(np.array([0., 10.])) == _freeze(np.array([0, 10]))
+    True
+    >>> _freeze((np.int64(3), [np.float32(0.5)]))
+    (3, (0.5,))
+    """
+    if isinstance(v, np.ndarray):
+        return ("ndarray",) + tuple(v.reshape(-1).tolist()) + (v.shape,)
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return v
 
 
 def _slice_query(res: AnalyticResult, q: int, n: int) -> AnalyticResult:

@@ -36,9 +36,11 @@ The session runs on ``device`` (``"cuda"`` by default; ``"cpu"`` runs
 every kernel's plain PyTorch version) and passes it to every engine it
 builds.  ``refresh`` and ``tail`` follow a collection that grows in
 place (streaming ingestion); ``GopherService`` (:mod:`.service`) serves
-queries from one warm session.  Not ported yet, and raising
-``NotImplementedError`` that names the ROADMAP item: ``mesh=`` (item 6),
-``cluster=`` and ``run(checkpoint_dir=...)`` (item 7).
+queries from one warm session.  ``cluster=`` makes the session one
+shard of an N-process run (:mod:`repro_torch.cluster`), and
+``run(plan, checkpoint_dir=...)`` a resumable run
+(:mod:`repro_torch.cluster.checkpoint`).  Not ported yet, and raising
+``NotImplementedError`` that names the ROADMAP item: ``mesh=`` (item 6).
 
 >>> import numpy as np
 >>> from repro_torch.core.blocked import build_blocked
@@ -287,8 +289,8 @@ class GopherSession:
     """Declarative session over one time-series graph collection.
 
     See the module docstring for the data sources and verbs.  Placement
-    is session-level (``device``, ``use_pallas``); analytics and their
-    knobs are plan-level."""
+    is session-level (``device``, ``use_pallas``, ``cluster``); analytics
+    and their knobs are plan-level."""
 
     def __init__(
         self,
@@ -313,8 +315,17 @@ class GopherSession:
 
         if mesh is not None:
             raise _not_ported("mesh placement", "6")
-        if cluster is not None:
-            raise _not_ported("cluster sessions", "7")
+        # ``cluster``: a repro_torch.cluster.runtime.ClusterRuntime.  When
+        # distributed, every engine this session builds becomes one shard
+        # of the N-process run (its partition range, with the real
+        # inter-process boundary exchange) and store-backed streamed
+        # staging goes shard-local (repro_torch.cluster.staging
+        # .shard_stream) — per-host staged bytes drop to about
+        # 1/num_processes.  Results stay bitwise-identical to the
+        # single-process session; a single-process runtime (or None)
+        # changes nothing.
+        self.cluster = cluster if (cluster is not None
+                                   and cluster.is_distributed) else None
         self.device = resolve_device(device)
         # kernel-mode policy: None -> the planner's auto rule picks
         # off/spmv/fused per plan from the device and recorded occupancy;
@@ -468,17 +479,32 @@ class GopherSession:
     # ----------------------------------------------------------- execution
     def run(self, plan, *, resume: bool = False,
             checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 1,
+            checkpoint_chunk: Optional[int] = None,
             **params) -> AnalyticResult:
         """Execute one plan (or plan an analytic by name and execute it).
 
-        ``checkpoint_dir=`` (resumable runs) raises: it comes with the
-        cluster runtime (ROADMAP item 7)."""
+        ``checkpoint_dir=`` makes the run resumable: the pass consumes
+        the instance axis in spans of ``checkpoint_chunk`` instances and
+        snapshots its engine state (carry, accumulated values, superstep
+        counters, staging cursor) every ``checkpoint_every`` spans
+        through the atomic-rename helpers of
+        ``repro_torch.train.checkpoint``; ``resume=True`` then continues
+        a killed run from its last committed snapshot, bitwise-identical
+        to the uninterrupted pass (:mod:`repro_torch.cluster.checkpoint`).
+        """
         if isinstance(plan, str):
             plan = self.plan(plan, **params)
         else:
             assert not params, "params belong to plan(); got a built plan"
-        if checkpoint_dir is not None or resume:
-            raise _not_ported("resumable runs (checkpoint_dir=)", "7")
+        if checkpoint_dir is not None:
+            from repro_torch.cluster.checkpoint import ResumableRun
+
+            return ResumableRun(
+                self, plan, checkpoint_dir=checkpoint_dir,
+                every=checkpoint_every, chunk_instances=checkpoint_chunk,
+            ).run(resume=resume)
+        assert not resume, "resume=True needs checkpoint_dir="
         return self.run_many([plan])[0]
 
     def run_many(self, plans: Sequence[ExecutionPlan]) -> List[AnalyticResult]:
@@ -561,9 +587,20 @@ class GopherSession:
                 # is comparable with the cache path
                 tf = None if transform == "raw" else \
                     (lambda rows: a0.weights(self, rows))
-                stream = self.store.load_blocked_stream(
-                    self.bg, attr, zero=zero, layout=layout,
-                    delta=use_delta, transform=tf)
+                if self.cluster is not None:
+                    # shard-local staging: read + fill only this process's
+                    # partition range (delta chains describe the full
+                    # collection, so the shard path stages from the value
+                    # slices); staged_bytes then reports the PER-HOST cost
+                    from repro_torch.cluster.staging import shard_stream
+
+                    stream = shard_stream(
+                        self.store, self.bg, attr, self.cluster,
+                        zero=zero, layout=layout, transform=tf)
+                else:
+                    stream = self.store.load_blocked_stream(
+                        self.bg, attr, zero=zero, layout=layout,
+                        delta=use_delta, transform=tf)
                 cache.staging_passes += 1
                 outs = engine.run_many(
                     specs, stream=_CountedChunks(stream, cache))
@@ -813,7 +850,7 @@ class GopherSession:
             # use_pallas override
             self._engines[key] = TemporalEngine(
                 self._blocked(graph), device=self.device,
-                use_pallas=kernel, comm=comm,
+                use_pallas=kernel, comm=comm, cluster=self.cluster,
             )
         return self._engines[key]
 

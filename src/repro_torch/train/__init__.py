@@ -1,2 +1,2 @@
-"""Serving steps (counterpart of ``repro.train``; training is not ported
-yet, ROADMAP.md queue 1, item 10)."""
+"""Serving steps and atomic checkpoints (counterpart of ``repro.train``;
+training is not ported yet, ROADMAP.md queue 1, item 10)."""

@@ -264,7 +264,11 @@ def test_import_loads_no_jax():
         "repro_torch.gofs.layout, repro_torch.gofs.store, "
         "repro_torch.core.subgraph, repro_torch.core.ibsp, "
         "repro_torch.gopher.service, repro_torch.launch.run_graph, "
-        "repro_torch.launch.serve_graph, repro_torch.launch.tail_graph\n"
+        "repro_torch.launch.serve_graph, repro_torch.launch.tail_graph, "
+        "repro_torch.cluster, repro_torch.cluster.runtime, "
+        "repro_torch.cluster.gather, repro_torch.cluster.staging, "
+        "repro_torch.cluster.checkpoint, repro_torch.train.checkpoint, "
+        "repro_torch.launch.cluster_graph\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

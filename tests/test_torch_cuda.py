@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import GraphConfig
 from repro_torch.configs.goffish_tr import TR_TINY
 from repro_torch.core import engine as T
 from repro_torch.core.algorithms.pagerank import edge_weights_for_instances
@@ -1317,3 +1318,126 @@ def test_service_on_card_matches_cpu(cuda, tmp_path):
     _, streamed, pinned = next(x for x in seen if x[0] == "streamed")
     _same_run(streamed, firsts[1].result.engine)
     assert pinned > 0
+
+
+# --------------------------------------------------------------------------
+# the cluster runtime on the card: two in-thread shards share the device
+# --------------------------------------------------------------------------
+
+# tests/conftest.py's TINY (3 partitions: shards of 2 and 1)
+TINY = GraphConfig(
+    name="tiny", num_vertices=300, avg_degree=3.0, num_instances=3,
+    num_partitions=3, block_size=32, instances_per_slice=2,
+    bins_per_partition=2, cache_slots=4, seed=11,
+)
+
+
+def _two_runtimes(fn, n=2, timeout=300.0):
+    """``fn(runtime)`` on ``n`` in-thread peers of one TCP exchange;
+    returns their results in process-id order."""
+    import socket
+    import threading
+
+    from repro_torch.cluster.runtime import ClusterRuntime, TcpExchange
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out, errs = [None] * n, [None] * n
+
+    def peer(pid):
+        try:
+            ex = TcpExchange.listen(port, n, host="127.0.0.1",
+                                    timeout=timeout) if pid == 0 else \
+                TcpExchange.connect("127.0.0.1", port, pid, n,
+                                    timeout=timeout)
+            with ClusterRuntime(pid, n, exchange=ex) as rt:
+                out[pid] = fn(rt)
+        except BaseException as e:  # noqa: BLE001 - surfaced below
+            errs[pid] = e
+
+    ts = [threading.Thread(target=peer, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in ts), "peer thread hung"
+    for e in errs:
+        if e is not None:
+            raise e
+    return out
+
+
+@pytest.mark.parametrize("cfg", [TINY, TR_TINY], ids=lambda c: c.name)
+@pytest.mark.parametrize("mode", ["spmv", "fused"])
+def test_cluster_shards_on_card_match_one_process(cuda, cfg, mode):
+    """Two cluster shards on the card (P_local of 1-2) == one process on
+    the card in the same kernel mode: SSSP (sequential) and PageRank
+    (independent) bitwise in values, final and supersteps; the mode's
+    kernel was launched at the shards' call shapes."""
+    col = generate_collection(cfg)
+    t = col.template
+    bg = build_blocked(t, partition_graph(t, cfg.num_partitions,
+                                          seed=cfg.seed), cfg.block_size)
+    lat = np.stack([col.edge_values(i, "latency") for i in range(len(col))])
+    act = np.stack([col.edge_values(i, "active") for i in range(len(col))])
+    prw = edge_weights_for_instances(t.src, act, t.num_vertices)
+    sssp = T.min_plus_program("sssp", init=T.source_init(0))
+    pr = T.pagerank_program(t.num_vertices, iters=6)
+    one = T.TemporalEngine(bg, use_pallas=mode)
+    want = [one.run(sssp, lat, pattern="sequential"),
+            one.run(pr, prw, pattern="independent")]
+    kernel = spmv_blocked_cuda if mode == "spmv" else fused_step_cuda
+    before = kernel.launches
+
+    def shard(rt):
+        eng = T.TemporalEngine(bg, use_pallas=mode, cluster=rt)
+        assert eng._index[0].shape[0] == \
+            rt.partition_shard(bg.n_parts)[1] \
+            - rt.partition_shard(bg.n_parts)[0]
+        return [eng.run(sssp, lat, pattern="sequential"),
+                eng.run(pr, prw, pattern="independent")]
+
+    for got in _two_runtimes(shard):
+        for g, w in zip(got, want):
+            for a, b in ((g.values, w.values), (g.final, w.final),
+                         (g.stats["supersteps"], w.stats["supersteps"])):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert a.tobytes() == b.tobytes()
+    assert kernel.launches > before
+
+
+def test_cluster_sessions_on_card_stage_pinned_shards(cuda, tmp_path):
+    """Two cluster sessions on the card over one deployment: each streams
+    its shard through ``shard_stream`` into the pinned ring (``bind``
+    reaches the prefetcher), stages fewer bytes than one process, and
+    SSSP and PageRank equal one process's bitwise."""
+    from repro_torch.gofs.prefetch import pinned_ring
+    from repro_torch.gopher import GopherSession
+
+    _col, _bg, store, _lat, _act = _deployed_tiny(tmp_path)
+    one = GopherSession(store)
+    plans = [one.plan("sssp", source=0), one.plan("pagerank", iters=6)]
+    want = [one.run(p) for p in plans]
+    single = [one.run_many([p]) and one.last_run_report["staged_bytes"]
+              for p in plans]
+    ring = pinned_ring(cuda)
+    ring.peak_bytes = 0
+
+    def shard(rt):
+        sess = GopherSession(store, cluster=rt)
+        out = []
+        for p in plans:
+            res = sess.run(sess.plan(p.analytic, **p.param_dict))
+            out.append((res, sess.last_run_report["staged_bytes"]))
+        return out
+
+    for got in _two_runtimes(shard):
+        for (res, staged), w, full in zip(got, want, single):
+            assert staged < full
+            for a, b in ((res.engine.values, w.engine.values),
+                         (res.engine.final, w.engine.final),
+                         (res.engine.stats["supersteps"],
+                          w.engine.stats["supersteps"])):
+                assert a.tobytes() == b.tobytes()
+    assert ring.peak_bytes > 0

@@ -217,8 +217,15 @@ def test_not_ported_paths_raise(slice_env):
             assert np.array_equal(two.values[q], one.values)
     with pytest.raises(NotImplementedError, match="item 6"):
         T.TemporalEngine(bg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.TemporalEngine(bg, device="cpu", cluster=object())
+    # the cluster runtime is ported (tests/test_torch_cluster.py holds it
+    # against the reference): a single-process runtime leaves the engine
+    # stacked over every partition, bitwise the plain engine
+    from repro_torch.cluster.runtime import ClusterRuntime
+
+    solo = T.TemporalEngine(bg, device="cpu", cluster=ClusterRuntime(0, 1))
+    assert solo.parts is None and solo.comm.name == "dense"
+    assert np.array_equal(solo.run(prog, w, pattern="sequential").values,
+                          one.values)
 
 
 def test_host_comm_and_label_init_match_reference(slice_env):

@@ -594,8 +594,10 @@ def test_not_ported_paths_raise(env):
     # reference)
     assert sess.refresh() is False
     assert sess.tail("sssp", source=0).mode == "full"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sess.run(sess.plan("sssp", source=0), checkpoint_dir="/nowhere")
+    # resumable runs are ported (tests/test_torch_cluster_checkpoint.py
+    # holds them against the reference); a resume needs a directory
+    with pytest.raises(AssertionError, match="checkpoint_dir"):
+        sess.run(sess.plan("sssp", source=0), resume=True)
     # the query axis is ported: a sequence of sources runs
     # (tests/test_torch_query.py holds it against the reference)
     assert sess.run(sess.plan("sssp", source=[0, 1])).output[
@@ -604,9 +606,13 @@ def test_not_ported_paths_raise(env):
         "histograms"].shape[0] == 2
     with pytest.raises(NotImplementedError, match="item 6"):
         GopherSession(GoFSStore(env["root"]), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        GopherSession(GoFSStore(env["root"]), device="cpu",
-                      cluster=object())
+    # cluster sessions are ported (tests/test_torch_cluster.py): a
+    # single-process runtime leaves the session as it was
+    from repro_torch.cluster.runtime import ClusterRuntime
+
+    solo = GopherSession(GoFSStore(env["root"]), device="cpu",
+                         cluster=ClusterRuntime(0, 1))
+    assert solo.cluster is None
 
 
 def test_default_device_is_cuda(env):

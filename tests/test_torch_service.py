@@ -381,6 +381,65 @@ def test_subscription_over_two_appends_matches_reference(tmp_path):
     _bits(got[-1][0].result.output["final"], ref.output["final"])
 
 
+def test_auto_refresh_off_pins_the_version(tmp_path):
+    """``auto_refresh=False``, as the reference: the loop never polls, so
+    an append is not observed, no subscription takes a tail step, and
+    queries are answered on the version the service opened on."""
+    col = _monotone(SUB_CFG)
+    root = str(tmp_path / "pinned")
+    deploy_collection(_part(col, 0, 3), SUB_CFG, root,
+                      sparse_absent={"latency": INF})
+    svc = GopherService(GoFSStore(root), block_size=SUB_CFG.block_size,
+                        device="cpu", poll_interval=0.01,
+                        auto_refresh=False)
+    jsvc = JGopherService(JGoFSStore(root), block_size=SUB_CFG.block_size,
+                          poll_interval=0.01, auto_refresh=False)
+    assert svc.auto_refresh is False
+    with svc, jsvc:
+        subs = [s.subscribe("sssp", source=0) for s in (svc, jsvc)]
+        before = [s.query("sssp", source=0, timeout=WAIT)
+                  for s in (svc, jsvc)]
+        append_instances(_part(col, 3, 5), root)
+        time.sleep(0.1)  # a few poll ticks of an auto-refreshing loop
+        after = [s.query("sssp", source=0, timeout=WAIT)
+                 for s in (svc, jsvc)]
+        reps = [s.report() for s in (svc, jsvc)]
+        delivered = [sub.delivered for sub in subs]
+        for sub in subs:
+            sub.cancel()
+    assert delivered == [0, 0]
+    assert reps[0]["appends_observed"] == reps[1]["appends_observed"] == 0
+    for got, want in zip(after, before):
+        assert got.engine.values.shape[-2] == 3  # the pre-append version
+    for res in (before, after):
+        for k, v in res[1].output.items():
+            _bits(res[0].output[k], np.asarray(v), k)
+    # a built session is accepted with the option, as in the reference
+    svc = GopherService(session=_session(), auto_refresh=False)
+    assert svc.auto_refresh is False and not svc.session.refresh()
+
+
+def test_group_key_merges_equal_values_of_other_dtypes():
+    """Requests whose non-source parameters hold equal values merge into
+    one pass whatever the arrays' dtypes, as in the reference: N-hop bins
+    as float64 and as int64 give one Q = 2 plan."""
+    b = np.array([0, 10, 20, 50, 100, 200, 500, 1000, 2000], np.float64)
+    reqs = [("nhop", {"source": 1, "n_hops": 2, "bins": b}),
+            ("nhop", {"source": 5, "n_hops": 2,
+                      "bins": b.astype(np.int64)})]
+    outs = []
+    for svc in (GopherService(session=_session()),
+                JGopherService(session=_jsession())):
+        with svc:
+            outs.append([t.wait(timeout=WAIT)
+                         for t in svc.submit_many(reqs)])
+    got, want = outs
+    for g, w in zip(got, want):
+        assert g.plan.param_dict["source"] == w.plan.param_dict["source"] \
+            == (1, 5)
+        _assert_same_output(w, g, "nhop")
+
+
 # --------------------------------------------------------------------------
 # tests/test_streaming_stress.py on the port
 # --------------------------------------------------------------------------
