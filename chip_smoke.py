@@ -39,6 +39,11 @@ Phases (any failure exits non-zero before the result lines):
    launches by walk (``launches_by_walk``) must match the launches by
    call shape, every min-plus call of ``walk_plan.LANE_WALK_MIN`` lanes
    or more on the lane walk;
+5d. the four examples (``examples_phase``): ``repro_torch.examples``'
+   quickstart, temporal_sssp, vehicle_tracking and serve_lm with
+   ``device="cuda"`` in this process, at their own sizes and asserts
+   live; each one's seconds and launches (the attention kernels' by
+   route);
 6. the same graph path from a GoFS deployment (``gofs_path``): the
    collection deployed with ``deploy_collection`` (latency tile maps and
    the delta chain) into a temporary directory; host iBSP SSSP
@@ -47,9 +52,10 @@ Phases (any failure exits non-zero before the result lines):
    oracle over the same instances; the
    dense ``load_blocked`` batch equal to the in-memory fill, and
    sequential SSSP from it in both kernel modes equal to phase 5's runs;
-   sparse loads from the delta chain and from the full value slices,
-   equal to each other, with SSSP on the delta batches equal to the dense
-   store run; PageRank from the store's activity within
+   sparse loads from the delta chain and from the full value slices over
+   the first time pack (SPARSE_LOAD_PACKS; on the cuts line), equal to
+   each other, with SSSP on the delta batches equal to the dense store
+   run's first instances; PageRank from the store's activity within
    :func:`plus_mul_limit` of phase 5's; then the Gopher session on the
    same deployment (``session_phase``): ``GopherSession(store)`` plans
    SSSP (dense, dense comm, async, no delta, cold, ``spmv``, stacked),
@@ -84,19 +90,43 @@ Phases (any failure exits non-zero before the result lines):
    resumed bitwise equal to phase 6's session SSSP.  Records: seconds
    per worker, the exchange's operations and bytes, staged bytes per
    host, host peak RSS, the resume's seconds;
+6d. the mesh (``mesh_phase``) on the same deployment: rank processes on
+   the one card (:func:`mesh_worker`, ``--mesh-worker``), each with its
+   own CUDA context: (a) a (1, 1) mesh with ``backend="nccl"`` — the
+   only place the NCCL code runs, since NCCL refuses two ranks on one
+   device — SSSP through ``GopherSession(store, mesh=...)``, streamed
+   from the deployment, bitwise phase 5's; (b) ``model = 2`` under gloo,
+   4 partitions a rank: sequential SSSP in spmv and fused mode and SSSP
+   with phase 5b's 32 sources, bitwise phases 5 and 5b, independent
+   PageRank within :func:`plus_mul_limit` of phase 5's, under
+   ``dense``, ``ring`` and ``ring-rs``, SSSP streamed from the store
+   through the session, bitwise, and a control whose combine drops the
+   peer's partial, which must fail (its launches are counted apart from
+   the path's); (c) ``data = 2`` under gloo, 24 instances a rank:
+   ``pagerank_temporal`` (ranks and ``merged``) within the limit of
+   phase 5's PageRank and its mean, and independent SSSP under the ring
+   (its loop synced over data) and streamed from the store, bitwise
+   phase 5's eventually run.  Every rank's results equal rank 0's, each
+   rank's fills, in memory and streamed, are exactly its share of a
+   batch, and the exchange's bytes per superstep are printed beside
+   ``boundary_exchange_bytes``'s; records: seconds per rank and run,
+   host peak RSS and peak device memory per rank, exchange operations
+   and bytes, launches by call shape and by walk (summed over the
+   ranks);
 6b. streaming ingestion and warm serving (``stream_phase``), after phase
-   6 has removed its deployment: the first 40 of TR_SMALL's 48 instances
-   deployed with phase 6's knobs, then two appends of 4 instances from
+   6 has removed its deployment: the first time pack of TR_SMALL (20
+   instances, STREAM_FIRST; a depth cut on the ``stream path cuts``
+   line) deployed with phase 6's knobs, then two appends of 4 instances from
    this thread (the first opens a new time pack, the second rewrites
    it) while a ``GopherService`` (a staging budget that holds the batch,
    one admission of up to 36 queries) serves: phase 5b's 32 SSSP
    sources before the appends, each lane bitwise equal to phase 5b's
-   over instances 0-39; the same 32 and N-hop with 4 sources in one
-   admission after them, every lane equal to phase 5b's in full and the
-   N-hop lanes to phase 6's session; its ``sssp`` subscription delivers
-   full, incremental, incremental (40, 4, 4 new instances), the last
-   equal to phase 6's cold session SSSP (values, final, supersteps,
-   sweeps); a second session with ``use_pallas="fused"`` tails the same
+   over instances 0-19; the same 32 and N-hop with 4 sources in one
+   admission after them, every lane equal to phase 5b's over instances
+   0-27 and the N-hop lanes to phase 6's session's; its ``sssp``
+   subscription delivers full, incremental, incremental (20, 4, 4 new
+   instances), the last equal to phase 6's cold session SSSP over those
+   28 instances (values, final, supersteps, sweeps); a second session with ``use_pallas="fused"`` tails the same
    store to the same updates; after each append the staging cache
    stages only the new instances' fill.  Records (each with the card):
    deploy, append seconds and bytes written, free disk, refresh,
@@ -656,7 +686,7 @@ def main_path(cfg, device="cuda", n_sparse=4, log=print):
     # matrices, the engines, and their results
     keep["in_memory"] = dict(
         col=col, lat=lat, act=act, engines=eng, sssp_oracle=ref,
-        sssp={"spmv": r_sp, "fused": r_fu},
+        sssp={"spmv": r_sp, "fused": r_fu}, sssp_eventually=r_ev,
         pagerank={"spmv": p_sp, "fused": p_fu})
     return keep
 
@@ -859,6 +889,550 @@ def query_phase(keep, device="cuda", log=print):
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: the mesh (multi-GPU placement) on the one card
+# ---------------------------------------------------------------------------
+
+# the longest phase 6d waits on its ranks
+MESH_WAIT = 900.0
+MESH_COMMS = ("dense", "ring", "ring-rs")
+
+
+def _mesh_inputs(cfg):
+    """Phase 5's collection, rebuilt in a rank (0.8 s at TR_SMALL)."""
+    import numpy as np
+
+    from repro_torch.core.algorithms import pagerank, sssp
+    from repro_torch.core.blocked import build_blocked
+    from repro_torch.core.generator import generate_collection
+    from repro_torch.core.partition import partition_graph
+
+    col = generate_collection(cfg)
+    tmpl = col.template
+    bg = build_blocked(tmpl, partition_graph(tmpl, cfg.num_partitions,
+                                             seed=cfg.seed), cfg.block_size)
+    I, V = len(col), tmpl.num_vertices
+    lat = np.stack([col.edge_values(t, sssp.WEIGHT_ATTR) for t in range(I)])
+    act = np.stack([col.edge_values(t, pagerank.ACTIVE_ATTR)
+                    for t in range(I)])
+    return bg, tmpl, lat, act, pagerank.edge_weights_for_instances(
+        tmpl.src, act, V)
+
+
+@contextlib.contextmanager
+def counted_fills(bg):
+    """Sum the bytes of ``bg``'s dense tile fills while the block runs:
+    yields a list that gets each fill's (instances, partitions, bytes)."""
+    seen = []
+    real = {k: getattr(bg, k) for k in ("fill_local_batch",
+                                         "fill_boundary_batch")}
+
+    def wrap(fn):
+        def counted(w, *a, **k):
+            out = fn(w, *a, **k)
+            seen.append((int(out.shape[0]), int(out.shape[1]),
+                         int(out.nbytes)))
+            return out
+        return counted
+
+    for k, fn in real.items():
+        setattr(bg, k, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for k in real:
+            delattr(bg, k)
+
+
+def mesh_worker(spec) -> int:
+    """One rank of phase 6d (``chip_smoke.py --mesh-worker SPEC``): joins
+    the (data, model) mesh on the card with the spec's backend, runs its
+    part's analytics on phase 5's TR_SMALL collection with the graph
+    kernels' launches counted by call shape and by walk and the tile
+    fills' bytes counted, and writes its record (rank 0 also its result
+    arrays; every rank the digests of its results)."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.goffish_tr import TR_SMALL, TR_TINY
+    from repro_torch.core import comm as C
+    from repro_torch.core.engine import (TemporalEngine, min_plus_program,
+                                         pagerank_program, source_init,
+                                         sources_init)
+    from repro_torch.core.semiring import INF
+    from repro_torch.core.temporal import pagerank_temporal
+    from repro_torch.gofs import GoFSStore
+    from repro_torch.gopher import GopherSession
+    from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+    from repro_torch.kernels.semiring_superstep.kernel import \
+        fused_step_cuda
+    from repro_torch.launch.mesh import init_mesh
+
+    @dataclasses.dataclass(frozen=True)
+    class SkipPeer(C.DenseAllReduce):
+        """The wrong control: a combine that keeps this rank's partial
+        and drops its peer's (the votes still cross)."""
+
+        name: str = "skip-peer"
+
+        def combine_boundary(self, buf, sr):
+            return C._stack_fold(buf, sr)
+
+    t_start = time.perf_counter()
+    cuda = spec["device"] == "cuda"  # a CPU rehearsal: control flow only
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    rank, part = spec["rank"], spec["part"]
+    bg, tmpl, lat, act, prw = _mesh_inputs(
+        {c.name: c for c in (TR_SMALL, TR_TINY)}[spec["cfg"]])
+    V = tmpl.num_vertices
+    mesh = init_mesh(spec["data"], spec["model"], backend=spec["backend"],
+                     device=dev, init_method=spec["init"], rank=rank,
+                     world_size=spec["data"] * spec["model"],
+                     timeout=MESH_WAIT)
+    kernels = (spmv_blocked_cuda, fused_step_cuda)
+    for k in kernels:
+        k.launches = 0
+    arrays, runs, exchange = {}, {}, {}
+
+    def keep(name, r, fields=("values", "final")):
+        for f in fields:
+            arrays[f"{name}/{f}"] = np.asarray(getattr(r, f))
+        if r.stats is not None:
+            for f in ("supersteps", "local_sweeps"):
+                arrays[f"{name}/{f}"] = np.asarray(r.stats[f])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(name, fn):
+        sync()
+        C.reset_exchange_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        runs[name] = time.perf_counter() - t0
+        exchange[name] = C.exchange_stats()
+        return out
+
+    sssp = min_plus_program("sssp", init=source_init(0))
+    control = None
+    w0 = walk_counts()
+    with PeakRSS() as rss, call_shapes() as shapes, \
+            counted_fills(bg) as fills:
+        def store_run(name, **knobs):
+            """An SSSP through ``GopherSession(store, mesh=...)`` on phase
+            6's deployment, its fills counted on the session's graph."""
+            sess = GopherSession(GoFSStore(spec["store"]), mesh=mesh,
+                                 device=dev)
+            plan = sess.plan("sssp", source=0, **knobs)
+            with counted_fills(sess.bg) as seen:
+                keep(name, timed(name, lambda: sess.run(plan)).engine)
+            stream_fills[name] = seen
+            return plan
+
+        stream_fills = {}
+        if part == "nccl":
+            explain = store_run("sssp").explain()
+        elif part == "model":
+            eng = {(c, m): TemporalEngine(bg, device=dev, mesh=mesh, comm=c,
+                                          use_pallas=m)
+                   for c in MESH_COMMS for m in ("spmv", "fused")}
+            tiles, btiles = timed("stage_sssp", lambda: eng[
+                "dense", "spmv"].stage(lat, INF))
+            srcs = spec["sources"]
+            for c in MESH_COMMS:
+                for m in ("spmv", "fused"):
+                    keep(f"sssp/{c}/{m}", timed(
+                        f"sssp/{c}/{m}", lambda: eng[c, m].run(
+                            sssp, tiles=tiles, btiles=btiles,
+                            pattern="sequential")))
+                keep(f"query/{c}", timed(f"query/{c}", lambda: eng[
+                    c, "spmv"].run(min_plus_program(
+                        "sssp", init=sources_init(srcs)), tiles=tiles,
+                        btiles=btiles, pattern="sequential")))
+            ctl = TemporalEngine(bg, device=dev, mesh=mesh,
+                                 comm=SkipPeer(axis_name=("model",)))
+            # the control's launches are counted apart from the path's
+            c_w0 = walk_counts()
+            c_n0 = {k.__name__: k.launches for k in kernels}
+            with call_shapes() as c_shapes:
+                keep("control", timed("control", lambda: ctl.run(
+                    sssp, tiles=tiles, btiles=btiles,
+                    pattern="sequential")))
+            control = {
+                "launches": {k.__name__: k.launches - c_n0[k.__name__]
+                             for k in kernels},
+                "launches_by_call_shape": {
+                    f"{k} {c}": n for (k, c), n in c_shapes.items()},
+                "launches_by_walk": check_walks(
+                    f"mesh rank {rank} control", c_shapes, c_w0,
+                    walk_counts())}
+            del tiles, btiles
+            if cuda:
+                torch.cuda.empty_cache()
+            tiles, btiles = timed("stage_pagerank", lambda: eng[
+                "dense", "spmv"].stage(prw, 0.0))
+            pr = pagerank_program(V, iters=10)
+            for c in MESH_COMMS:
+                keep(f"pagerank/{c}", timed(f"pagerank/{c}", lambda: eng[
+                    c, "spmv"].run(pr, tiles=tiles, btiles=btiles,
+                                   pattern="independent")),
+                     fields=("values",))
+            del tiles, btiles
+            if cuda:
+                torch.cuda.empty_cache()
+            store_run("store_sssp", staging="async")
+            explain = None
+        else:  # "data": instances over two ranks
+            ranks, merged = timed("pagerank_temporal", lambda:
+                                  pagerank_temporal(
+                                      bg, tmpl.src, act, mesh,
+                                      num_vertices=V, iters=10, device=dev))
+            arrays["temporal/values"] = ranks
+            arrays["temporal/merged"] = merged
+            ring = TemporalEngine(bg, device=dev, mesh=mesh, comm="ring")
+            keep("sssp_independent_ring", timed(
+                "sssp_independent_ring", lambda: ring.run(
+                    sssp, lat, pattern="independent")))
+            if cuda:
+                torch.cuda.empty_cache()
+            store_run("store_sssp_independent", staging="async",
+                      pattern="independent")
+            explain = None
+        sync()
+    def less(a, b):  # the path's launches: all of them less the control's
+        return {k: n - b.get(k, 0) for k, n in a.items()}
+
+    ctl = control or {"launches": {}, "launches_by_call_shape": {},
+                      "launches_by_walk": {}}
+    walks = check_walks(f"mesh rank {rank}", shapes, w0, walk_counts())
+    rec = {
+        "rank": rank, "part": part, "backend": spec["backend"],
+        "card": torch.cuda.get_device_name(0) if cuda else None,
+        "seconds": time.perf_counter() - t_start, "runs": runs,
+        "exchange": exchange, "fills": fills,
+        "staged_bytes": sum(b for _, _, b in fills),
+        "stream_fills": stream_fills,
+        "stream_staged_bytes": {k: sum(b for _, _, b in v)
+                                for k, v in stream_fills.items()},
+        "launches": less({k.__name__: k.launches for k in kernels},
+                         ctl["launches"]),
+        "launches_by_call_shape": less({
+            f"{k} {c}": n for (k, c), n in sorted(shapes.items())},
+            ctl["launches_by_call_shape"]),
+        "launches_by_walk": {k: less(v, ctl["launches_by_walk"].get(k, {}))
+                             for k, v in walks.items()},
+        "control_launches": ctl["launches"],
+        "host_peak_rss_gb": rss.peak_gb,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9
+        if cuda else None,
+        "digests": {k: hashlib.sha256(np.ascontiguousarray(v).tobytes())
+                    .hexdigest() for k, v in sorted(arrays.items())},
+        "explain": explain,
+    }
+    if rank == 0:
+        np.savez(os.path.join(spec["out"], f"{part}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"{part}_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_mesh(part, data, model, backend, out, extra, log):
+    """Start one mesh's ranks (a ``file://`` rendezvous in ``out``) and
+    wait for them; returns their records and rank 0's arrays."""
+    world = data * model
+    base = dict(part=part, data=data, model=model, backend=backend,
+                out=out, init=f"file://{os.path.join(out, part + '_rdv')}",
+                **extra)
+    # the ranks share the host's cores: torch's CPU threads split them
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 1) // world)))
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+         json.dumps(dict(base, rank=r))], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, MESH_WAIT - (time.perf_counter() - t0))
+            logs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise SmokeFailure(f"mesh {part}: ranks outlived {MESH_WAIT} s")
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SmokeFailure(f"mesh {part}: rank {r} exited "
+                               f"{p.returncode}:\n{text[-6000:]}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out, f"{part}_{r}.json")) as f:
+            recs.append(json.load(f))
+    for r in recs[1:]:
+        need(r["digests"] == recs[0]["digests"],
+             f"mesh {part}: rank {r['rank']}'s results differ from rank "
+             f"0's (every rank returns the global result)")
+    log(f"phase mesh_{part}: " + json.dumps({
+        "wall_seconds": time.perf_counter() - t0,
+        **{k: [r[k] for r in recs] for k in (
+            "seconds", "runs", "staged_bytes", "stream_staged_bytes",
+            "host_peak_rss_gb", "peak_device_gb", "launches",
+            "control_launches")}}))
+    return recs, np_load(os.path.join(out, f"{part}.npz"))
+
+
+def np_load(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
+    """Phase 6d: multi-GPU placement on the one card, in rank processes
+    (:func:`mesh_worker`), against phases 5 and 5b, on phase 6's
+    deployment ``root`` of the same collection.
+
+    (a) NCCL at world size 1: a (1, 1) ``backend="nccl"`` mesh, SSSP
+    through ``GopherSession(store, mesh=...)`` (the planner's streamed
+    route) over all instances, bitwise phase 5's; (b) ``model = 2``
+    under gloo (NCCL refuses two ranks on one device), each rank on the
+    card with 4 of the 8 partitions: sequential SSSP in spmv and fused
+    mode and SSSP with phase 5b's 32 sources, bitwise phases 5 and 5b,
+    and independent PageRank within :func:`plus_mul_limit` of phase 5's,
+    under ``dense``, ``ring`` and ``ring-rs``, and SSSP streamed from
+    the store, bitwise; a rank whose combine drops its peer's partial
+    must fail phase 5's comparison (its launches are counted apart);
+    (c) ``data = 2`` under gloo: ``pagerank_temporal`` over all 48
+    instances (each rank 24), ranks and ``merged`` within
+    :func:`plus_mul_limit` of phase 5's PageRank and its mean, and
+    independent SSSP under the ring (its continuation synced over data)
+    and streamed from the store, bitwise phase 5's eventually run.
+    Every rank's results equal rank 0's (digests); each rank's dense
+    fills, in memory and streamed, are exactly its share of the batch
+    (its partitions, and its instances where the pass shards them); the
+    exchange's bytes per superstep are printed beside
+    ``boundary_exchange_bytes``'s.  Returns the phase's records
+    (launches summed over ranks)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.collectives import boundary_exchange_bytes
+
+    cuda = device == "cuda"  # a CPU rehearsal checks control flow only
+    on = {"cfg": cfg.name, "device": device}
+    mem = keep["in_memory"]
+    r_sp, p_sp = mem["sssp"]["spmv"], mem["pagerank"]["spmv"]
+    qref = keep["query"]["result"]
+    bg = keep["bg"]
+    I = mem["lat"].shape[0]
+    full_bytes = I * bg.n_parts * (bg.t_max + bg.tb_max) \
+        * bg.block_size ** 2 * 4
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="mesh_smoke_")
+    recs = {"cut": {}}
+
+    def same(got, want, what):
+        same_bits(torch.as_tensor(np.asarray(got)),
+                  torch.as_tensor(np.asarray(want)), what)
+
+    def close(got, want, what):
+        g = torch.as_tensor(np.asarray(got, np.float32))
+        w = torch.as_tensor(np.asarray(want, np.float32))
+        used = float(((g - w).abs() / plus_mul_limit(w)).max())
+        need(used <= 1.0, f"{what}: {used:.3g}x plus_mul_limit")
+        return used
+
+    def shard_fills(ranks, name, instances, parts):
+        """Each rank's streamed fills of run ``name``: its ``parts``
+        partitions in every chunk, ``instances`` in all, and exactly that
+        share of the batch's bytes."""
+        for r in ranks:
+            f = r["stream_fills"][name]
+            need(f and {p for _, p, _ in f} == {parts}
+                 # a local and a boundary fill a chunk
+                 and sum(i for i, _, _ in f) == 2 * instances
+                 and sum(b for _, _, b in f) * I * bg.n_parts
+                 == full_bytes * instances * parts,
+                 f"mesh {name}: rank {r['rank']} filled {f}, not "
+                 f"{instances} instances of {parts} partitions")
+
+    def same_run(a, name, want, n=None, lanes=False):
+        sl = slice(None) if n is None else slice(0, n)
+        same(a[f"{name}/values"], want.values[..., sl, :],
+             f"mesh {name}: values")
+        last = want.values[..., (n or want.values.shape[-2]) - 1, :]
+        same(a[f"{name}/final"], last, f"mesh {name}: final")
+        for k in ("supersteps", "local_sweeps"):
+            same(a[f"{name}/{k}"], np.asarray(want.stats[k])[..., sl],
+                 f"mesh {name}: {k}")
+
+    try:
+        # (a) NCCL at world size 1, from the store
+        on["store"] = root
+        nccl, a = _spawn_mesh("nccl", 1, 1, "nccl" if cuda else "gloo",
+                              out, on, log)
+        same_run(a, "sssp", r_sp)
+        shard_fills(nccl, "sssp", I, bg.n_parts)
+        log("mesh nccl plan:\n" + nccl[0]["explain"])
+        need("placement = mesh{'data': 1, 'model': 1}" in nccl[0]["explain"],
+             "mesh nccl: the plan's placement is not the (1, 1) mesh")
+        need("staging   = async" in nccl[0]["explain"],
+             "mesh nccl: the plan does not stream from the store")
+        need(nccl[0]["exchange"]["sssp"]["ops"] > 0,
+             "mesh nccl: no collective ran")
+
+        # (b) partitions over model = 2
+        srcs = keep["query"]["sources"]
+        model, b = _spawn_mesh("model", 1, 2, "gloo", out,
+                               dict(on, sources=srcs), log)
+        same_run(b, "store_sssp", r_sp)
+        shard_fills(model, "store_sssp", I, bg.n_parts // 2)
+        per_superstep = {}
+        for c in MESH_COMMS:
+            for m in ("spmv", "fused"):
+                same_run(b, f"sssp/{c}/{m}", r_sp)
+            same_run(b, f"query/{c}", qref)
+            close(b[f"pagerank/{c}/values"], p_sp.values,
+                  f"mesh pagerank/{c}")
+            ex = model[0]["exchange"][f"sssp/{c}/spmv"]
+            per_superstep[c] = {
+                "measured_bytes_sent": ex["combine_bytes_sent"]
+                / max(1, ex["combines"]),
+                "boundary_exchange_bytes": boundary_exchange_bytes(
+                    bg.num_boundary, 2, c)["bytes_per_device"],
+                "combines": ex["combines"], "ops": ex["ops"],
+                "host_staged_bytes": ex["host_staged_bytes"]}
+        try:
+            same_run(b, "control", r_sp)
+            control_failed = False
+        except SmokeFailure:
+            control_failed = True
+        need(control_failed, "mesh control: a combine that drops the "
+                             "peer's partial passed phase 5's comparison")
+        log(f"mesh exchange per superstep (sssp, per rank): "
+            f"{json.dumps(per_superstep)}")
+        log(f"mesh staged bytes per rank and batch: "
+            f"{[r['staged_bytes'] // 2 for r in model]} of "
+            f"{full_bytes} (model = 2)")
+        for r in model:
+            sizes = {(i, p) for i, p, _ in r["fills"]}
+            need(sizes == {(I, bg.n_parts // 2)},
+                 f"mesh model rank {r['rank']} filled {sizes}")
+            need(r["staged_bytes"] == full_bytes,  # two batches of half
+                 f"mesh model rank {r['rank']} staged {r['staged_bytes']} "
+                 f"bytes, two half batches are {full_bytes}")
+
+        # (c) instances over data = 2
+        data, c_ = _spawn_mesh("data", 2, 1, "gloo", out, on, log)
+        used = close(c_["temporal/values"], p_sp.values,
+                     "mesh pagerank_temporal: ranks")
+        used_m = close(c_["temporal/merged"], p_sp.values.mean(0),
+                       "mesh pagerank_temporal: merged")
+        same_run(c_, "sssp_independent_ring", mem["sssp_eventually"])
+        same_run(c_, "store_sssp_independent", mem["sssp_eventually"])
+        shard_fills(data, "store_sssp_independent", I // 2, bg.n_parts)
+        for r in data:
+            sizes = {(i, p) for i, p, _ in r["fills"]}
+            need(sizes == {(I // 2, bg.n_parts)},
+                 f"mesh data rank {r['rank']} filled {sizes}")
+            need(r["staged_bytes"] == full_bytes,
+                 f"mesh data rank {r['rank']} staged {r['staged_bytes']}")
+        log(f"mesh staged bytes per rank and batch: "
+            f"{[r['staged_bytes'] // 2 for r in data]} of "
+            f"{full_bytes} (data = 2)")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ranks = nccl + model + data
+    control_launches = {k: sum(r["control_launches"].get(k, 0)
+                               for r in ranks) for k in model[0]["launches"]}
+    launches, by_shape = {}, {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        for c, n in r["launches_by_call_shape"].items():
+            by_shape[c] = by_shape.get(c, 0) + n
+    for k, v in launches.items():
+        need(sum(n for c, n in by_shape.items() if c.startswith(k + " "))
+             == v, f"{k}: mesh launches by call shape do not sum to {v}")
+        need(v > 0 or not cuda, f"{k} was not launched on the mesh path")
+    recs.update(
+        launches=launches, launches_by_call_shape=by_shape,
+        launches_by_walk=[r["launches_by_walk"] for r in ranks],
+        staged_bytes={p: [r["staged_bytes"] for r in rs] for p, rs in (
+            ("nccl", nccl), ("model", model), ("data", data))},
+        staged_bytes_full_batch=full_bytes // 2,
+        exchange_per_superstep=per_superstep,
+        stream_staged_bytes={p: [r["stream_staged_bytes"] for r in rs]
+                             for p, rs in (("nccl", nccl), ("model", model),
+                                           ("data", data))},
+        pagerank_temporal_limit_used=[used, used_m],
+        control_failed=control_failed, control_launches=control_launches,
+        card=card)
+    log(f"mesh path cuts: {json.dumps(recs['cut'])} ({cfg.name}: {I} "
+        f"instances; every part runs all of them)")
+    log(f"mesh path launches: {json.dumps(launches)} (the control's, "
+        f"not among them: {json.dumps(control_launches)})")
+    log(f"mesh path launches by call shape: {json.dumps(by_shape)}")
+    return recs
+
+
+def examples_phase(device="cuda", log=print):
+    """The four examples' ``main(device=...)`` in this process, at their
+    own sizes, asserts live; each one's seconds and the kernels' launches
+    (graph kernels by call shape, attention by route)."""
+    from repro_torch.examples import (quickstart, serve_lm, temporal_sssp,
+                                      vehicle_tracking)
+    from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
+    from repro_torch.kernels.semiring_superstep.kernel import \
+        fused_step_cuda
+
+    graph = (spmv_blocked_cuda, fused_step_cuda)
+    recs = {}
+    for mod in (quickstart, temporal_sssp, vehicle_tracking, serve_lm):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        for k in graph:
+            k.launches = 0
+        reset_attn_launches()
+        t0 = time.perf_counter()
+        with call_shapes() as shapes:
+            mod.main(device=device)
+        flash, decode = attn_counters()
+        recs[name] = {
+            "seconds": time.perf_counter() - t0,
+            "launches": {k.__name__: k.launches for k in graph + (
+                flash, decode)},
+            "attention_routes": {k.__name__: dict(k.launches_by_route)
+                                 for k in (flash, decode)},
+            "launches_by_call_shape": {f"{k} {c}": n for (k, c), n in
+                                       sorted(shapes.items())}}
+        log(f"phase examples_{name}: {json.dumps(recs[name])}")
+    for name, k in (("quickstart", "spmv_blocked_cuda"),
+                    ("serve_lm", "flash_attention_cuda"),
+                    ("serve_lm", "decode_attention_cuda")):
+        need(recs[name]["launches"][k] > 0 or device != "cuda",
+             f"examples: {name} did not launch {k}")
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the graph path from a GoFS deployment
 # ---------------------------------------------------------------------------
 
@@ -890,9 +1464,14 @@ def check_upload(what, t, dtype):
 # instances).  The smoke's first cut against its time limit: over all 48
 # the host run took 69-100 s of a 1,013 s smoke
 HOST_IBSP_PACKS = 1
+# time packs of phase 6's sparse loads (delta chain and full slices, each
+# pack reading the chain's whole payload pool): TR_SMALL's first 20 of 48
+# instances, a depth cut taken when over all 3 packs they took 137 s of a
+# 1,113 s smoke on one H100
+SPARSE_LOAD_PACKS = 1
 
 
-def gofs_path(cfg, keep, device="cuda", log=print):
+def gofs_path(cfg, keep, device="cuda", log=print, card=None):
     """Drive the graph path from a GoFS deployment of the collection the
     in-memory path ran (``keep["in_memory"]``), and hold every result
     against that path's.  Returns the phase's records."""
@@ -1048,7 +1627,11 @@ def gofs_path(cfg, keep, device="cuda", log=print):
                    delta_seconds=0.0, full_seconds=0.0, sssp_seconds=0.0,
                    active_tiles=0, template_tiles=0)
         x0, values, counts = None, [], []
-        for k in range(-(-I // ipack)):
+        n_packs = min(-(-I // ipack), SPARSE_LOAD_PACKS)
+        n_sp = min(I, n_packs * ipack)
+        if n_sp < I:
+            recs["cut"]["sparse_load_instances"] = n_sp
+        for k in range(n_packs):
             lo, hi = k * ipack, min((k + 1) * ipack, I)
             window = (float(ts[lo]), float(ts[hi - 1]) + 1.0)
             t0 = time.perf_counter()
@@ -1098,18 +1681,18 @@ def gofs_path(cfg, keep, device="cuda", log=print):
             tot["template_tiles"] += (hi - lo) * (sp_d.total_tiles
                                                   + sp_d.total_btiles)
             del sp_d, sp_f
-        need(np.array_equal(np.concatenate(values), dense_store_run.values,
-                            equal_nan=True),
+        need(np.array_equal(np.concatenate(values),
+                            dense_store_run.values[:n_sp], equal_nan=True),
              "sssp from the delta batches differs from the dense store run")
         for j, k in enumerate(("supersteps", "local_sweeps")):
             need(np.array_equal(np.concatenate([c[j] for c in counts]),
-                                dense_store_run.stats[k]),
+                                dense_store_run.stats[k][:n_sp]),
                  f"sssp from the delta batches: {k} differ from the dense "
                  f"store run")
         del eng_sp
         if device == "cuda":
             torch.cuda.empty_cache()
-        report("sparse_load", packs=-(-I // ipack), **tot,
+        report("sparse_load", packs=n_packs, instances=n_sp, **tot,
                occupancy=tot["active_tiles"] / max(1, tot["template_tiles"]),
                source_over_staged=tot["source_bytes"] / tot["staged_bytes"])
 
@@ -1152,6 +1735,12 @@ def gofs_path(cfg, keep, device="cuda", log=print):
         # 6c. the cluster runtime on the same deployment
         recs["cluster"] = cluster_phase(root, cfg, keep["session_held"],
                                         device=device, log=log)
+
+        # 6d. the mesh on the same deployment, in rank processes
+        t0 = time.perf_counter()
+        recs["mesh"] = mesh_phase(cfg, keep, card, root, device=device,
+                                  log=log)
+        log(f"phase mesh: {json.dumps({'seconds': time.perf_counter() - t0, 'card': card})}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return recs
@@ -1688,6 +2277,10 @@ def cluster_phase(root, cfg, held, device="cuda", log=print):
 # the second rewrites that partial pack (TR_SMALL: 40 deployed, then 4
 # and 4, at 20 instances a pack)
 STREAM_APPEND = 4
+# instances phase 6b deploys first: the first time pack (a depth cut of
+# the growing collection, 20 + 4 + 4 of TR_SMALL's 48, listed on the
+# ``stream path cuts`` line; it deployed 40 before the cut)
+STREAM_FIRST = 20
 # the longest the stream phase waits on the service (every wait has one)
 STREAM_WAIT = 900.0
 
@@ -1764,12 +2357,13 @@ def stream_phase(cfg, keep, card, device="cuda", log=print):
     bg, col = keep["bg"], keep["in_memory"]["col"]
     srcs, qref = keep["query"]["sources"], keep["query"]["result"]
     held = keep["session_held"]
-    I, a = len(col), STREAM_APPEND
-    n0 = I - 2 * a
+    a, n0 = STREAM_APPEND, min(STREAM_FIRST, len(col) - 2 * STREAM_APPEND)
+    I = n0 + 2 * a  # the grown collection: the first I of TR_SMALL's
     Q = len(srcs)
     B = bg.block_size
     per_instance = bg.n_parts * (bg.t_max + bg.tb_max) * B * B * 4
-    recs = {"card": card, "cut": {}}  # nothing of the configuration is cut
+    recs = {"card": card, "cut": {"first_deployment_instances": n0,
+                                  "grown_instances": I}}
 
     def sync():
         if cuda:
@@ -1929,10 +2523,11 @@ def stream_phase(cfg, keep, card, device="cuda", log=print):
         for q in range(Q):
             same_lane(eng_a, q, qref, I, f"stream after the appends, "
                                          f"lane {q} (source {srcs[q]})")
-            same(after_res[q].output["final"], qref.final[q],
+            same(after_res[q].output["final"], qref.values[q][I - 1],
                  f"stream: ticket {q}'s final after the appends")
         for q in range(4):
-            same(after_res[Q + q].output["histograms"], held["nhop_q4"][q],
+            same(after_res[Q + q].output["histograms"],
+                 held["nhop_q4"][q][:I],
                  f"stream: N-hop lane {q} against phase 6's session")
         modes = [(u.mode, u.new_instances) for u in updates]
         need(modes == [("full", n0), ("incremental", a),
@@ -1943,8 +2538,17 @@ def stream_phase(cfg, keep, card, device="cuda", log=print):
         for i, (u, fu) in enumerate(zip(updates, f_updates)):
             same_run(fu.result.engine, u.result.engine,
                      f"stream: fused tail update {i}")
-        same_run(updates[-1].result.engine, held["sssp"],
-                 "stream: the last update against phase 6's cold session")
+        last, cold = updates[-1].result.engine, held["sssp"]
+        same(last.values, cold.values[:I],
+             "stream: the last update's values against phase 6's cold "
+             "session")
+        same(last.final, cold.values[I - 1],
+             "stream: the last update's final against phase 6's cold "
+             "session")
+        for k in ("supersteps", "local_sweeps"):
+            same(last.stats[k], cold.stats[k][:I],
+                 f"stream: the last update's {k} against phase 6's cold "
+                 f"session")
         report("checks", lanes=Q, nhop_lanes=4,
                updates=[dict(mode=m, new_instances=n) for m, n in modes],
                tail_seconds=[s for s, _ in tails.calls],
@@ -3344,19 +3948,31 @@ def main() -> int:
                  if kk == k and c.endswith(f" Q={QUERY_LANES}")),
              f"{k} was not launched in its Q-lane form on the query path")
 
+    # 5d. the four examples at their own sizes, asserts live
+    t0 = time.perf_counter()
+    examples = examples_phase("cuda")
+    print(f"phase examples: {json.dumps({'seconds': time.perf_counter() - t0})}")
+
     # 6. the graph path from a GoFS deployment, launches counted
     for k in (spmv_blocked_cuda, fused_step_cuda):
         k.launches = 0
     t0 = time.perf_counter()
     w0 = walk_counts()
     with call_shapes() as gofs_shapes:
-        gofs = gofs_path(TR_SMALL, keep, "cuda")
+        gofs = gofs_path(TR_SMALL, keep, "cuda", card=card)
     gofs_launches = {"spmv_blocked_cuda": spmv_blocked_cuda.launches,
                      "fused_step_cuda": fused_step_cuda.launches}
     walks["gofs"] = check_walks("gofs path", gofs_shapes, w0, walk_counts())
     print(f"gofs path launches by walk: {json.dumps(walks['gofs'])}")
     print(f"phase gofs_path: {json.dumps({'seconds': time.perf_counter() - t0})}")
     print(f"gofs path launches: {json.dumps(gofs_launches)}")
+    # 6d's launches are counted in its rank processes (their counts start
+    # at 0 with the process), apart from this process's
+    mesh = gofs["mesh"]
+    walks["mesh"] = {k: {w: sum(r[k][w] for r in mesh["launches_by_walk"])
+                         for w in mesh["launches_by_walk"][0][k]}
+                     for k in mesh["launches_by_walk"][0]}
+    print(f"mesh path launches by walk: {json.dumps(walks['mesh'])}")
     print("gofs path launches by call shape: " + json.dumps(
         {f"{k} {c}": n for (k, c), n in sorted(gofs_shapes.items())}))
     print(f"gofs path cuts: {json.dumps(gofs['cut'])} (TR_SMALL: "
@@ -3383,8 +3999,8 @@ def main() -> int:
     print("stream path launches by call shape: " + json.dumps(
         {f"{k} {c}": n for (k, c), n in sorted(stream_shapes.items())}))
     print(f"stream path cuts: {json.dumps(stream['cut'])} (TR_SMALL: "
-          f"{TR_SMALL.num_instances} instances, the last "
-          f"{2 * STREAM_APPEND} appended)")
+          f"{TR_SMALL.num_instances} instances; the grown collection's "
+          f"last {2 * STREAM_APPEND} appended)")
     for k, v in stream_launches.items():
         need(sum(n for (kk, _), n in stream_shapes.items() if kk == k) == v,
              f"{k}: stream-path launches by call shape do not sum to {v}")
@@ -3429,6 +4045,11 @@ def main() -> int:
             c[len(k) + 1:]: n for c, n in
             sorted(gofs["cluster"]["launches_by_call_shape"].items())
             if c.startswith(k + " ")}
+        rec["mesh_launches"] = mesh["launches"][k]
+        rec["mesh_launches_by_call_shape"] = {
+            c[len(k) + 1:]: n for c, n in
+            sorted(mesh["launches_by_call_shape"].items())
+            if c.startswith(k + " ")}
         rec["stream_launches"] = stream_launches[k]
         rec["stream_launches_by_call_shape"] = {
             c: n for (kk, c), n in sorted(stream_shapes.items()) if kk == k}
@@ -3448,6 +4069,11 @@ def main() -> int:
     lm.clear()
     torch.cuda.empty_cache()
     report += attention_report(shapes, launches, routes, card, rate)
+    for rec in report:  # the examples phase's launches of each kernel
+        rec.setdefault("mesh_launches", 0)  # attention: not on the mesh
+        rec["examples_launches"] = {
+            name: e["launches"].get(rec["name"], 0)
+            for name, e in examples.items()}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": report}))
     print(card)
@@ -3459,4 +4085,12 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cluster-worker"]:
         sys.exit(cluster_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        code = mesh_worker(json.loads(sys.argv[2]))
+        # the process group's C++ threads can abort the interpreter's own
+        # teardown ("terminate called without an active exception"): the
+        # rank's record is written, so leave without it
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
     sys.exit(main())

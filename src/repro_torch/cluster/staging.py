@@ -28,12 +28,11 @@ stages exactly that range:
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.cluster.runtime import ClusterRuntime
-from repro_torch.core.blocked import pow2_bucket
 from repro_torch.gofs.prefetch import SlicePrefetcher, StagedChunk
 
 
@@ -66,6 +65,16 @@ class ShardStream:
 
     def bind(self, *args, **kw) -> None:
         self.prefetcher.bind(*args, **kw)
+
+    @property
+    def num_instances(self) -> int:
+        return self.prefetcher.num_instances
+
+    def shard_instances(self, lo: int, hi: int) -> "ShardStream":
+        """The stream over instances ``[lo, hi)`` only (a mesh data
+        rank's share; :meth:`SlicePrefetcher.shard_instances`)."""
+        return ShardStream(self.prefetcher.shard_instances(lo, hi),
+                           self.runtime)
 
     def __iter__(self) -> Iterator[StagedChunk]:
         it = iter(self.prefetcher)
@@ -101,6 +110,7 @@ def shard_stream(
     name: str,
     runtime: Optional[ClusterRuntime],
     *,
+    parts: Optional[Tuple[int, int]] = None,
     zero: float = np.inf,
     prefetch_depth: int = 2,
     chunk_instances: Optional[int] = None,
@@ -113,11 +123,13 @@ def shard_stream(
 
     The shard-local counterpart of ``GoFSStore.load_blocked_stream``:
     chunks carry a ``(count, P_local, ...)`` partition axis covering
-    ``runtime.partition_shard(bg.n_parts)``, reads touch only the owned
-    partitions' slice files (plus the peers' cut-edge halo), and chunk
-    boundaries are consistency-checked across processes.  With a
-    single-process runtime (or ``runtime=None``) the shard is the full
-    partition range and no exchange happens.
+    ``parts`` (default ``runtime.partition_shard(bg.n_parts)``; a mesh
+    rank passes its model shard), reads touch only the owned partitions'
+    slice files (plus the peers' cut-edge halo), and chunk boundaries
+    are consistency-checked across processes.  With a single-process
+    runtime (or ``runtime=None``) and no ``parts`` the shard is the full
+    partition range and no exchange happens.  ``shard_instances(lo, hi)``
+    narrows the stream to a mesh data rank's instances.
 
     Delta tile chains and deployment-recorded buckets describe the FULL
     collection, so the shard path always stages from the value slices;
@@ -125,57 +137,30 @@ def shard_stream(
     """
     assert layout in ("dense", "sparse"), layout
     rt = runtime if runtime is not None else ClusterRuntime(0, 1)
-    lo, hi = rt.partition_shard(bg.n_parts)
-    parts = (lo, hi)
+    lo, hi = parts if parts is not None else rt.partition_shard(bg.n_parts)
     owned = range(lo, hi)
-    chunk = int(chunk_instances or store.ipack)
 
-    def stage_shard_chunk(s: int, e: int, alloc) -> StagedChunk:
-        n = e - s
+    def read(s: int, e: int) -> np.ndarray:
         if transform is None:
             # halo=True: the owned partitions' BOUNDARY tiles scatter cut
             # edges *incoming* from peer shards, recorded in the peers'
             # remote slices — read just that sliver on top of the owned
             # bulk
-            w = store.edge_attr_rows(name, range(s, e), parts=owned,
-                                     fill=zero, halo=True)
-        else:
-            # weights transforms may be structural over the WHOLE row
-            # (PageRank normalizes each edge by its source's global
-            # outdegree) — a shard-read row would feed them fill values.
-            # Read full rows for the transform; the fills below still
-            # scatter only the owned partitions' tile slots, so the
-            # materialized per-host bytes stay shard-local.
-            w = store.edge_attr_rows(name, range(s, e))
-            w = np.asarray(transform(w), np.float32)
-            assert w.shape[0] == n, (w.shape, n)
-        if layout == "sparse":
-            act_l, act_b = bg.active_tile_maps(w, zero=zero, parts=parts)
-            buck = pow2_bucket(int(act_l.sum(-1).max()) if act_l.size else 0)
-            bbuck = pow2_bucket(int(act_b.sum(-1).max()) if act_b.size
-                                else 0)
-            out_l, out_b = alloc(n, buck, bbuck, parts=parts)
-            tiles, rows, cols, nnz = bg.fill_local_batch_sparse(
-                w, zero=zero, bucket=buck, out=out_l, act=act_l,
-                parts=parts)
-            btiles, brows, bcols, bnnz = bg.fill_boundary_batch_sparse(
-                w, zero=zero, bucket=bbuck, out=out_b, act=act_b,
-                parts=parts)
-            return StagedChunk(
-                start=s, count=n, tiles=tiles, btiles=btiles,
-                rows=rows, cols=cols, brows=brows, bcols=bcols,
-                nnz=nnz, bnnz=bnnz,
-            )
-        lt_buf, bt_buf = alloc(n, parts=parts)
-        tiles = bg.fill_local_batch(w, zero=zero, out=lt_buf, parts=parts)
-        btiles = bg.fill_boundary_batch(w, zero=zero, out=bt_buf,
-                                        parts=parts)
-        return StagedChunk(start=s, count=n, tiles=tiles, btiles=btiles)
+            return store.edge_attr_rows(name, range(s, e), parts=owned,
+                                        fill=zero, halo=True)
+        # weights transforms may be structural over the WHOLE row
+        # (PageRank normalizes each edge by its source's global
+        # outdegree) — a shard-read row would feed them fill values.
+        # Read full rows for the transform; the fills still scatter only
+        # the owned partitions' tile slots, so the materialized per-host
+        # bytes stay shard-local.
+        return store.edge_attr_rows(name, range(s, e))
 
     pf = SlicePrefetcher(
-        bg, None, store.num_timesteps(), zero=zero,
-        prefetch_depth=prefetch_depth, chunk_instances=chunk,
+        bg, read, store.num_timesteps(), zero=zero,
+        prefetch_depth=prefetch_depth,
+        chunk_instances=int(chunk_instances or store.ipack),
         num_workers=num_workers, inflight=inflight, layout=layout,
-        stage_fn=stage_shard_chunk,
+        transform=transform, parts=(lo, hi),
     )
     return ShardStream(pf, rt)

@@ -67,13 +67,13 @@ def _components_program(ctx, *, max_supersteps):
     )
 
 
-def _session_labels(bg, src, dst, instance_active, use_pallas, comm,
+def _session_labels(bg, src, dst, instance_active, mesh, use_pallas, comm,
                     device):
     from repro_torch.gopher import GopherSession
 
     sess = GopherSession.from_blocked(
         bg, weights={"active": instance_active}, src=src, dst=dst,
-        use_pallas=use_pallas, device=device,
+        mesh=mesh, use_pallas=use_pallas, device=device,
     )
     res = sess.run(sess.plan(
         "components", layout="dense", comm=comm, staging="sync",
@@ -87,6 +87,7 @@ def run_blocked_temporal(
     dst: np.ndarray,
     instance_active: np.ndarray,  # (I, E) 0/1 per instance
     *,
+    mesh=None,
     use_pallas=None,
     comm="dense",
     device="cuda",
@@ -100,8 +101,8 @@ def run_blocked_temporal(
         "gopher.GopherSession (session.run(session.plan('components')))",
         DeprecationWarning, stacklevel=2,
     )
-    return _session_labels(bg, src, dst, instance_active, use_pallas, comm,
-                           device)
+    return _session_labels(bg, src, dst, instance_active, mesh, use_pallas,
+                           comm, device)
 
 
 def run_blocked(
@@ -110,6 +111,7 @@ def run_blocked(
     dst: np.ndarray,
     active: np.ndarray,  # (E,) 0/1 — edges active in this instance
     *,
+    mesh=None,
     use_pallas=None,
     comm="dense",
     device="cuda",
@@ -123,7 +125,8 @@ def run_blocked(
         DeprecationWarning, stacklevel=2,
     )
     labels = _session_labels(
-        bg, src, dst, np.asarray(active)[None], use_pallas, comm, device,
+        bg, src, dst, np.asarray(active)[None], mesh, use_pallas, comm,
+        device,
     )
     return labels[0]
 

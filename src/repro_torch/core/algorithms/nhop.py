@@ -211,6 +211,7 @@ def run_blocked(
     n_hops: int = 6,
     *,
     bins: np.ndarray = DEFAULT_BINS,
+    mesh=None,
     use_pallas=None,
     comm="dense",
     device="cuda",
@@ -232,7 +233,7 @@ def run_blocked(
 
     sess = GopherSession.from_blocked(
         bg, weights={LATENCY_ATTR: instance_latency},
-        use_pallas=use_pallas, device=device,
+        mesh=mesh, use_pallas=use_pallas, device=device,
     )
     res = sess.run(sess.plan(
         "nhop", source=source_vertex, n_hops=n_hops, bins=bins,

@@ -170,6 +170,7 @@ def run_blocked(
     num_vertices: int,
     damping: float = 0.85,
     iters: int = 30,
+    mesh=None,
     use_pallas=None,
     comm="dense",
     device="cuda",
@@ -190,7 +191,7 @@ def run_blocked(
         "num_vertices must match the blocked template"
     sess = GopherSession.from_blocked(
         bg, weights={ACTIVE_ATTR: instance_active}, src=src,
-        use_pallas=use_pallas, device=device,
+        mesh=mesh, use_pallas=use_pallas, device=device,
     )
     res = sess.run(sess.plan(
         "pagerank", damping=damping, iters=iters,

@@ -179,6 +179,7 @@ def run_blocked(
     source_vertex: int,
     *,
     subgraph_centric: bool = True,
+    mesh=None,
     use_pallas=None,
     max_supersteps: int = 64,
     comm="dense",
@@ -200,7 +201,7 @@ def run_blocked(
 
     sess = GopherSession.from_blocked(
         bg, weights={WEIGHT_ATTR: instance_weights},
-        use_pallas=use_pallas, device=device,
+        mesh=mesh, use_pallas=use_pallas, device=device,
     )
     res = sess.run(sess.plan(
         "sssp", source=source_vertex, subgraph_centric=subgraph_centric,

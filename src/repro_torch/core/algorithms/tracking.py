@@ -177,6 +177,7 @@ def run_blocked(
     initial_vertex: int,
     *,
     search_depth: int = 4,
+    mesh=None,
     use_pallas=None,
     comm="dense",
     device="cuda",
@@ -195,7 +196,7 @@ def run_blocked(
 
     sess = GopherSession.from_blocked(
         bg, vertex_attrs={PLATE_ATTR: instance_plates},
-        use_pallas=use_pallas, device=device,
+        mesh=mesh, use_pallas=use_pallas, device=device,
     )
     res = sess.run(sess.plan(
         "tracking", plate=plate, initial_vertex=initial_vertex,

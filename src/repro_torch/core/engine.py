@@ -50,9 +50,22 @@ partition range — the tile index, staged tiles and states are sliced to
 it — the boundary exchange and the halt vote go through the
 inter-process :class:`repro_torch.cluster.gather.ClusterGather`, and
 results are re-assembled across processes in rank order before the
-vertex gather, bitwise equal to the single-process stacked run.  Not
-ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``mesh=``.
+vertex gather, bitwise equal to the single-process stacked run.
+
+Mesh placement (``mesh=``, a ``torch.distributed`` DeviceMesh; the
+reference's ``shard_map`` runner, paper §IV-B's two forms of parallelism
+at once): every rank of the mesh calls the same entry point on the same
+host inputs and gets the GLOBAL result back.  Partitions shard over
+``model_axes`` through the cluster shard's slicing (``parts``: tile
+index, staged tiles, states and walk plans); for the temporally
+concurrent patterns (``independent``/``eventually``) instances also
+shard over ``data_axis`` when their count divides by the data size and
+the run is not warm-started — each rank stages and runs only its
+instances of its partitions.  The boundary exchange and the halt votes
+go through the comm backend bound to the model group
+(``repro_torch.core.comm``), and the outputs are all-gathered.  Min-plus
+results are bitwise the stacked run's, counts included; plus-mul within
+the reassociation of the boundary sum.
 
 Stats are reported in the same :class:`repro_torch.core.ibsp.BSPStats`
 shape as the host engine, plus the device-to-host reads the halt votes
@@ -60,6 +73,7 @@ took (``stats["host_syncs"]``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import weakref
 from collections import OrderedDict
@@ -70,7 +84,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocked import BlockedGraph, SparseBlocked
-from repro_torch.core.comm import CommBackend, make_comm
+from repro_torch.core.comm import (CommBackend, all_gather, all_reduce,
+                                   axis_group, make_comm, mesh_dims)
 from repro_torch.core.ibsp import BSPStats
 from repro_torch.core.semiring import INF, MIN_PLUS, PLUS_MUL, Semiring
 from repro_torch.core.superstep import (
@@ -96,9 +111,16 @@ def _device_put(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+def mesh_partition_shard(mesh, model_axes: Tuple[str, ...],
+                         n_parts: int) -> Tuple[int, int]:
+    """This rank's contiguous partition range on ``mesh``: P / |model|
+    partitions a model rank, in rank order (P must divide)."""
+    g = axis_group(mesh, model_axes)
+    if n_parts % g.size:
+        raise ValueError(f"{n_parts} partitions do not shard evenly over "
+                         f"the model size {g.size}")
+    n = n_parts // g.size
+    return g.rank * n, (g.rank + 1) * n
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +358,15 @@ class TemporalEngine:
     module docstring) takes ``"dense"``, ``"host"`` or ``"cluster"`` and
     exchanges through ``ClusterGather`` whatever it is given.
 
+    **Mesh** (``mesh=``, ``data_axis=``, ``model_axes=``; module
+    docstring): every rank calls with the same inputs and gets the global
+    result.  A pass shards its instances over ``data_axis`` when every
+    spec of it may (temporally concurrent, cold, I divisible by the data
+    size, which is above 1), else each data group runs them all; a
+    stream passed in by the caller runs replicated.  P must divide by the
+    model size.  The async prefetcher fills only the rank's partitions
+    and instances, its chunk rounded up to a multiple of the data size.
+
     **Layout**: ``"dense"`` stages (I, P, T, B, B) tiles; ``"sparse"``
     packs each instance's active tiles (``result.occupancy`` reports the
     measured active fraction).  Pre-staged ``tiles=``/``btiles=`` or
@@ -394,6 +425,8 @@ class TemporalEngine:
         *,
         device="cuda",
         mesh=None,
+        data_axis: Union[str, Tuple[str, ...]] = "data",
+        model_axes: Tuple[str, ...] = ("model",),
         use_pallas=None,
         staging: str = "sync",
         prefetch_depth: int = 2,
@@ -402,18 +435,23 @@ class TemporalEngine:
         layout: str = "dense",
         cluster=None,
     ):
-        if mesh is not None:
-            raise _not_ported("mesh placement", "6")
         assert staging in ("sync", "async"), staging
         assert layout in ("dense", "sparse"), layout
         self.bg = bg
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axes = tuple(model_axes)
         # ``cluster``: a repro_torch.cluster.runtime.ClusterRuntime.  When
         # it is distributed, this engine is ONE SHARD of the run (module
         # docstring); a single-process runtime (or None) changes nothing.
         self.cluster = cluster if (cluster is not None
                                    and cluster.is_distributed) else None
         self.parts: Optional[Tuple[int, int]] = None
+        self._model = self._data = None  # the mesh's process groups
         if self.cluster is not None:
+            assert mesh is None, \
+                "cluster placement is stacked per process (mesh-free); " \
+                "per-process meshes are a future composition"
             from repro_torch.cluster.gather import ClusterGather
 
             self.parts = self.cluster.partition_shard(bg.n_parts)
@@ -422,13 +460,27 @@ class TemporalEngine:
                     f"cluster runs exchange through ClusterGather; " \
                     f"comm={comm!r} has no inter-process form"
                 comm = ClusterGather(runtime=self.cluster)
+        elif mesh is not None:
+            dims = mesh_dims(mesh)
+            daxes = (data_axis,) if isinstance(data_axis, str) \
+                else tuple(data_axis)
+            if not set(daxes + self.model_axes) <= set(dims):
+                raise ValueError(
+                    f"data_axis {data_axis!r} and model_axes "
+                    f"{self.model_axes!r} must be dims of the mesh "
+                    f"{tuple(dims)!r}")
+            self._daxes = daxes
+            self._model = axis_group(mesh, self.model_axes)
+            self._data = axis_group(mesh, daxes)
+            self.parts = mesh_partition_shard(mesh, self.model_axes,
+                                              bg.n_parts)
         self.device = resolve_device(device)
         self.kernel_mode = kernel_mode(use_pallas, self.device)
         self.staging = staging
         self.prefetch_depth = prefetch_depth
         self.chunk_instances = chunk_instances
         self.layout = layout
-        self.comm = make_comm(comm)
+        self.comm = make_comm(comm, mesh=mesh, model_axes=self.model_axes)
         self._copy_stream = None  # side stream of streamed uploads (CUDA)
         self.last_stream_report: Optional[Dict[str, Any]] = None
         out_mask = np.arange(bg.o_max)[None, :] < bg.n_out[:, None]
@@ -493,15 +545,24 @@ class TemporalEngine:
         idx[axis] = slice(lo, hi)
         return a[tuple(idx)]
 
-    def _occupancy(self, nnz, bnnz, n_instances: int) -> float:
+    def _occupancy(self, nnz, bnnz, n_instances: int,
+                   sharded: bool = False) -> float:
         """Active-tile fraction of ``n_instances`` packed instances over
         this engine's partitions' template tiles (the shard's on a
-        cluster; a full-width index is cut to it)."""
+        cluster; a full-width index is cut to it).  On a mesh, the
+        counts are summed over the model group (and over data when the
+        instances are ``sharded``): the whole batch's fraction."""
         lo, hi = (0, self.bg.n_parts) if self.parts is None else self.parts
         total = n_instances * int(self.bg.n_tiles[lo:hi].sum()
                                   + self.bg.n_btiles[lo:hi].sum())
         active = int(self._shard_axis(nnz).sum()
                      + self._shard_axis(bnnz).sum())
+        if self.mesh is not None:
+            t = torch.tensor([active, total], dtype=torch.int64)
+            t = all_reduce(t, self._model, "sum")
+            if sharded:
+                t = all_reduce(t, self._data, "sum")
+            active, total = (int(v) for v in t)
         return active / total if total else 0.0
 
     # ------------------------------------------------------- instance step
@@ -518,11 +579,14 @@ class TemporalEngine:
             **(self._plans if plans is None else plans),
         )
 
-    def _run_instance(self, program: SemiringProgram, x, dg: DeviceGraph):
-        """One instance's BSP.  Returns (x, supersteps, sweeps, syncs)."""
+    def _run_instance(self, program: SemiringProgram, x, dg: DeviceGraph,
+                      comm: Optional[CommBackend] = None):
+        """One instance's BSP (through ``comm``, the engine's unless
+        given).  Returns (x, supersteps, sweeps, syncs)."""
+        comm = self.comm if comm is None else comm
         if program.kind == "fixpoint":
             x, st = bsp_fixpoint(
-                x, dg, program.semiring, comm=self.comm,
+                x, dg, program.semiring, comm=comm,
                 subgraph_centric=program.subgraph_centric,
                 max_supersteps=program.max_supersteps,
                 max_local_sweeps=program.max_local_sweeps,
@@ -531,15 +595,18 @@ class TemporalEngine:
             return (x, st["supersteps"], st["local_sweeps"],
                     st["host_syncs"])
         for _ in range(program.iters):
-            x = program.step(x, dg, self.comm, self.kernel_mode)
+            x = program.step(x, dg, comm, self.kernel_mode)
         return x, program.iters, 0, 0
 
     def _scan_instances(self, program: SemiringProgram, pattern: str,
                         merge: Optional[str], x0: torch.Tensor,
                         tiles: torch.Tensor, btiles: torch.Tensor,
-                        idx=None, plans=None, warm: bool = False):
+                        idx=None, plans=None, warm: bool = False,
+                        comm: Optional[CommBackend] = None):
         """Loop over the instance axis.  Returns (xs ([Q,] I, P, Vp),
-        final ([Q,] P, Vp), merged, stats).
+        final ([Q,] P, Vp), merged, stats).  ``comm``: the backend of the
+        pass (the engine's, or it bound to the data dims when a mesh pass
+        shards its instances).
 
         ``idx=None`` (dense): every instance walks the template tile index
         and its plans.  Sparse: ``idx`` is the per-instance (rows, cols,
@@ -562,7 +629,8 @@ class TemporalEngine:
                 k: v.select(i) for k, v in plans.items()}
             dg = self._device_graph(tiles[i], btiles[i], index, plans_i)
             seed = carry if (pattern == "sequential" or warm) else x0
-            x, ss, lsw, syncs[i] = self._run_instance(program, seed, dg)
+            x, ss, lsw, syncs[i] = self._run_instance(program, seed, dg,
+                                                      comm)
             counts[0, ..., i], counts[1, ..., i] = ss, lsw
             xs[..., i, :, :] = x
             carry = x
@@ -575,10 +643,12 @@ class TemporalEngine:
         return xs, carry, merged, stats
 
     def _cached_device(self, host_arrays: Tuple[Any, ...],
-                       extra: Optional[Callable[[], Any]] = None
+                       extra: Optional[Callable[[], Any]] = None,
+                       rows: Optional[Tuple[int, int]] = None,
                        ) -> Tuple[Any, ...]:
         """Device tensors for one staged batch, uploaded once per identity,
         followed by ``extra()`` (made once, with the upload) when given.
+        ``rows``: upload only that instance range (a mesh rank's share).
 
         Keyed on the ``id`` of every host array (verified against weak
         references, so id reuse cannot alias) and LRU-bounded to
@@ -588,15 +658,15 @@ class TemporalEngine:
         for k in [k for k, (refs, _) in self._staged_device.items()
                   if any(r() is None for r in refs)]:
             del self._staged_device[k]
-        key = tuple(map(id, host_arrays))
+        key = tuple(map(id, host_arrays)) + (rows,)
         hit = self._staged_device.get(key)
         if hit is not None and all(r() is a for r, a in
                                    zip(hit[0], host_arrays)):
             self._staged_device.move_to_end(key)
             return hit[1]
         # a cluster shard uploads its own partitions of a full-width batch
-        dev = tuple(_device_put(np.ascontiguousarray(self._shard_axis(a)),
-                                self.device) for a in host_arrays)
+        dev = tuple(_device_put(np.ascontiguousarray(self._shard_axis(
+            self._rows(a, rows))), self.device) for a in host_arrays)
         if extra is not None:
             dev += (extra(),)
         self._staged_device[key] = (
@@ -723,61 +793,146 @@ class TemporalEngine:
             x0 = np.ascontiguousarray(self._shard_axis(x0, axis=-2))
             x0s.append(torch.as_tensor(x0, device=self.device))
 
-        if (stream is None and staging == "async" and tiles is None
-                and sparse is None):
-            assert instance_weights is not None, \
-                "need instance_weights or pre-staged tiles+btiles"
-            from repro_torch.gofs.prefetch import SlicePrefetcher
-
+        w = None
+        if instance_weights is not None:
             w = np.asarray(instance_weights, np.float32)
             if w.ndim == 1:
                 w = w[None]
+        # a mesh pass shards its instances over data (class docstring);
+        # a stream that can narrow to a range of its instances
+        # (``shard_instances``: SlicePrefetcher, shard_stream's) shards
+        # the same way; any other iterable of chunks runs whole on every
+        # data rank
+        if stream is not None:
+            n_inst = stream.num_instances \
+                if hasattr(stream, "shard_instances") else None
+        else:
+            n_inst = (sparse.num_instances if sparse is not None
+                      else int(tiles.shape[0]) if tiles is not None
+                      else int(w.shape[0]) if w is not None else None)
+        inst = self._instance_shard(specs, n_inst)
+        lo, hi = inst if inst is not None else (0, n_inst)
+
+        if (stream is None and staging == "async" and tiles is None
+                and sparse is None):
+            assert w is not None, \
+                "need instance_weights or pre-staged tiles+btiles"
             # <= ~4 chunks by default: enough overlap, few staged shapes
             chunk = self.chunk_instances or max(1, -(-w.shape[0] // 4))
+            if self.mesh is not None and self.chunk_instances is None:
+                # a multiple of the data size: each data rank streams its
+                # share of every chunk's worth of instances
+                d = self._data.size
+                chunk = max(1, -(-chunk // d)) * d
+            if inst is not None:
+                chunk //= self._data.size
+            from repro_torch.gofs.prefetch import SlicePrefetcher
+
             stream = SlicePrefetcher.from_weights(
-                self.bg, w, zero=zero_fill,
+                self.bg, w[lo:hi], zero=zero_fill,
                 prefetch_depth=self.prefetch_depth, chunk_instances=chunk,
-                layout=layout,
-            )
+                layout=layout, parts=self.parts)
+        elif stream is not None and inst is not None:
+            stream = stream.shard_instances(*inst)
         if stream is not None:
-            outs, occ = self._run_stream_many(specs, stream, x0s)
+            outs, occ = self._run_stream_many(specs, stream, x0s,
+                                              sharded=inst is not None)
             return [self._wrap_result(s.pattern, out, occ,
-                                      warm=s.effective_warm(), x0=x0)
+                                      warm=s.effective_warm(), x0=x0,
+                                      data_merged=inst is not None)
                     for s, out, x0 in zip(specs, outs, x0s)]
 
         occ: Optional[float] = None
         if layout == "sparse":
             if sparse is None:
-                assert instance_weights is not None, \
+                assert w is not None, \
                     "need instance_weights or a SparseBlocked batch"
-                sparse = self.stage_sparse(instance_weights, zero_fill)
-            occ = self._occupancy(sparse.nnz, sparse.bnnz,
-                                  sparse.num_instances)
+                sparse = self.stage_sparse(w[lo:hi], zero_fill)
+                rows_of = None
+            else:
+                rows_of = inst
+            occ = self._occupancy(
+                self._rows(sparse.nnz, rows_of),
+                self._rows(sparse.bnnz, rows_of), hi - lo,
+                sharded=inst is not None)
             tiles, btiles, *idx, plans = self._cached_device(
                 (sparse.tiles, sparse.btiles, sparse.rows, sparse.cols,
-                 sparse.brows, sparse.bcols),
-                extra=lambda: self._sparse_plans(sparse))
+                 sparse.brows, sparse.bcols), rows=rows_of,
+                extra=lambda: self._sparse_plans(sparse, rows_of))
         else:
             idx = plans = None
             if tiles is None or btiles is None:
-                assert instance_weights is not None, \
+                assert w is not None, \
                     "need instance_weights, tiles+btiles, or sparse"
-                tiles, btiles = self.stage(instance_weights, zero_fill)
+                tiles, btiles = self.stage(w[lo:hi], zero_fill)
             elif not (isinstance(tiles, torch.Tensor)
                       and isinstance(btiles, torch.Tensor)):
                 # host-staged dense batch: upload once per identity
-                tiles, btiles = self._cached_device((tiles, btiles))
+                tiles, btiles = self._cached_device((tiles, btiles),
+                                                    rows=inst)
             else:
-                tiles = self._shard_axis(tiles).to(self.device)
-                btiles = self._shard_axis(btiles).to(self.device)
+                tiles = self._shard_axis(tiles[lo:hi]).to(self.device)
+                btiles = self._shard_axis(btiles[lo:hi]).to(self.device)
         return [
             self._wrap_result(
-                s.pattern, self._scan_instances(
-                    s.program, s.pattern, s.merge, x0, tiles, btiles,
-                    idx=idx, plans=plans, warm=s.effective_warm()),
-                occ, warm=s.effective_warm(), x0=x0)
+                s.pattern, self._finish_instances(
+                    s, self._scan_instances(
+                        s.program, s.pattern, s.merge, x0, tiles, btiles,
+                        idx=idx, plans=plans, warm=s.effective_warm(),
+                        comm=self._pass_comm(inst is not None)),
+                    inst is not None, x0),
+                occ, warm=s.effective_warm(), x0=x0,
+                data_merged=inst is not None)
             for s, x0 in zip(specs, x0s)
         ]
+
+    # ------------------------------------------------------------ the mesh
+    def _instance_shard(self, specs: Sequence[RunSpec],
+                        n: Optional[int]) -> Optional[Tuple[int, int]]:
+        """This data rank's instance range when a mesh pass of ``n``
+        instances shards them over data (every spec temporally
+        concurrent and cold, ``n`` a multiple of the data size, which is
+        above 1; reference ``core/engine.py:678-690``), else None."""
+        if self.mesh is None or n is None:
+            return None
+        d = self._data.size
+        if d == 1 or n % d or n < d:
+            return None
+        if not all(s.pattern in ("independent", "eventually")
+                   and not s.effective_warm() for s in specs):
+            return None
+        k = n // d
+        return self._data.rank * k, (self._data.rank + 1) * k
+
+    def _pass_comm(self, sharded: bool) -> CommBackend:
+        """The comm of a pass: bound to the data dims when its instances
+        shard over them (``CommBackend.bind_sync``; reference
+        ``core/engine.py:691-697``)."""
+        return self.comm.bind_sync(self._daxes) if sharded else self.comm
+
+    def _finish_instances(self, spec: RunSpec, out, sharded: bool, x0):
+        """A pass's outputs with its instances global: under instance
+        sharding, the states and counts all-gathered over data in rank
+        order, ``final`` the last instance's state (the stacked scan's
+        carry) and the Merge mean a SUM over data divided by the summed
+        instance count (reference ``core/engine.py:692-701``)."""
+        if not sharded:
+            return out
+        xs, _, _, stats = out
+        g, iax = self._data, x0.ndim - 2
+        merged = None
+        if spec.pattern == "eventually" and spec.merge == "mean":
+            total = all_reduce(torch.sum(xs, dim=iax), g, "sum")
+            count = all_reduce(torch.tensor(float(xs.shape[iax])), g, "sum")
+            merged = total / count.to(total.device)
+        xs = torch.cat(all_gather(xs, g), dim=iax)
+        stats = {k: torch.cat(all_gather(torch.from_numpy(np.ascontiguousarray(
+            v)), g), dim=-1).numpy() for k, v in stats.items()}
+        return xs, xs.select(iax, -1), merged, stats
+
+    @staticmethod
+    def _rows(a, rows: Optional[Tuple[int, int]]):
+        return a if rows is None else a[rows[0]:rows[1]]
 
     def _host_plans(self, batch) -> Dict[str, WalkPlan]:
         """A packed batch's (``SparseBlocked`` or sparse ``StagedChunk``)
@@ -788,10 +943,17 @@ class TemporalEngine:
                 "bplan": self.bg.packed_plans(sh(batch.bcols),
                                               sh(batch.bnnz))}
 
-    def _sparse_plans(self, sparse: SparseBlocked) -> Dict[str, Any]:
-        """The packed batch's walk plans (leading instance axis) on the
-        device, counters zeroed.  Built with the batch's upload, once per
-        staged batch, never per kernel call."""
+    def _sparse_plans(self, sparse: SparseBlocked,
+                      rows: Optional[Tuple[int, int]] = None
+                      ) -> Dict[str, Any]:
+        """The packed batch's walk plans (leading instance axis; ``rows``:
+        of that instance range) on the device, counters zeroed.  Built
+        with the batch's upload, once per staged batch, never per kernel
+        call."""
+        if rows is not None:
+            sparse = dataclasses.replace(sparse, **{
+                k: self._rows(getattr(sparse, k), rows)
+                for k in ("cols", "bcols", "nnz", "bnnz")})
         return {k: to_device(p, self.device)
                 for k, p in self._host_plans(sparse).items()}
 
@@ -852,7 +1014,8 @@ class TemporalEngine:
             t.record_stream(compute)
         return tuple(made[:len(arrays)]), plans
 
-    def _run_stream_many(self, specs: Sequence[RunSpec], chunks, x0s):
+    def _run_stream_many(self, specs: Sequence[RunSpec], chunks, x0s,
+                         sharded: bool = False):
         """Consume a chunk stream (SlicePrefetcher or any iterable of
         StagedChunk) ONCE, feeding every spec: each chunk is uploaded a
         single time, then run by all N specs before the next chunk is
@@ -863,10 +1026,14 @@ class TemporalEngine:
         states.  Under the query axis per-chunk outputs stack on the
         instance axis, after the leading Q.  Streamed chunks never enter
         the staged-batch cache.
+        ``sharded``: the chunks hold this mesh rank's instances only (the
+        comm bound to the data dims), and the outputs are gathered over
+        data at the end.
         Returns ([(xs, final, merged, stats)] per spec, occupancy | None).
         """
         from repro_torch.gofs.prefetch import pinned_ring
 
+        comm = self._pass_comm(sharded)
         cuda = self.device.type == "cuda"
         # a SlicePrefetcher (or a wrapper that forwards ``bind``) fills
         # pinned buffers on CUDA and builds walk plans on its pool thread
@@ -914,7 +1081,7 @@ class TemporalEngine:
                                         or warm_k) else x0s[k]
                     xs, fin, _, stats = self._scan_instances(
                         s.program, s.pattern, None, seed, bufs[0], bufs[1],
-                        idx=idx, plans=plans, warm=warm_k)
+                        idx=idx, plans=plans, warm=warm_k, comm=comm)
                     carry[k] = fin
                     xs_p[k].append(xs)
                     st_p[k].append(stats)
@@ -937,6 +1104,10 @@ class TemporalEngine:
             stats = {key: np.concatenate([st[key] for st in st_p[k]],
                                          axis=-1)
                      for key in st_p[k][0]}
+            if sharded:
+                outs.append(self._finish_instances(
+                    s, (xs, carry[k], None, stats), True, x0s[k]))
+                continue
             merged = torch.mean(xs, dim=iax) \
                 if s.pattern == "eventually" and s.merge == "mean" else None
             outs.append((xs, carry[k], merged, stats))
@@ -944,7 +1115,7 @@ class TemporalEngine:
         if nnz_seen:
             occ = self._occupancy(np.concatenate([a for a, _ in nnz_seen]),
                                   np.concatenate([b for _, b in nnz_seen]),
-                                  n_total)
+                                  n_total, sharded=sharded)
         if cuda:
             marks[-1][1].synchronize()  # the compute stream's last chunk
             compute_s = sum(a.elapsed_time(b) for a, b in marks) / 1e3
@@ -961,19 +1132,25 @@ class TemporalEngine:
 
     def _wrap_result(self, pattern: str, out, occ: Optional[float],
                      warm: bool = False,
-                     x0: Optional[torch.Tensor] = None) -> EngineResult:
+                     x0: Optional[torch.Tensor] = None,
+                     data_merged: bool = False) -> EngineResult:
         """Gather device outputs back to global vertex order + stats; a
-        rank-3 ``x0`` sets ``n_sources``.  A cluster shard first
-        re-assembles the global partition axis in rank order (contiguous
-        shards: plain concatenation rebuilds the stacked layout).  Its
-        superstep counts equal every other process's (the global halt
-        vote keeps the loops in lockstep), so stats stay local."""
+        rank-3 ``x0`` sets ``n_sources``.  A cluster shard or a mesh rank
+        first re-assembles the global partition axis in rank order
+        (contiguous shards: plain concatenation rebuilds the stacked
+        layout; a mesh all-gathers over its model group).  Its superstep
+        counts equal every other shard's (the global halt vote keeps the
+        loops in lockstep), so stats stay local.  ``data_merged``: the
+        Merge was reduced over data already (instance-sharded mesh
+        passes) and is gathered like the states."""
         xs, final, merged, stats = out
         bg = self.bg
 
         def host(x, what):  # (..., P_local, Vp) -> the stacked (..., P, Vp)
+            if self.mesh is not None:
+                x = torch.cat(all_gather(x, self._model), dim=-2)
             x = x.cpu().numpy()
-            if self.parts is not None:
+            if self.cluster is not None:
                 x = self.cluster.allgather_concat(x, axis=-2,
                                                   tag=f"gather/{what}")
             return x
@@ -982,7 +1159,9 @@ class TemporalEngine:
             return x[..., bg.part_of, bg.local_of]
 
         xs, final = host(xs, "xs"), host(final, "final")
-        if merged is not None and self.parts is not None:
+        if data_merged and merged is not None:
+            merged = host(merged, "merged")
+        elif merged is not None and self.parts is not None:
             # the Merge again over the whole partition axis, on the
             # device, as one process computes it: a mean's association
             # can depend on the shape of the tensor it reduces
@@ -993,7 +1172,9 @@ class TemporalEngine:
             pattern=pattern,
             values=gather(xs),
             final=gather(final),
-            merged=None if merged is None else gather(merged.cpu().numpy()),
+            merged=None if merged is None else gather(
+                merged if isinstance(merged, np.ndarray)
+                else merged.cpu().numpy()),
             stats=stats,
             occupancy=occ,
             warm_start=warm,

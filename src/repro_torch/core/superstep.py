@@ -18,6 +18,13 @@ The reference's ``jax.lax.while_loop`` drivers (``vmap``ped over the
 query axis) are Python loops here with the same caps, lane by lane, and
 every halt vote is one device-to-host read of all lanes' votes, counted
 in the ``host_syncs`` stat.
+
+On a mesh (a comm backend bound by ``make_comm(mesh=...)``) the tensors
+hold this rank's partition shard, and the votes go through the backend:
+a superstep's and a local sweep's lane votes are ORed over the model
+group, so every shard runs the stacked run's supersteps and sweeps, lane
+by lane.  :func:`make_spmd_superstep` is the reference's explicit
+one-superstep mesh program.
 """
 from __future__ import annotations
 
@@ -251,7 +258,7 @@ def _keep_stopped(new: torch.Tensor, old: torch.Tensor,
 
 def _local_converge(
     x: torch.Tensor, dg: DeviceGraph, sr: Semiring, mode: str,
-    max_sweeps: int, live: np.ndarray,
+    max_sweeps: int, live: np.ndarray, comm: CommBackend,
 ) -> Tuple[torch.Tensor, np.ndarray, int]:
     """Sweep every lane in ``live`` ((Q,) bool) to local fixpoint
     (idempotent sr), lane by lane as a vmapped ``while_loop`` does: lane
@@ -260,7 +267,8 @@ def _local_converge(
     serves all lanes, and its (Q,) vote is one host read.  ``x`` is (Q,
     P, Vp), or (P, Vp) for one lane.  Returns (x, sweeps (Q,),
     host_syncs).  The vote of the last permitted sweep is not read: the
-    loop ends whatever it says."""
+    loop ends whatever it says.  ``comm``'s ``local_vote`` globalizes
+    each vote (the identity unless the backend is bound to a mesh)."""
     Q = len(live)
     sweeps = np.zeros(Q, np.int64)
     syncs, it = 0, 0
@@ -278,7 +286,7 @@ def _local_converge(
         sweeps += act
         it += 1
         if it < max_sweeps:
-            act &= flag.cpu().numpy()
+            act &= comm.local_vote(flag.cpu().numpy())
             syncs += 1
     return x, sweeps, syncs
 
@@ -347,6 +355,12 @@ def bsp_fixpoint(
     takes as many launches as its slowest lanes need.  ``supersteps`` and
     ``local_sweeps`` are then (Q,), each lane's own, and ``host_syncs``
     counts the batched run's reads.
+
+    The loop goes on while ``comm.keep_running`` says a lane is live
+    somewhere: the identity, except for a ring bound to ``sync_axes``
+    (``CommBackend.bind_sync``), whose ranks then run on, with no lane
+    live, until every concurrent data shard's loop has ended — those
+    iterations take that vote and nothing else, so no count moves.
     """
     assert sr.idempotent, "bsp_fixpoint needs an idempotent semiring"
     comm = DenseAllReduce() if comm is None else comm
@@ -359,29 +373,35 @@ def bsp_fixpoint(
     supersteps = np.zeros(Q, np.int64)
     local_sweeps = np.zeros(Q, np.int64)
     syncs, it = 0, 0
-    while live.any() and it < max_supersteps:
-        x_start = x
-        x, s, n = _local_converge(x_start, dg, sr, mode, sweeps_cap, live)
-        boundary = _publish(x, dg, sr, comm)
-        # vote-to-halt compares against the superstep START: in
-        # vertex-centric mode the single local sweep can progress even when
-        # the boundary exchange is quiet.
-        if mode == "fused":
-            # the consume kernel emits the vote: Q x P flags, never a
-            # re-read of the full states
-            xn, chv = _fused_consume_vote(x, boundary, dg, sr, x_start)
-            flag = _lane_votes(chv, Q)
-        else:
-            xn = _consume(x, boundary, dg, sr, mode)
-            flag = _lane_votes(dg.vmask & (xn != x_start), Q)
-        x = _keep_stopped(xn, x_start, live)
-        supersteps += live
-        local_sweeps += s
-        syncs += n
+    running = True
+    while running and it < max_supersteps:
+        stepped = live.any()
+        if stepped:
+            x_start = x
+            x, s, n = _local_converge(x_start, dg, sr, mode, sweeps_cap,
+                                      live, comm)
+            boundary = _publish(x, dg, sr, comm)
+            # vote-to-halt compares against the superstep START: in
+            # vertex-centric mode the single local sweep can progress even
+            # when the boundary exchange is quiet.
+            if mode == "fused":
+                # the consume kernel emits the vote: Q x P flags, never a
+                # re-read of the full states
+                xn, chv = _fused_consume_vote(x, boundary, dg, sr, x_start)
+                flag = _lane_votes(chv, Q)
+            else:
+                xn = _consume(x, boundary, dg, sr, mode)
+                flag = _lane_votes(dg.vmask & (xn != x_start), Q)
+            x = _keep_stopped(xn, x_start, live)
+            supersteps += live
+            local_sweeps += s
+            syncs += n
         it += 1
         if it < max_supersteps:
-            live &= comm.any_changed(flag.cpu().numpy())
-            syncs += 1
+            if stepped:
+                live &= comm.any_changed(flag.cpu().numpy())
+                syncs += 1
+            running = comm.keep_running(bool(live.any()))
     stats = {"supersteps": supersteps.astype(np.int32),
              "local_sweeps": local_sweeps.astype(np.int32),
              "host_syncs": np.int32(syncs)}
@@ -435,3 +455,66 @@ def pagerank_run(
             delta = float(comm.sum_scalar(torch.sum(torch.abs(rn - r))))
         r = rn
     return r, it
+
+
+# ---------------------------------------------------------------------------
+# The explicit one-superstep mesh program
+# ---------------------------------------------------------------------------
+
+def make_spmd_superstep(mesh, sr: Semiring = MIN_PLUS, *, use_pallas=None,
+                        comm="dense"):
+    """One BSP superstep as an explicit mesh program (counterpart of the
+    reference's ``shard_map`` one): partitions are sharded over ALL mesh
+    dims (rank-major over the mesh's dims, one contiguous range a rank);
+    the boundary exchange is one combine of the ([Q,] NB) buffer through
+    the chosen backend bound to every dim.
+
+    Returns ``superstep_with_nb(nb)`` -> ``run(x, rows, cols, tiles,
+    brows, bcols, btiles, out_slot, out_local, out_mask, vmask)``, which
+    every rank calls with the same GLOBAL tensors (leading partition
+    axis; ``x`` ([Q,] P, Vp)): each rank takes its shard, runs one local
+    sweep, the exchange and the consume, and all ranks get the global
+    ([Q,] P, Vp) result, gathered in rank order.  P must divide by the
+    mesh's size.
+    """
+    from repro_torch.core.comm import (all_gather, axis_group, make_comm,
+                                       mesh_dims)
+
+    axes = tuple(mesh_dims(mesh))
+    comm = make_comm(comm, mesh=mesh, model_axes=axes)
+    g = axis_group(mesh, axes)
+
+    def superstep_with_nb(nb: int):
+        def run(x, rows, cols, tiles, brows, bcols, btiles,
+                out_slot, out_local, out_mask, vmask):
+            P = rows.shape[0]
+            assert P % g.size == 0, \
+                f"{P} partitions do not shard evenly over {g.size} ranks"
+            n = P // g.size
+            lo = g.rank * n
+
+            def mine(a, axis=0):
+                return a.narrow(axis, lo, n)
+
+            B = tiles.shape[-1]
+            nvb = vmask.shape[-1] // B
+            chunk = default_chunk(B)
+            dg = DeviceGraph(
+                block_size=B, num_boundary=nb,
+                rows=mine(rows), cols=mine(cols), tiles=mine(tiles),
+                brows=mine(brows), bcols=mine(bcols), btiles=mine(btiles),
+                out_slot=mine(out_slot), out_local=mine(out_local),
+                out_mask=mine(out_mask), vmask=mine(vmask),
+                plan=to_device(walk_plan(mine(cols).cpu().numpy(), nvb,
+                                         chunk=chunk), x.device),
+                bplan=to_device(walk_plan(mine(bcols).cpu().numpy(), nvb,
+                                          chunk=chunk), x.device))
+            mode = kernel_mode(use_pallas, x.device)
+            x1 = _local_sweep(mine(x, -2), dg, sr, mode)
+            boundary = _publish(x1, dg, sr, comm)
+            out = _consume(x1, boundary, dg, sr, mode)
+            return torch.cat(all_gather(out, g), dim=-2)
+
+        return run
+
+    return superstep_with_nb

@@ -64,6 +64,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.blocked import pow2_bucket
+
 THREAD_PREFIX = "gofs-prefetch"
 
 # alignment of each array carved out of a pinned buffer (the graph kernels
@@ -329,6 +331,14 @@ class SlicePrefetcher:
     reconstruction), filling buffers from ``alloc(n, bucket=...,
     bbucket=...)``; the windowing and cancellation are unchanged.
 
+    ``parts=(lo, hi)``: the read+fill stages only that partition range
+    (a cluster shard's or a mesh rank's), so chunks carry a ``hi - lo``
+    partition axis; the reader must supply those partitions' edges and
+    the cut edges incoming to them.  ``instances=(lo, hi)``: a pass
+    covers only that range of the ``num_instances`` (chunk starts stay
+    global); :meth:`shard_instances` makes one from a whole-range
+    prefetcher.
+
     The consumer may :meth:`bind`, before iterating, a ``ring`` (a
     :class:`PinnedRing`: chunks then fill pinned buffers, see the module
     docstring) and ``prepare`` (called with each staged chunk on the pool
@@ -351,6 +361,8 @@ class SlicePrefetcher:
         bbucket: Optional[int] = None,
         transform: Optional[Callable[[np.ndarray], np.ndarray]] = None,
         stage_fn: Optional[Callable[[int, int, Alloc], StagedChunk]] = None,
+        parts: Optional[Tuple[int, int]] = None,
+        instances: Optional[Tuple[int, int]] = None,
     ):
         assert prefetch_depth >= 1, "prefetch_depth must be >= 1"
         assert chunk_instances >= 1 and num_workers >= 1
@@ -374,11 +386,16 @@ class SlicePrefetcher:
         self.bbucket = bbucket
         self.transform = transform
         self.stage_fn = stage_fn
+        self.parts = parts
+        self.instances = (0, self.num_instances) if instances is None \
+            else (int(instances[0]), int(instances[1]))
+        lo, hi = self.instances
+        assert 0 <= lo <= hi <= self.num_instances, self.instances
         self.ring: Optional[PinnedRing] = None
         self.prepare: Optional[Callable[[StagedChunk], Any]] = None
         self._spans: List[Tuple[int, int]] = [
-            (s, min(s + self.chunk_instances, self.num_instances))
-            for s in range(0, self.num_instances, self.chunk_instances)
+            (s, min(s + self.chunk_instances, hi))
+            for s in range(lo, hi, self.chunk_instances)
         ]
         self._stop = threading.Event()
         self._lock = threading.Lock()  # guards _pool/_pending handoff
@@ -396,6 +413,20 @@ class SlicePrefetcher:
         the next passes (``bind()`` unsets both)."""
         self.ring, self.prepare = ring, prepare
 
+    def shard_instances(self, lo: int, hi: int) -> "SlicePrefetcher":
+        """This prefetcher's reads and fills over instances ``[lo, hi)``
+        only: a mesh data rank's share of a pass."""
+        assert self.instances == (0, self.num_instances), \
+            "shard a whole-range prefetcher"
+        return SlicePrefetcher(
+            self.bg, self.reader, self.num_instances, zero=self.zero,
+            prefetch_depth=self.prefetch_depth,
+            chunk_instances=self.chunk_instances,
+            num_workers=self.num_workers, inflight=self.inflight,
+            layout=self.layout, bucket=self.bucket, bbucket=self.bbucket,
+            transform=self.transform, stage_fn=self.stage_fn,
+            parts=self.parts, instances=(lo, hi))
+
     # ------------------------------------------------------------ sources
     @classmethod
     def from_weights(
@@ -411,9 +442,11 @@ class SlicePrefetcher:
         layout: str = "dense",
         bucket: Optional[int] = None,
         bbucket: Optional[int] = None,
+        parts: Optional[Tuple[int, int]] = None,
     ) -> "SlicePrefetcher":
         """Prefetch from an in-memory (I, E) weight matrix (the fills —
-        the expensive host-side scatter — still overlap the engine run)."""
+        the expensive host-side scatter — still overlap the engine run);
+        ``parts``: fill only that partition range."""
         w = np.asarray(weights, np.float32)
         if w.ndim == 1:
             w = w[None]
@@ -425,7 +458,7 @@ class SlicePrefetcher:
             bg, lambda s, e: w[s:e], w.shape[0], zero=zero,
             prefetch_depth=prefetch_depth, chunk_instances=chunk_instances,
             num_workers=num_workers, inflight=inflight, layout=layout,
-            bucket=bucket, bbucket=bbucket,
+            bucket=bucket, bbucket=bbucket, parts=parts,
         )
 
     # ------------------------------------------------------------ staging
@@ -482,24 +515,33 @@ class SlicePrefetcher:
         if self.transform is not None:
             w = np.asarray(self.transform(w), np.float32)
             assert w.shape[0] == n, (w.shape, n)
+        bg, zero, parts = self.bg, self.zero, self.parts
         if self.layout == "sparse":
-            out_l = out_b = None
-            if self.bucket is not None and self.bbucket is not None:
-                out_l, out_b = alloc(n, self.bucket, self.bbucket)
-            tiles, rows, cols, nnz = self.bg.fill_local_batch_sparse(
-                w, zero=self.zero, bucket=self.bucket, out=out_l
-            )
-            btiles, brows, bcols, bnnz = self.bg.fill_boundary_batch_sparse(
-                w, zero=self.zero, bucket=self.bbucket, out=out_b
-            )
+            bucket, bbucket, act_l, act_b = self.bucket, self.bbucket, \
+                None, None
+            if bucket is None or bbucket is None:
+                # no shared bucket: this chunk's own pow2 buckets
+                act_l, act_b = bg.active_tile_maps(w, zero=zero, parts=parts)
+                bucket = pow2_bucket(int(act_l.sum(-1).max())
+                                     if act_l.size else 0)
+                bbucket = pow2_bucket(int(act_b.sum(-1).max())
+                                      if act_b.size else 0)
+            out_l, out_b = alloc(n, bucket, bbucket, parts=parts)
+            tiles, rows, cols, nnz = bg.fill_local_batch_sparse(
+                w, zero=zero, bucket=bucket, out=out_l, act=act_l,
+                parts=parts)
+            btiles, brows, bcols, bnnz = bg.fill_boundary_batch_sparse(
+                w, zero=zero, bucket=bbucket, out=out_b, act=act_b,
+                parts=parts)
             return StagedChunk(
                 start=s, count=n, tiles=tiles, btiles=btiles,
                 rows=rows, cols=cols, brows=brows, bcols=bcols,
                 nnz=nnz, bnnz=bnnz,
             )
-        lt_buf, bt_buf = alloc(n)
-        tiles = self.bg.fill_local_batch(w, zero=self.zero, out=lt_buf)
-        btiles = self.bg.fill_boundary_batch(w, zero=self.zero, out=bt_buf)
+        lt_buf, bt_buf = alloc(n, parts=parts)
+        tiles = bg.fill_local_batch(w, zero=zero, out=lt_buf, parts=parts)
+        btiles = bg.fill_boundary_batch(w, zero=zero, out=bt_buf,
+                                        parts=parts)
         return StagedChunk(start=s, count=n, tiles=tiles, btiles=btiles)
 
     def __iter__(self) -> Iterator[StagedChunk]:

@@ -21,8 +21,9 @@ layout      recorded/measured tile occupancy ``<= 25%`` -> ``sparse``
             without reading values -> ``dense`` (always correct)
 comm        no mesh -> ``dense`` (the stacked in-process fold; ``"host"``
             targets mesh-free multi-process clusters and stays an
-            explicit override); a mesh raises until multi-GPU placement
-            is ported (ROADMAP item 6)
+            explicit override); a mesh -> ``recommended_comm`` over the
+            exchange axes with the recorded ``boundary_nnz``
+            (``repro_torch.launch.mesh``)
 staging     store-backed analytics -> ``async`` (slice reads overlap
             execution), including derived weights whose transform is
             declared ``rowwise`` (applied chunk-wise on the prefetch
@@ -44,7 +45,9 @@ kernel      session device not ``cuda`` -> ``off`` (the plain PyTorch
             combine and the halt vote in one launch); ``cuda``
             otherwise -> ``spmv`` (per-stage SpMV kernel; dense template
             walks gain little from fusing the vote)
-placement   stacked (partitions on one device's leading axis)
+placement   no mesh -> stacked (partitions on one device's leading axis);
+            a mesh -> ``mesh{dims}`` (partitions over the model axes,
+            temporally concurrent patterns' instances over data)
 ==========  ==============================================================
 """
 from __future__ import annotations
@@ -325,6 +328,7 @@ def plan_analytic(
     *,
     bg,
     mesh=None,
+    model_axes: Tuple[str, ...] = ("model",),
     store_backed: bool,
     occupancy: Optional[float],
     sparse_buckets: Optional[Tuple[int, int]],
@@ -353,15 +357,13 @@ def plan_analytic(
     weights — ``None`` when no delta chain was recorded.
 
     ``device`` — the device type the session runs on (``"cuda"`` or
-    ``"cpu"``); it drives the ``kernel`` knob's auto rule and the device
-    count behind the mesh-split estimates.  ``None`` is treated as not
-    CUDA (kernel off).  ``mesh`` raises: multi-GPU placement is ROADMAP
-    item 6."""
+    ``"cpu"``); it drives the ``kernel`` knob's auto rule and, off a
+    mesh, the device count behind the mesh-split estimates.  ``None`` is
+    treated as not CUDA (kernel off).  ``mesh`` — a DeviceMesh: its dims
+    give the placement and the device count of the split review."""
     from repro_torch.dist.collectives import boundary_exchange_bytes
+    from repro_torch.launch.mesh import recommended_comm
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh placement is not ported yet (ROADMAP queue 1, item 6)")
     pattern = pattern or analytic.pattern
     assert pattern in ("sequential", "independent", "eventually"), pattern
     merge = merge if merge is not None else analytic.merge
@@ -391,9 +393,14 @@ def plan_analytic(
     nnz = int(bg.boundary_nnz)
     if comm is not None:
         cm = override(comm)
-    else:
+    elif mesh is None:
         cm = choice("dense", "stacked in-process fold (no mesh; 'host' "
                              "targets mesh-free multi-process clusters)")
+    else:
+        rec = recommended_comm(mesh, model_axes, boundary_nnz=nnz)
+        cm = choice(rec,
+                    f"recommended_comm over exchange axes {model_axes} "
+                    f"with boundary_nnz={nnz}")
 
     # ---- staging ---------------------------------------------------------
     if staging is not None:
@@ -497,8 +504,16 @@ def plan_analytic(
                     "template walks gain little from fusing the vote")
 
     # ---- placement -------------------------------------------------------
-    pl = choice("stacked", "no mesh — partitions stacked on one "
-                           "device, instances scanned")
+    if mesh is None:
+        pl = choice("stacked", "no mesh — partitions stacked on one "
+                               "device, instances scanned")
+    else:
+        from repro_torch.core.comm import mesh_dims
+
+        shape = mesh_dims(mesh)
+        pl = choice(f"mesh{shape}",
+                    f"partitions over {model_axes}; temporally concurrent "
+                    f"patterns shard instances over the data axis")
 
     # ---- estimates -------------------------------------------------------
     # query axis: a sequence on the analytic's source parameter widens the
@@ -526,9 +541,13 @@ def plan_analytic(
         base = sparse_bytes if sparse_bytes is not None else dense_bytes
         source_bytes_delta = int(round(base * delta_ratio))
     # mesh-shape proposal: how the available device pool SHOULD split
-    # between the instance (data) and partition (model) axes — advisory,
-    # since placement is stacked
-    if device == "cuda":
+    # between the instance (data) and partition (model) axes — advisory
+    # when no mesh was given, a review of the split when one was
+    if mesh is not None:
+        num_devices = 1
+        for n in shape.values():
+            num_devices *= int(n)
+    elif device == "cuda":
         import torch
 
         num_devices = torch.cuda.device_count()

@@ -39,8 +39,11 @@ place (streaming ingestion); ``GopherService`` (:mod:`.service`) serves
 queries from one warm session.  ``cluster=`` makes the session one
 shard of an N-process run (:mod:`repro_torch.cluster`), and
 ``run(plan, checkpoint_dir=...)`` a resumable run
-(:mod:`repro_torch.cluster.checkpoint`).  Not ported yet, and raising
-``NotImplementedError`` that names the ROADMAP item: ``mesh=`` (item 6).
+(:mod:`repro_torch.cluster.checkpoint`).  ``mesh=`` (a
+``torch.distributed`` DeviceMesh, with ``data_axis``/``model_axes``)
+places every engine the session builds on the mesh: each rank of the
+mesh runs the same session calls and gets the global results, staging
+in-memory weights for its own partitions only.
 
 >>> import numpy as np
 >>> from repro_torch.core.blocked import build_blocked
@@ -73,7 +76,7 @@ import numpy as np
 
 from repro_torch.core.blocked import BlockedGraph, SparseBlocked, pow2_bucket
 from repro_torch.core.engine import (
-    EngineResult, RunSpec, TemporalEngine, _not_ported)
+    EngineResult, RunSpec, TemporalEngine, mesh_partition_shard)
 from repro_torch.core.superstep import kernel_mode, resolve_device
 from repro_torch.gopher.planner import ExecutionPlan, plan_analytic
 from repro_torch.gopher.registry import Analytic, get_analytic
@@ -289,8 +292,9 @@ class GopherSession:
     """Declarative session over one time-series graph collection.
 
     See the module docstring for the data sources and verbs.  Placement
-    is session-level (``device``, ``use_pallas``, ``cluster``); analytics
-    and their knobs are plan-level."""
+    is session-level (``device``, ``mesh``/``data_axis``/``model_axes``,
+    ``use_pallas``, ``cluster``); analytics and their knobs are
+    plan-level."""
 
     def __init__(
         self,
@@ -301,6 +305,8 @@ class GopherSession:
         seed: int = 0,
         device="cuda",
         mesh=None,
+        data_axis: str = "data",
+        model_axes: Tuple[str, ...] = ("model",),
         use_pallas=None,
         bg: Optional[BlockedGraph] = None,
         src: Optional[np.ndarray] = None,
@@ -314,7 +320,10 @@ class GopherSession:
         from repro_torch.gofs.store import GoFSStore
 
         if mesh is not None:
-            raise _not_ported("mesh placement", "6")
+            from repro_torch.core.comm import mesh_dims
+
+            mesh_dims(mesh)  # a DeviceMesh with named dims, or TypeError
+        self.mesh = mesh
         # ``cluster``: a repro_torch.cluster.runtime.ClusterRuntime.  When
         # distributed, every engine this session builds becomes one shard
         # of the N-process run (its partition range, with the real
@@ -326,6 +335,11 @@ class GopherSession:
         # changes nothing.
         self.cluster = cluster if (cluster is not None
                                    and cluster.is_distributed) else None
+        if self.cluster is not None:
+            assert mesh is None, \
+                "cluster sessions are stacked per process (mesh-free)"
+        self.data_axis = data_axis
+        self.model_axes = tuple(model_axes)
         self.device = resolve_device(device)
         # kernel-mode policy: None -> the planner's auto rule picks
         # off/spmv/fused per plan from the device and recorded occupancy;
@@ -459,6 +473,8 @@ class GopherSession:
         return plan_analytic(
             a, resolved,
             bg=self._blocked(a.graph),
+            mesh=self.mesh,
+            model_axes=self.model_axes,
             store_backed=self.store is not None,
             occupancy=occupancy,
             sparse_buckets=buckets,
@@ -587,16 +603,19 @@ class GopherSession:
                 # is comparable with the cache path
                 tf = None if transform == "raw" else \
                     (lambda rows: a0.weights(self, rows))
-                if self.cluster is not None:
-                    # shard-local staging: read + fill only this process's
-                    # partition range (delta chains describe the full
-                    # collection, so the shard path stages from the value
-                    # slices); staged_bytes then reports the PER-HOST cost
+                if engine.parts is not None:
+                    # shard-local staging (a cluster process or a mesh
+                    # rank): read + fill only the engine's partition
+                    # range (delta chains describe the full collection,
+                    # so the shard path stages from the value slices);
+                    # the engine narrows it to a data rank's instances,
+                    # and staged_bytes reports the per-process cost
                     from repro_torch.cluster.staging import shard_stream
 
                     stream = shard_stream(
                         self.store, self.bg, attr, self.cluster,
-                        zero=zero, layout=layout, transform=tf)
+                        parts=engine.parts, zero=zero, layout=layout,
+                        transform=tf)
                 else:
                     stream = self.store.load_blocked_stream(
                         self.bg, attr, zero=zero, layout=layout,
@@ -849,7 +868,8 @@ class GopherSession:
             # the plan's kernel knob already folded in any session-wide
             # use_pallas override
             self._engines[key] = TemporalEngine(
-                self._blocked(graph), device=self.device,
+                self._blocked(graph), device=self.device, mesh=self.mesh,
+                data_axis=self.data_axis, model_axes=self.model_axes,
                 use_pallas=kernel, comm=comm, cluster=self.cluster,
             )
         return self._engines[key]
@@ -936,8 +956,19 @@ class GopherSession:
 
         def maker() -> StagedBatch:
             bg = self._blocked(graph)
-            if (self.store is not None and transform == "raw"
-                    and graph == "template" and attr != ONES_ATTR):
+            # a mesh rank fills its own partitions only
+            parts = None if self.mesh is None else mesh_partition_shard(
+                self.mesh, self.model_axes, bg.n_parts)
+            from_store = (self.store is not None and transform == "raw"
+                          and graph == "template" and attr != ONES_ATTR)
+            if from_store and parts is not None:
+                # ... reading its partitions' slices and the peers'
+                # cut-edge halo, as shard_stream does (no delta chain:
+                # it describes the full collection)
+                w = self.store.edge_attr_rows(
+                    attr, range(self.store.num_timesteps()),
+                    parts=range(*parts), fill=zero, halo=True)
+            elif from_store:
                 out = self.store.load_blocked(bg, attr, zero=zero,
                                               layout=layout, delta=delta)
                 if layout == "sparse":
@@ -953,13 +984,14 @@ class GopherSession:
                 return StagedBatch(layout=layout, tiles=tiles,
                                    btiles=btiles,
                                    nbytes=tiles.nbytes + btiles.nbytes)
-            w = self._staged_weights_by_key(graph, attr, transform)
+            else:
+                w = self._staged_weights_by_key(graph, attr, transform)
             if layout == "sparse":
-                sp = bg.stage_sparse(w, zero=zero)
+                sp = bg.stage_sparse(w, zero=zero, parts=parts)
                 return StagedBatch(layout=layout, sp=sp,
                                    nbytes=sp.staged_bytes())
-            tiles = bg.fill_local_batch(w, zero=zero)
-            btiles = bg.fill_boundary_batch(w, zero=zero)
+            tiles = bg.fill_local_batch(w, zero=zero, parts=parts)
+            btiles = bg.fill_boundary_batch(w, zero=zero, parts=parts)
             return StagedBatch(layout=layout, tiles=tiles, btiles=btiles,
                                nbytes=tiles.nbytes + btiles.nbytes)
 
@@ -1048,6 +1080,15 @@ class _CountedChunks:
 
     def bind(self, *args, **kw) -> None:
         self.stream.bind(*args, **kw)
+
+    @property
+    def num_instances(self) -> int:
+        return self.stream.num_instances
+
+    def shard_instances(self, lo: int, hi: int) -> "_CountedChunks":
+        """The wrapped stream narrowed to instances ``[lo, hi)``."""
+        return _CountedChunks(self.stream.shard_instances(lo, hi),
+                              self.cache)
 
     def __iter__(self):
         it = iter(self.stream)

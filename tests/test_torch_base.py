@@ -222,7 +222,9 @@ def test_comm_fold_matches_reference(backend, sr_name):
 
 
 def test_make_comm_rejects_mesh_and_unknown():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # mesh placement is ported (tests/test_torch_mesh.py holds it against
+    # the reference); a mesh must be a DeviceMesh with named dims
+    with pytest.raises(TypeError, match="DeviceMesh"):
         comm.make_comm("dense", mesh=object())
     with pytest.raises(ValueError, match="unknown comm backend"):
         comm.make_comm("nope")
@@ -268,7 +270,12 @@ def test_import_loads_no_jax():
         "repro_torch.cluster, repro_torch.cluster.runtime, "
         "repro_torch.cluster.gather, repro_torch.cluster.staging, "
         "repro_torch.cluster.checkpoint, repro_torch.train.checkpoint, "
-        "repro_torch.launch.cluster_graph\n"
+        "repro_torch.launch.cluster_graph, repro_torch.launch.mesh, "
+        "repro_torch.launch.mesh_graph, "
+        "repro_torch.core.temporal, repro_torch.core.comm, "
+        "repro_torch.examples.quickstart, repro_torch.examples.temporal_sssp, "
+        "repro_torch.examples.vehicle_tracking, "
+        "repro_torch.examples.serve_lm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

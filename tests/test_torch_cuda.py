@@ -1412,7 +1412,7 @@ def test_cluster_sessions_on_card_stage_pinned_shards(cuda, tmp_path):
     its shard through ``shard_stream`` into the pinned ring (``bind``
     reaches the prefetcher), stages fewer bytes than one process, and
     SSSP and PageRank equal one process's bitwise."""
-    from repro_torch.gofs.prefetch import pinned_ring
+    from repro_torch.gofs.prefetch import pinned_ring, release_pinned
     from repro_torch.gopher import GopherSession
 
     _col, _bg, store, _lat, _act = _deployed_tiny(tmp_path)
@@ -1421,8 +1421,11 @@ def test_cluster_sessions_on_card_stage_pinned_shards(cuda, tmp_path):
     want = [one.run(p) for p in plans]
     single = [one.run_many([p]) and one.last_run_report["staged_bytes"]
               for p in plans]
+    # a fresh ring: the buffers the single-process runs pinned are kept
+    # and could serve the shards' smaller chunks with no new pin, leaving
+    # peak_bytes at 0 whether or not the shards went through the ring
+    release_pinned()
     ring = pinned_ring(cuda)
-    ring.peak_bytes = 0
 
     def shard(rt):
         sess = GopherSession(store, cluster=rt)
@@ -1441,3 +1444,101 @@ def test_cluster_sessions_on_card_stage_pinned_shards(cuda, tmp_path):
                           w.engine.stats["supersteps"])):
                 assert a.tobytes() == b.tobytes()
     assert ring.peak_bytes > 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh (multi-GPU placement) on the one card
+# ---------------------------------------------------------------------------
+
+MESH_CFG = GraphConfig(name="t", num_vertices=500, avg_degree=3.0,
+                       num_instances=4, num_partitions=4, block_size=32,
+                       seed=7)
+
+
+def _mesh_on_card(tmp_path, data, model, backend):
+    """Run the mesh worker's ``card`` case in data x model rank processes
+    on the card (tests/torch_mesh_worker.py); every rank's results."""
+    import json
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from repro_torch.kernels import _build
+
+    _build.library()  # built once here; the ranks load it
+    col = generate_collection(MESH_CFG)
+    t = col.template
+    bg = build_blocked(t, partition_graph(t, 4, seed=7), 32)
+    lat = np.stack([col.edge_values(i, "latency") for i in range(4)])
+    act = np.stack([col.edge_values(i, "active") for i in range(4)])
+    inputs = dict(bg=bg, lat=lat, prw=edge_weights_for_instances(
+        t.src, act, t.num_vertices), zero_sources=[0])
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+               OMP_NUM_THREADS="1")
+    world, procs, outs = data * model, [], []
+    for r in range(world):
+        outs.append(str(tmp_path / f"rank{r}.pkl"))
+        spec = dict(rank=r, world=world, data=data, model=model,
+                    init=f"file://{tmp_path / 'rdv'}", device="cuda",
+                    backend=backend, inputs=str(tmp_path / "inputs.pkl"),
+                    out=outs[-1], cases=["card"], timeout=120)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(repo, "tests",
+                                          "torch_mesh_worker.py"),
+             json.dumps(spec)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    got = []
+    for o in outs:
+        with open(o, "rb") as f:
+            res = pickle.load(f)["card"]
+        assert "error" not in res, res["error"]
+        got.append(res)
+    return inputs, got
+
+
+@pytest.mark.parametrize("data,model,backend", [(1, 1, "nccl"),
+                                                (1, 2, "gloo")],
+                         ids=["nccl_1x1", "gloo_1x2"])
+def test_mesh_on_card_matches_the_stacked_engine(cuda, tmp_path, data,
+                                                 model, backend):
+    """A (1, 1) NCCL mesh and a model = 2 gloo mesh (NCCL refuses two
+    ranks on one device) on the card: min-plus bitwise the stacked
+    engine's on the card under every comm and both kernel modes (Q = 1
+    and Q = 4), PageRank within the kernels' tolerance, and a combine
+    that drops the peer's partial must differ (model = 2)."""
+    inputs, ranks = _mesh_on_card(tmp_path, data, model, backend)
+    bg, lat = inputs["bg"], inputs["lat"]
+    seq = T.TemporalEngine(bg).run(
+        T.min_plus_program("sssp", init=T.source_init(0)), lat,
+        pattern="sequential")
+    query = T.TemporalEngine(bg).run(
+        T.min_plus_program("sssp", init=T.sources_init([0, 7, 42, 99])),
+        lat, pattern="independent")
+    pr = T.TemporalEngine(bg).run(
+        T.pagerank_program(bg.part_of.shape[0], iters=10), inputs["prw"],
+        pattern="independent")
+    for got in ranks:
+        for comm in ("dense", "ring", "ring-rs"):
+            for key, want in ((f"{comm}/spmv", seq), (f"{comm}/fused", seq),
+                              (f"{comm}/query", query)):
+                g = got[key]
+                for f in ("values", "final"):
+                    assert g[f].tobytes() == getattr(want, f).tobytes(), key
+                for f in ("supersteps", "local_sweeps"):
+                    assert np.array_equal(g[f], want.stats[f]), key
+        np.testing.assert_allclose(got["pagerank"]["values"], pr.values,
+                                   rtol=TOL, atol=TOL)
+        differs = got["control"]["values"].tobytes() != seq.values.tobytes()
+        assert differs == (model > 1)

@@ -215,7 +215,9 @@ def test_not_ported_paths_raise(slice_env):
         assert two.n_sources == 2
         for q in range(2):
             assert np.array_equal(two.values[q], one.values)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # mesh placement is ported (tests/test_torch_mesh.py holds it against
+    # the reference); a mesh must be a DeviceMesh with named dims
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.TemporalEngine(bg, device="cpu", mesh=object())
     # the cluster runtime is ported (tests/test_torch_cluster.py holds it
     # against the reference): a single-process runtime leaves the engine

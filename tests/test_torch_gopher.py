@@ -604,7 +604,9 @@ def test_not_ported_paths_raise(env):
         "final"].shape[0] == 2
     assert sess.run(sess.plan("nhop", source=[0, 1])).output[
         "histograms"].shape[0] == 2
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # mesh placement is ported (tests/test_torch_mesh.py holds it against
+    # the reference); a mesh must be a DeviceMesh with named dims
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GopherSession(GoFSStore(env["root"]), device="cpu", mesh=object())
     # cluster sessions are ported (tests/test_torch_cluster.py): a
     # single-process runtime leaves the session as it was
