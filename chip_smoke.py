@@ -39,11 +39,12 @@ Phases (any failure exits non-zero before the result lines):
    launches by walk (``launches_by_walk``) must match the launches by
    call shape, every min-plus call of ``walk_plan.LANE_WALK_MIN`` lanes
    or more on the lane walk;
-5d. the four examples (``examples_phase``): ``repro_torch.examples``'
-   quickstart, temporal_sssp, vehicle_tracking and serve_lm with
+5d. the five examples (``examples_phase``): ``repro_torch.examples``'
+   quickstart, temporal_sssp, vehicle_tracking, serve_lm and train_lm
+   (about 20M parameters, 200 steps, a crash and a resume) with
    ``device="cuda"`` in this process, at their own sizes and asserts
-   live; each one's seconds and launches (the attention kernels' by
-   route);
+   live; each one's seconds and launches (the attention kernels', the
+   flash backward's included, by route);
 6. the same graph path from a GoFS deployment (``gofs_path``): the
    collection deployed with ``deploy_collection`` (latency tile maps and
    the delta chain) into a temporary directory; host iBSP SSSP
@@ -65,8 +66,10 @@ Phases (any failure exits non-zero before the result lines):
    and pagerank (10 iterations) with its staging report, sssp bitwise,
    pagerank within :func:`plus_mul_limit` of the store PageRank, nhop's
    histograms equal to ``nhop.oracle``; and the sparse override (the
-   streamed delta route, fused), bitwise equal, with its source bytes
-   beside its staged bytes; then the query axis through the session:
+   streamed delta route, fused) over the first time pack
+   (SESSION_DELTA_PACKS, on the ``gofs path cuts`` line), bitwise equal
+   to the auto plan's first instances, with its source bytes beside its
+   staged bytes; then the query axis through the session:
    SSSP with phase 5b's 32 sources streamed from the store, every lane
    bitwise equal to phase 5b's; N-hop with 4 sources, lane 0 equal to
    the ``run_many`` histograms and the others to ``nhop.oracle`` on the
@@ -84,15 +87,20 @@ Phases (any failure exits non-zero before the result lines):
    bitwise equal to phase 6's session runs, their staged bytes below the
    single-process session's; each worker counts its launches by call
    shape and by walk, and runs SSSP again in the kernel mode its auto
-   plans did not launch (bitwise too), so both kernels run at their
-   P_local = 4 shapes; then a checkpointed SSSP (spans of 12) killed in
-   its second span in a child process, exactly one snapshot committed,
+   plans did not launch over the first time pack
+   (CLUSTER_OTHER_MODE_PACKS, on the ``gofs path cuts`` line), bitwise
+   equal to its first SSSP's first instances, so both kernels run at
+   their P_local = 4 shapes; then a checkpointed SSSP (spans of 12)
+   killed in its second span in a child process, exactly one snapshot committed,
    resumed bitwise equal to phase 6's session SSSP.  Records: seconds
    per worker, the exchange's operations and bytes, staged bytes per
    host, host peak RSS, the resume's seconds;
 6d. the mesh (``mesh_phase``) on the same deployment: rank processes on
    the one card (:func:`mesh_worker`, ``--mesh-worker``), each with its
-   own CUDA context: (a) a (1, 1) mesh with ``backend="nccl"`` — the
+   own CUDA context, the in-memory runs of (b) and (c) over the first
+   time pack (MESH_MEMORY_PACKS, a depth cut on the ``mesh path cuts``
+   line) and every run from the store over all instances: (a) a (1, 1)
+   mesh with ``backend="nccl"`` — the
    only place the NCCL code runs, since NCCL refuses two ranks on one
    device — SSSP through ``GopherSession(store, mesh=...)``, streamed
    from the deployment, bitwise phase 5's; (b) ``model = 2`` under gloo,
@@ -102,7 +110,7 @@ Phases (any failure exits non-zero before the result lines):
    ``dense``, ``ring`` and ``ring-rs``, SSSP streamed from the store
    through the session, bitwise, and a control whose combine drops the
    peer's partial, which must fail (its launches are counted apart from
-   the path's); (c) ``data = 2`` under gloo, 24 instances a rank:
+   the path's); (c) ``data = 2`` under gloo, half the instances a rank:
    ``pagerank_temporal`` (ranks and ``merged``) within the limit of
    phase 5's PageRank and its mean, and independent SSSP under the ring
    (its loop synced over data) and streamed from the store, bitwise
@@ -176,11 +184,31 @@ Phases (any failure exits non-zero before the result lines):
    step finds them, and also back to back (``warm_ms``); then the
    ``kernels`` JSON line for all four kernels (the attention kernels'
    with their launches by route);
-11. the card's line again and the last line: ``{"ok": true, "device":
+11. LM training (``train_path``): starcoder2-7b at full width (d_model
+   4,608, 36 heads over 4, d_ff 18,432, vocab 49,152, window 4,096) cut
+   to 4 layers (1,321,288,704 parameters), ``train_loop`` for 4 steps of
+   4 sequences of 4,096 tokens (TRAIN_4K's length), bf16 compute over
+   float32 masters and moments, ``remat="full"``; every loss and
+   gradient norm finite, no step skipped, kernel 3 launched twice a
+   layer a step (the recompute) on the bf16 wgmma route and the backward
+   once a layer a step; one ``AsyncCheckpointer`` snapshot restored bit
+   for bit and deleted; NaN masters skipped with the state bitwise
+   unchanged.  Then (``train_kernel_report``) the flash backward against
+   its plain version over BWD_CASES within :func:`grad_limit`, each case
+   launched twice bit for bit, kernel 3's ``lse`` output (the output bit
+   for bit the output without it, ``lse`` within 1e-5 of the plain
+   log-sum-exp), two wrong backwards (no window mask, no D term) that
+   must fail the limit, and both kernels at the training layer's shape
+   (the backward held there too within the limit) timed beside the plain
+   versions, the bound and SDPA: on the flash backend with
+   ``is_causal`` where the window does not cut, and with the mask on the
+   memory-efficient backend;
+12. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
 Each main path (graph, query, GoFS graph, the session within it, the
-stream phase, serving) runs with every kernel's launch count set to 0
+stream phase, serving, training) runs with every kernel's launch count
+set to 0
 just before it
 and read just after; a kernel of the path that was not launched fails
 the smoke.
@@ -895,6 +923,12 @@ def query_phase(keep, device="cuda", log=print):
 # the longest phase 6d waits on its ranks
 MESH_WAIT = 900.0
 MESH_COMMS = ("dense", "ring", "ring-rs")
+# time packs of phase 6d's in-memory runs (TR_SMALL: 20 of the 48
+# instances; the runs from the store stream all of them).  A depth cut
+# taken when the smoke ran 1,104 s on one H100 with phase 6's delta-route
+# session run and 6c's other-mode rerun restored; over all 48 the
+# in-memory runs took about 75 of 6d's 194 s
+MESH_MEMORY_PACKS = 1
 
 
 def _mesh_inputs(cfg):
@@ -989,6 +1023,8 @@ def mesh_worker(spec) -> int:
     rank, part = spec["rank"], spec["part"]
     bg, tmpl, lat, act, prw = _mesh_inputs(
         {c.name: c for c in (TR_SMALL, TR_TINY)}[spec["cfg"]])
+    n = spec["instances"]  # the in-memory runs' first instances
+    lat, act, prw = lat[:n], act[:n], prw[:n]
     V = tmpl.num_vertices
     mesh = init_mesh(spec["data"], spec["model"], backend=spec["backend"],
                      device=dev, init_method=spec["init"], rank=rank,
@@ -1206,6 +1242,10 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
     (:func:`mesh_worker`), against phases 5 and 5b, on phase 6's
     deployment ``root`` of the same collection.
 
+    The in-memory runs of (b) and (c) take the first MESH_MEMORY_PACKS
+    time packs and are held against the first instances of phases 5 and
+    5b; the runs from the store take all instances.
+
     (a) NCCL at world size 1: a (1, 1) ``backend="nccl"`` mesh, SSSP
     through ``GopherSession(store, mesh=...)`` (the planner's streamed
     route) over all instances, bitwise phase 5's; (b) ``model = 2``
@@ -1216,8 +1256,8 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
     under ``dense``, ``ring`` and ``ring-rs``, and SSSP streamed from
     the store, bitwise; a rank whose combine drops its peer's partial
     must fail phase 5's comparison (its launches are counted apart);
-    (c) ``data = 2`` under gloo: ``pagerank_temporal`` over all 48
-    instances (each rank 24), ranks and ``merged`` within
+    (c) ``data = 2`` under gloo: ``pagerank_temporal`` (each rank half
+    the instances), ranks and ``merged`` within
     :func:`plus_mul_limit` of phase 5's PageRank and its mean, and
     independent SSSP under the ring (its continuation synced over data)
     and streamed from the store, bitwise phase 5's eventually run.
@@ -1242,12 +1282,15 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
     qref = keep["query"]["result"]
     bg = keep["bg"]
     I = mem["lat"].shape[0]
+    n_mem, _ = first_packs(root, MESH_MEMORY_PACKS)
+    on["instances"] = n_mem
     full_bytes = I * bg.n_parts * (bg.t_max + bg.tb_max) \
         * bg.block_size ** 2 * 4
+    mem_bytes = full_bytes // I * n_mem
     if device == "cuda":
         torch.cuda.empty_cache()
     out = tempfile.mkdtemp(prefix="mesh_smoke_")
-    recs = {"cut": {}}
+    recs = {"cut": {} if n_mem == I else {"in_memory_instances": n_mem}}
 
     def same(got, want, what):
         same_bits(torch.as_tensor(np.asarray(got)),
@@ -1308,9 +1351,9 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
         per_superstep = {}
         for c in MESH_COMMS:
             for m in ("spmv", "fused"):
-                same_run(b, f"sssp/{c}/{m}", r_sp)
-            same_run(b, f"query/{c}", qref)
-            close(b[f"pagerank/{c}/values"], p_sp.values,
+                same_run(b, f"sssp/{c}/{m}", r_sp, n_mem)
+            same_run(b, f"query/{c}", qref, n_mem)
+            close(b[f"pagerank/{c}/values"], p_sp.values[:n_mem],
                   f"mesh pagerank/{c}")
             ex = model[0]["exchange"][f"sssp/{c}/spmv"]
             per_superstep[c] = {
@@ -1321,7 +1364,7 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
                 "combines": ex["combines"], "ops": ex["ops"],
                 "host_staged_bytes": ex["host_staged_bytes"]}
         try:
-            same_run(b, "control", r_sp)
+            same_run(b, "control", r_sp, n_mem)
             control_failed = False
         except SmokeFailure:
             control_failed = True
@@ -1331,33 +1374,34 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
             f"{json.dumps(per_superstep)}")
         log(f"mesh staged bytes per rank and batch: "
             f"{[r['staged_bytes'] // 2 for r in model]} of "
-            f"{full_bytes} (model = 2)")
+            f"{mem_bytes} (model = 2, {n_mem} instances)")
         for r in model:
             sizes = {(i, p) for i, p, _ in r["fills"]}
-            need(sizes == {(I, bg.n_parts // 2)},
+            need(sizes == {(n_mem, bg.n_parts // 2)},
                  f"mesh model rank {r['rank']} filled {sizes}")
-            need(r["staged_bytes"] == full_bytes,  # two batches of half
+            need(r["staged_bytes"] == mem_bytes,  # two batches of half
                  f"mesh model rank {r['rank']} staged {r['staged_bytes']} "
-                 f"bytes, two half batches are {full_bytes}")
+                 f"bytes, two half batches are {mem_bytes}")
 
         # (c) instances over data = 2
         data, c_ = _spawn_mesh("data", 2, 1, "gloo", out, on, log)
-        used = close(c_["temporal/values"], p_sp.values,
+        used = close(c_["temporal/values"], p_sp.values[:n_mem],
                      "mesh pagerank_temporal: ranks")
-        used_m = close(c_["temporal/merged"], p_sp.values.mean(0),
+        used_m = close(c_["temporal/merged"], p_sp.values[:n_mem].mean(0),
                        "mesh pagerank_temporal: merged")
-        same_run(c_, "sssp_independent_ring", mem["sssp_eventually"])
+        same_run(c_, "sssp_independent_ring", mem["sssp_eventually"],
+                 n_mem)
         same_run(c_, "store_sssp_independent", mem["sssp_eventually"])
         shard_fills(data, "store_sssp_independent", I // 2, bg.n_parts)
         for r in data:
             sizes = {(i, p) for i, p, _ in r["fills"]}
-            need(sizes == {(I // 2, bg.n_parts)},
+            need(sizes == {(n_mem // 2, bg.n_parts)},
                  f"mesh data rank {r['rank']} filled {sizes}")
-            need(r["staged_bytes"] == full_bytes,
+            need(r["staged_bytes"] == mem_bytes,
                  f"mesh data rank {r['rank']} staged {r['staged_bytes']}")
         log(f"mesh staged bytes per rank and batch: "
             f"{[r['staged_bytes'] // 2 for r in data]} of "
-            f"{full_bytes} (data = 2)")
+            f"{mem_bytes} (data = 2, {n_mem} instances)")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     ranks = nccl + model + data
@@ -1378,7 +1422,7 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
         launches_by_walk=[r["launches_by_walk"] for r in ranks],
         staged_bytes={p: [r["staged_bytes"] for r in rs] for p, rs in (
             ("nccl", nccl), ("model", model), ("data", data))},
-        staged_bytes_full_batch=full_bytes // 2,
+        staged_bytes_full_batch=mem_bytes // 2,
         exchange_per_superstep=per_superstep,
         stream_staged_bytes={p: [r["stream_staged_bytes"] for r in rs]
                              for p, rs in (("nccl", nccl), ("model", model),
@@ -1387,7 +1431,7 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
         control_failed=control_failed, control_launches=control_launches,
         card=card)
     log(f"mesh path cuts: {json.dumps(recs['cut'])} ({cfg.name}: {I} "
-        f"instances; every part runs all of them)")
+        f"instances; the runs from the store take all of them)")
     log(f"mesh path launches: {json.dumps(launches)} (the control's, "
         f"not among them: {json.dumps(control_launches)})")
     log(f"mesh path launches by call shape: {json.dumps(by_shape)}")
@@ -1399,14 +1443,17 @@ def examples_phase(device="cuda", log=print):
     own sizes, asserts live; each one's seconds and the kernels' launches
     (graph kernels by call shape, attention by route)."""
     from repro_torch.examples import (quickstart, serve_lm, temporal_sssp,
-                                      vehicle_tracking)
+                                      train_lm, vehicle_tracking)
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
     from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
     from repro_torch.kernels.semiring_superstep.kernel import \
         fused_step_cuda
 
     graph = (spmv_blocked_cuda, fused_step_cuda)
     recs = {}
-    for mod in (quickstart, temporal_sssp, vehicle_tracking, serve_lm):
+    for mod in (quickstart, temporal_sssp, vehicle_tracking, serve_lm,
+                train_lm):
         name = mod.__name__.rsplit(".", 1)[-1]
         for k in graph:
             k.launches = 0
@@ -1415,18 +1462,20 @@ def examples_phase(device="cuda", log=print):
         with call_shapes() as shapes:
             mod.main(device=device)
         flash, decode = attn_counters()
+        attn = (flash, decode, flash_attention_bwd_cuda)
         recs[name] = {
             "seconds": time.perf_counter() - t0,
-            "launches": {k.__name__: k.launches for k in graph + (
-                flash, decode)},
+            "launches": {k.__name__: k.launches for k in graph + attn},
             "attention_routes": {k.__name__: dict(k.launches_by_route)
-                                 for k in (flash, decode)},
+                                 for k in attn},
             "launches_by_call_shape": {f"{k} {c}": n for (k, c), n in
                                        sorted(shapes.items())}}
         log(f"phase examples_{name}: {json.dumps(recs[name])}")
     for name, k in (("quickstart", "spmv_blocked_cuda"),
                     ("serve_lm", "flash_attention_cuda"),
-                    ("serve_lm", "decode_attention_cuda")):
+                    ("serve_lm", "decode_attention_cuda"),
+                    ("train_lm", "flash_attention_cuda"),
+                    ("train_lm", "flash_attention_bwd_cuda")):
         need(recs[name]["launches"][k] > 0 or device != "cuda",
              f"examples: {name} did not launch {k}")
     return recs
@@ -1469,6 +1518,45 @@ HOST_IBSP_PACKS = 1
 # instances, a depth cut taken when over all 3 packs they took 137 s of a
 # 1,113 s smoke on one H100
 SPARSE_LOAD_PACKS = 1
+# time packs of the session's run of the streamed delta route (sparse
+# override, fused; 70-85 s over all 3 packs, a whole pool read per pack)
+SESSION_DELTA_PACKS = 1
+# time packs of each cluster worker's SSSP in the kernel mode its auto
+# plans did not pick (phase 6c's third pass; about 15 s over all 3)
+CLUSTER_OTHER_MODE_PACKS = 1
+
+
+def first_packs(root, packs):
+    """(instances, time range) of the first ``packs`` time packs of the
+    deployment at ``root``: a ``GoFSStore(time_range=...)`` prefix, over
+    which a sequential run equals the whole run's first instances."""
+    from repro_torch.gofs import GoFSStore
+
+    meta = GoFSStore(root).meta
+    ts = meta["timestamps"]
+    n = min(len(ts), packs * int(meta["instances_per_slice"]))
+    return n, (float(ts[0]), float(ts[n - 1]) + 1.0)
+
+
+def same_prefix(got, whole, n, what):
+    """``got``, a sequential run over the first ``n`` instances, bitwise
+    equal to ``whole``'s first ``n`` (values, counts) and its ``final`` to
+    ``whole``'s instance ``n - 1``.  ``got``/``whole``: dicts of
+    ``values``, ``final``, ``supersteps`` and, where kept,
+    ``local_sweeps``."""
+    import numpy as np
+
+    need(len(got["values"]) == n, f"{what}: {len(got['values'])} "
+                                  f"instances, not {n}")
+    need(np.array_equal(got["values"], whole["values"][:n], equal_nan=True),
+         f"{what}: values differ from the whole run's first {n}")
+    need(np.array_equal(got["final"], whole["values"][n - 1],
+                        equal_nan=True),
+         f"{what}: final differs from the whole run's instance {n - 1}")
+    for k in ("supersteps", "local_sweeps"):
+        if k in got:
+            need(np.array_equal(got[k], whole[k][..., :n]),
+                 f"{what}: {k} differ from the whole run's first {n}")
 
 
 def gofs_path(cfg, keep, device="cuda", log=print, card=None):
@@ -1725,6 +1813,13 @@ def gofs_path(cfg, keep, device="cuda", log=print, card=None):
 
         # 6. the Gopher session on the same deployment
         keep["session_held"] = {}
+        for name, packs in (("session_delta_route_instances",
+                             SESSION_DELTA_PACKS),
+                            ("cluster_other_mode_instances",
+                             CLUSTER_OTHER_MODE_PACKS)):
+            n_cut = min(I, packs * ipack)
+            if n_cut < I:
+                recs["cut"][name] = n_cut
         recs["session"] = session_phase(
             root, tmpl, want={"spmv": dense_store_run,
                               "fused": mem["sssp"]["fused"],
@@ -1773,7 +1868,8 @@ def session_phase(root, tmpl, want, device="cuda", log=print, held=None):
     """The Gopher session on the GoFS deployment at full width and depth
     (``GopherSession(store).plan/run/run_many``), held against phase 6's
     explicit engine runs in ``want``: SSSP bitwise in both kernel modes
-    and on the streamed delta route, PageRank within
+    and on the streamed delta route (over the first SESSION_DELTA_PACKS
+    time packs, against step 1's first instances), PageRank within
     :func:`plus_mul_limit`, N-hop's histograms equal to the oracle's.
     Then the query axis through the session: SSSP with the query phase's
     32 sources streamed from the store, every lane bitwise equal to the
@@ -1911,22 +2007,31 @@ def session_phase(root, tmpl, want, device="cuda", log=print, held=None):
             if cuda:
                 torch.cuda.empty_cache()
 
-            # 4. the sparse override: the streamed delta route, fused
-            sess = GopherSession(GoFSStore(root), device=device)
+            # 4. the sparse override: the streamed delta route, fused, over
+            # the first SESSION_DELTA_PACKS time packs (a time_range prefix)
+            n_d, window = first_packs(root, SESSION_DELTA_PACKS)
+            sess = GopherSession(GoFSStore(root, time_range=window),
+                                 device=device)
             plan_d = sess.plan("sssp", source=0, layout="sparse",
                                kernel="fused")
             need(not cuda or (plan_d.delta.value is True
                               and plan_d.staging.value == "async"),
                  "session sparse plan: not the streamed delta route")
             r4 = step("sssp_delta_fused", sess, lambda: sess.run(plan_d))
-            same(r4.engine, r1.engine, "sssp (sparse delta, fused)")
+
+            def run_dict(e):
+                return dict(values=e.values, final=e.final, **{
+                    k: e.stats[k] for k in ("supersteps", "local_sweeps")})
+
+            same_prefix(run_dict(r4.engine), run_dict(r1.engine), n_d,
+                        "session sssp (sparse delta, fused)")
             st = recs["sssp_delta_fused"]
             up = sum(v["uploaded_bytes"] for v in st["stream"].values())
-            st.update(source_bytes=st["report"]["staged_bytes"],
-                      staged_bytes=up,
-                      occupancy=r4.engine.occupancy)
-            log(f"phase session_delta_bytes: source {st['source_bytes']} "
-                f"staged {up}")
+            st.update(instances=n_d,
+                      source_bytes=st["report"]["staged_bytes"],
+                      staged_bytes=up, occupancy=r4.engine.occupancy)
+            log(f"phase session_delta_bytes: {n_d} instances, source "
+                f"{st['source_bytes']} staged {up}")
             del sess
             if cuda:
                 torch.cuda.empty_cache()
@@ -2058,13 +2163,17 @@ def cluster_worker(spec) -> int:
     SPEC``): ``repro_torch.launch.cluster_graph.worker_run`` on its shard
     with the graph kernels' launches counted by call shape and by walk,
     then SSSP again in each kernel mode its auto plans did not launch,
-    held bitwise against its first SSSP.  Writes its record beside its
-    ``.npz``."""
+    over the first CLUSTER_OTHER_MODE_PACKS time packs, held bitwise
+    against its first SSSP's first instances.  Writes its record beside
+    its ``.npz``."""
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
 
     from repro_torch.cluster.runtime import init_cluster
+    from repro_torch.configs import get_graph_config
+    from repro_torch.gofs import GoFSStore
+    from repro_torch.gopher import GopherSession
     from repro_torch.kernels.semiring_spmm.kernel import spmv_blocked_cuda
     from repro_torch.kernels.semiring_superstep.kernel import \
         fused_step_cuda
@@ -2082,14 +2191,21 @@ def cluster_worker(spec) -> int:
             results = cg.worker_run(args, rt)
             auto = {k.__name__: k.launches for k in kernels.values()}
             others = [m for m, k in kernels.items() if k.launches == 0]
+            cfg = get_graph_config(args.size)
+            n, window = first_packs(args.deploy, CLUSTER_OTHER_MODE_PACKS)
             for mode in others:
-                _cfg, sess = cg.open_session(args, rt, use_pallas=mode)
+                store = GoFSStore(args.deploy, cache_slots=args.cache_slots,
+                                  vertex_projection=("plate",
+                                                     "outdeg_active"),
+                                  edge_projection=("latency", "active"),
+                                  time_range=window)
+                sess = GopherSession(store, block_size=cfg.block_size,
+                                     device=args.device, cluster=rt,
+                                     use_pallas=mode)
                 again = cg.run_apps(sess, ["sssp"])["sssp"]
-                for key in ("values", "final", "supersteps"):
-                    need(cg.same_bits(again[key], results["sssp"][key]),
-                         f"worker {rt.process_id}: sssp ({mode}) {key} "
-                         f"differs from its auto plan's")
-                del sess
+                same_prefix(again, results["sssp"], n,
+                            f"worker {rt.process_id}: sssp ({mode})")
+                del sess, store
         seconds = time.perf_counter() - t0
         rec = {
             "process_id": rt.process_id,
@@ -2101,6 +2217,7 @@ def cluster_worker(spec) -> int:
             "launches": {k.__name__: k.launches for k in kernels.values()},
             "auto_plan_launches": auto,
             "rerun_modes": others,
+            "rerun_instances": n,
             "launches_by_call_shape": {
                 f"{k} {c}": n for (k, c), n in sorted(shapes.items())},
             "launches_by_walk": check_walks(
@@ -2131,7 +2248,9 @@ def cluster_phase(root, cfg, held, device="cuda", log=print):
     through ``shard_stream``; their SSSP and PageRank are held bitwise
     against phase 6's session runs (``held``), their staged bytes below
     the single-process session's, and their launches, by call shape and
-    by walk, must reach both graph kernels.  Then a checkpointed SSSP
+    by walk, must reach both graph kernels on every worker (the other
+    mode's SSSP over the first CLUSTER_OTHER_MODE_PACKS time packs, held
+    bitwise in the worker).  Then a checkpointed SSSP
     (spans of RESUME_CHUNK) in a child process that dies in its second
     span; exactly one snapshot must be committed, and the resumed run
     must be bitwise equal to phase 6's session SSSP.  Returns the phase's
@@ -2212,6 +2331,7 @@ def cluster_phase(root, cfg, held, device="cuda", log=print):
             host_peak_rss_gb=[w["host_peak_rss_gb"] for w in workers],
             peak_device_gb=[w["peak_device_gb"] for w in workers],
             rerun_modes=[w["rerun_modes"] for w in workers],
+            rerun_instances=[w["rerun_instances"] for w in workers],
             launches=launches, launches_by_call_shape=by_shape,
             launches_by_walk=[w["launches_by_walk"] for w in workers],
             worker_launches_by_call_shape=[w["launches_by_call_shape"]
@@ -2259,7 +2379,8 @@ def cluster_phase(root, cfg, held, device="cuda", log=print):
             "processes", "parts", "wall_seconds", "worker_seconds",
             "exchange", "staged_bytes_per_host",
             "staged_bytes_single_process", "host_peak_rss_gb",
-            "peak_device_gb", "rerun_modes", "killed_child_seconds",
+            "peak_device_gb", "rerun_modes", "rerun_instances",
+            "killed_child_seconds",
             "resume_seconds", "snapshots_after_kill")}))
     log(f"cluster path launches: {json.dumps(recs['launches'])}")
     log("cluster path launches by call shape: "
@@ -3362,12 +3483,15 @@ def attn_counters():
 
 
 def reset_attn_launches():
-    """Both attention kernels' launch counts, in total and by route, to 0."""
+    """The attention kernels' launch counts (flash, decode and the flash
+    backward), in total and by route, to 0."""
     from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.flash_attention import bwd
     from repro_torch.kernels.flash_attention import kernel as flash
 
     flash.reset_launches()
     decode.reset_launches()
+    bwd.reset_launches()
 
 
 @contextlib.contextmanager
@@ -3478,6 +3602,41 @@ def serve_path(device="cuda", log=print):
             "shapes": shapes}
 
 
+def profile_window(name, fn, log=print, top=12, phase="serve_profile"):
+    """``torch.profiler`` over one call of ``fn``: the host wall time, the
+    device time the profiler saw (the sum of the kernels' own times), the
+    device's idle share of the wall time, the kernels that took the most
+    device time, and every attention kernel of the port."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side entries only (kernels, copies): the host ops that
+    # launched them carry the same time again
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    rec = {"wall_ms": wall * 1e3, "device_ms": busy,
+           "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
+           "device_launches": sum(r[1] for r in rows),
+           "top": [{"ms": ms, "calls": n, "name": k[:90]}
+                   for ms, n, k in rows[:top]],
+           "attention": [{"ms": ms, "calls": n, "name": k[:90]}
+                         for ms, n, k in rows if "attn_" in k]}
+    log(f"phase {phase} {name}: {json.dumps(rec)}")
+    if not busy:
+        log("  the profiler saw no device time")
+    return rec
+
+
 def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
     """Where the serving time goes: ``torch.profiler`` over one prefill of
     the SERVE_BATCH prompts and over ``n_decode`` decode steps.  Prints,
@@ -3488,8 +3647,6 @@ def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
     combine launch, which the top rows may leave out)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import decode_step, init_serve_cache, prefill
 
@@ -3498,33 +3655,10 @@ def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
     toks = np.stack(lm["prompts"][:B])
     nxt = np.array([[o[0]] for o in lm["outs"][:B]], np.int32)
     cache = init_serve_cache(cfg, B, S + n_decode + 8, device=device)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
 
     def window(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side entries only (kernels, copies): the host ops that
-        # launched them carry the same time again
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
-        busy = sum(r[0] for r in rows)
-        rec = {"wall_ms": wall * 1e3, "device_ms": busy,
-               "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
-               "device_launches": sum(r[1] for r in rows),
-               "top": [{"ms": ms, "calls": n, "name": k[:90]}
-                       for ms, n, k in rows[:top]],
-               "attention": [{"ms": ms, "calls": n, "name": k[:90]}
-                             for ms, n, k in rows if "attn_kernels::" in k]}
-        out[name] = rec
-        log(f"phase serve_profile {name}: {json.dumps(rec)}")
-        if not busy:
-            log("  the profiler saw no device time")
+        out[name] = profile_window(name, fn, log, top)
 
     def run_prefill():
         nonlocal cache
@@ -3843,6 +3977,441 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: LM training (starcoder2-7b at full width), the backward kernel
+# ---------------------------------------------------------------------------
+
+# starcoder2-7b at full width, TRAIN_4K's sequence (configs/base.py), cut in
+# depth, batch and steps (each cut on the ``train path cuts`` line)
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS = "starcoder2-7b", 4, 4, 4
+TRAIN_PARAMS = 1_321_288_704  # 4 layers + embed + head + ln_f at full width
+TRAIN_FLASH_ROUTE, TRAIN_BWD_ROUTE = "bf16_wgmma", "bf16_mma_sync"
+# (B, S, H, K, d, window, dtype) of the backward against its plain
+# version: the training layer's shape at batch 1 (window = S: the mask is
+# causal only), a windowed case where the controls run, d 32 and 64 with
+# S not a multiple of a block, a float32 case
+BWD_CASES = [
+    (1, 4096, 36, 4, 128, 4096, "bfloat16"),
+    (1, 1000, 36, 4, 128, 256, "bfloat16"),
+    (2, 333, 8, 2, 64, 100, "bfloat16"),
+    (2, 201, 8, 4, 32, 0, "bfloat16"),
+    (1, 257, 9, 1, 128, 64, "float32"),
+]
+BWD_CONTROL_CASE = 1  # the windowed case: its window bites
+
+
+def grad_limit(ref, tol):
+    """Elementwise limit on |kernel - plain| for an attention gradient (last
+    dim the head dim): ``tol * (|ref| + 2 * max(row mean, tensor mean)
+    |ref|)``, a row being one query's dq or one key's dk or dv of one
+    head.  Unlike :func:`attn_limit`'s forward rows, which average V and
+    stay of order 1, a gradient row sums the terms of every query or key
+    it meets (thousands at the training shape, of the row's own size), so
+    its absolute part scales with the row's mean uncapped: the kernel's
+    bf16 rounding of P and dS leaves errors of that size on entries whose
+    terms cancel.  The row mean is floored at the tensor's mean, since a
+    row can be exactly 0 (dq of a causal head's first query: one visible
+    key makes dS vanish).  The wrong controls exceed it many times."""
+    import torch
+
+    a = ref.abs()
+    row = torch.maximum(a.mean(dim=-1, keepdim=True), a.mean())
+    return tol * (a + 2.0 * row)
+
+
+def grad_compare(got, want, tol, what):
+    """Hold (dq, dk, dv) against the plain backward within
+    :func:`grad_limit`.  Returns (max abs error, largest share of the
+    limit used)."""
+    import torch
+
+    err_max, used_max = 0.0, 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        need(a.shape == b.shape, f"{what} {name}: shape {tuple(a.shape)}")
+        need(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite")
+        err = (a.float() - b.float()).abs()
+        used = float((err / grad_limit(b.float(), tol)).max())
+        need(used <= 1.0, f"{what} {name}: max abs error {float(err.max())}"
+                          f" is {used:.3g}x the limit of grad_limit")
+        err_max, used_max = max(err_max, float(err.max())), max(used_max,
+                                                                used)
+    return err_max, used_max
+
+
+def same_tensors(a, b) -> bool:
+    """Bit for bit (NaN included)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(view), b.view(view))
+
+
+def train_path(card, device="cuda", log=print):
+    """The LM training path: starcoder2-7b at full width cut to
+    TRAIN_LAYERS layers, ``train_loop`` for TRAIN_STEPS steps of
+    TRAIN_BATCH sequences of TRAIN_4K's 4,096 tokens (bf16 compute,
+    float32 masters and moments, ``remat="full"``), weights from seed 0.
+    Every loss and gradient norm finite, no step skipped; kernel 3's
+    launches (by route) and the backward's counted on this run.  Then one
+    more step under ``torch.profiler`` (:func:`profile_window`), one
+    ``AsyncCheckpointer`` snapshot of the trained state into a temporary
+    directory, restored and compared bit for bit, and deleted; then a NaN
+    control: NaN masters must give ``skipped = 1`` with parameters and
+    moments bitwise unchanged."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import opt_state_to_numpy, params_to_numpy
+    from repro_torch.models.model import flat_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step
+
+    full = get_config(TRAIN_ARCH)
+    cfg = full.with_overrides(num_layers=TRAIN_LAYERS)
+    S = TRAIN_4K.seq_len
+    need(cfg.remat == "full" and cfg.dtype == "bfloat16"
+         and cfg.param_dtype == "float32",
+         f"train: {cfg.name} is not bf16 compute over float32 masters with "
+         f"full remat")
+    log("train path cuts: " + json.dumps({
+        "layers": [full.num_layers, TRAIN_LAYERS],
+        "global_batch": [TRAIN_4K.global_batch, TRAIN_BATCH],
+        "steps": TRAIN_STEPS, "seq_len": S,
+        "width": "full (d_model 4608, 36 heads over 4, d_ff 18432, vocab "
+                 "49152)"}))
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attn_launches()
+    t0 = time.perf_counter()
+    out = train_loop(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                     seq_len=S, device=device, oc=oc, log_every=1, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash_routes = dict(flash_attention_cuda.launches_by_route)
+    bwd_routes = dict(flash_attention_bwd_cuda.launches_by_route)
+    launches = {"flash_attention_cuda": flash_attention_cuda.launches,
+                "flash_attention_bwd_cuda": flash_attention_bwd_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model, opt_state = out["params"], out["opt_state"]
+    n_params = sum(p.numel() for p in flat_leaves(model)[0])
+    steps, prev = [], 0.0
+    for h in out["history"]:
+        secs = h["seconds"] - prev
+        prev = h["seconds"]
+        steps.append({"step": h["step"], "loss": h["loss"],
+                      "grad_norm": h["grad_norm"], "lr": h["lr"],
+                      "skipped": h["skipped"], "seconds": secs,
+                      "tokens_per_s": TRAIN_BATCH * S / secs})
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "seconds": wall, "steps": steps, "peak_GB": peak,
+           "launches": launches,
+           "flash_launches_by_route": flash_routes,
+           "bwd_launches_by_route": bwd_routes, "card": card}
+    log(f"phase train: {json.dumps(rec)}")
+    need(n_params == TRAIN_PARAMS, f"train: {n_params} parameters, not "
+                                   f"{TRAIN_PARAMS}")
+    need(len(steps) == TRAIN_STEPS, "train: steps lost")
+    need(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+             for h in steps), "train: a non-finite loss or gradient norm")
+    need(not any(h["skipped"] for h in steps), "train: a step was skipped")
+    for k, v in launches.items():
+        need(v > 0, f"{k} was not launched on the training path")
+    n_fwd = 2 * cfg.num_layers * TRAIN_STEPS  # full remat: twice a layer
+    need(flash_routes[TRAIN_FLASH_ROUTE] == launches["flash_attention_cuda"]
+         == n_fwd, f"train: the flash launches took the routes "
+                   f"{flash_routes}, not {n_fwd} {TRAIN_FLASH_ROUTE}")
+    n_bwd = cfg.num_layers * TRAIN_STEPS
+    need(bwd_routes[TRAIN_BWD_ROUTE] == launches["flash_attention_bwd_cuda"]
+         == n_bwd, f"train: the backward launches took the routes "
+                   f"{bwd_routes}, not {n_bwd} {TRAIN_BWD_ROUTE}")
+
+    # where a step's time goes: one more step under the profiler (the
+    # snapshot below is of the state after it)
+    from repro_torch.train.data import SyntheticLMDataset
+
+    data = SyntheticLMDataset(cfg.vocab_size, S, TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in data.batch_at(TRAIN_STEPS).items()}
+    step_fn = make_train_step(cfg, oc)
+    prof = profile_window("step", lambda: step_fn(model, opt_state, batch),
+                          log, phase="train_profile")
+    rec["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms",
+                                           "idle_share")}
+
+    # one asynchronous snapshot, restored and compared bit for bit
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        saver = ckpt.AsyncCheckpointer(root, keep=1)
+        t0 = time.perf_counter()
+        state = {"params": params_to_numpy(model),
+                 "opt": opt_state_to_numpy(model, opt_state)}
+        saver.save(opt_state["step"], state)
+        t_snap = time.perf_counter() - t0
+        saver.wait()
+        t_write = time.perf_counter() - t0 - t_snap
+        n_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(root) for f in fs)
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore(root, state)
+        t_read = time.perf_counter() - t0
+        # ``state`` is the live state's host copy (nothing has run since)
+        names = [n for n, _ in ckpt._flatten_with_paths(state)]
+        same = all(np.array_equal(a, b) for (_, a), (_, b) in zip(
+            ckpt._flatten_with_paths(state),
+            ckpt._flatten_with_paths(restored)))
+        del state, restored
+        crec = {"seconds_snapshot": t_snap, "seconds_write": t_write,
+                "seconds_restore": t_read, "bytes": n_bytes,
+                "leaves": len(names), "step": step, "bitwise": same}
+        log(f"phase train_checkpoint: {json.dumps(crec)}")
+        need(same and step == opt_state["step"],
+             "train: the restored checkpoint differs from the live state")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the NaN guard on the same model: NaN masters, one step
+    params = flat_leaves(model)[0]
+    with torch.no_grad():
+        for p in params:
+            p.fill_(float("nan"))
+    before = [t.clone() for t in params + opt_state["mu"] + opt_state["nu"]]
+    t0 = time.perf_counter()
+    _, _, m = step_fn(model, opt_state, batch)
+    torch.cuda.synchronize()
+    after = params + opt_state["mu"] + opt_state["nu"]
+    unchanged = all(same_tensors(a, b) for a, b in zip(before, after))
+    nrec = {"seconds": time.perf_counter() - t0,
+            "skipped": float(m["skipped"]),
+            "grad_norm": float(m["grad_norm"]), "unchanged": unchanged}
+    log(f"phase train_nan_control: {json.dumps(nrec)}")
+    need(nrec["skipped"] == 1.0 and unchanged,
+         "train: NaN masters were not skipped with the state unchanged")
+    del before, after, params, model, opt_state, out
+    torch.cuda.empty_cache()
+    return {"train": rec, "launches": launches,
+            "routes": {"flash_attention_cuda": flash_routes,
+                       "flash_attention_bwd_cuda": bwd_routes}}
+
+
+def train_kernel_report(train, card, rate, device="cuda", log=print):
+    """The flash backward against its plain version on the card over
+    BWD_CASES (bf16 within :func:`grad_limit` at the bf16 tol, float32 at
+    the float32 tol; each case launched twice, bit for bit), kernel 3's
+    ``lse`` (its output with ``return_lse`` bit for bit the output without,
+    its ``lse`` within 1e-5 of the plain log-sum-exp), and two wrong
+    backwards that must fail the limit (no window mask, no D term).  Then
+    both at the training layer's shape (B = TRAIN_BATCH), the backward
+    held there too within :func:`grad_limit` against the plain float32
+    backward on the same inputs: device ms, eager ms, plain ms, the bound,
+    and one PyTorch call as a yardstick, its forward for kernel 3 and its
+    backward for the backward: SDPA on the flash backend with
+    ``is_causal`` (GQA by ``enable_gqa``) where the window does not cut,
+    which computes the same function (``library_ms``), and SDPA with the
+    mask on the memory-efficient backend (``library_masked_ms``).
+    Returns the backward's ``kernels`` row and kernel 3's training
+    record."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def inputs(B, S, H, K, d, dt):
+        dt = getattr(torch, dt)
+        q, do = (torch.randn(B, S, H, d, generator=gen, device=device).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, K, d, generator=gen, device=device).to(dt)
+                for _ in range(2))
+        return q, k, v, do
+
+    t0 = time.perf_counter()
+    sweep = []
+    for i, case in enumerate(BWD_CASES):
+        B, S, H, K, d, w, dt = case
+        q, k, v, do = inputs(B, S, H, K, d, dt)
+        kw = dict(causal=True, window=w)
+        o0 = flash_attention_cuda(q, k, v, **kw)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        need(same_tensors(o0, o), f"flash {case}: the output with lse "
+                                  f"differs from the output without")
+        f = [t.float() for t in (q, k, v)]
+        _, lse_p = mha_ref(*f, return_lse=True, **kw)
+        lse_err = float((lse - lse_p).abs().max())
+        need(lse_err <= 1e-5 * max(1.0, float(lse_p.abs().max())),
+             f"flash {case}: lse off by {lse_err}")
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        need(all(same_tensors(a, b) for a, b in zip(got, again)),
+             f"flash backward {case}: two launches differ")
+        f += [o.float(), lse, do.float()]
+        want = mha_bwd_ref(*f, **kw)
+        err, used = grad_compare(got, want, ATTN_TOL[dt],
+                                 f"flash backward {case}")
+        rec = {"case": list(case), "max_abs_err": err, "limit_used": used,
+               "lse_err": lse_err, "repeat_bitwise": True}
+        if i == BWD_CONTROL_CASE:
+            controls = {
+                "no window mask": mha_bwd_ref(*f, causal=True, window=0),
+                "no D term": mha_bwd_ref(f[0], f[1], f[2],
+                                         torch.zeros_like(f[3]), f[4], f[5],
+                                         **kw)}
+            rec["controls_limit_used"] = {}
+            for name, wrong in controls.items():
+                share = max(float(((a.float() - c).abs()
+                                   / grad_limit(c, ATTN_TOL[dt])).max())
+                            for a, c in zip(got, wrong))
+                need(share > 1.0, f"flash backward: the control '{name}' "
+                                  f"stays within the limit ({share:.3g}x)")
+                rec["controls_limit_used"][name] = share
+        sweep.append(rec)
+        log(f"  flash backward {case}: {json.dumps(rec)}")
+        del q, k, v, do, o, lse, got, again, want, f
+        torch.cuda.empty_cache()
+
+    # timing at the training layer's shape
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_4K.seq_len
+    H, K, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.sliding_window
+    q, k, v, do = inputs(B, S, H, K, d, cfg.dtype)
+    kw = dict(causal=True, window=w)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    pairs = B * H * visible_pairs(S, S, 0, w)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def bound(moved, ops):
+        t_bytes, t_ops = moved / rate, ops / BF16_RATE
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    G = H // K
+    qx, kx, vx = (t.transpose(1, 2).detach().requires_grad_(True) for t in (
+        q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - w)
+    dox = do.transpose(1, 2)
+
+    def sdpa(backend, *qkv, **how):
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(*qkv, **how)
+
+    masked = (SDPBackend.EFFICIENT_ATTENTION, dict(attn_mask=mask))
+    sd_out = sdpa(masked[0], qx, kx, vx, **masked[1])
+    lib = {"masked": "efficient backend, the mask, K/V repeated"}
+    if not w or w >= S:  # causal alone: the flash backend's own path
+        kg, vg = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (k, v))
+        try:
+            causal = (SDPBackend.FLASH_ATTENTION,
+                      dict(is_causal=True, enable_gqa=True))
+            fl_in = (qx, kg, vg)
+            fl_out = sdpa(causal[0], *fl_in, **causal[1])
+            lib["causal"] = "flash backend, is_causal, enable_gqa"
+        except RuntimeError as e:  # no GQA there: K/V repeated
+            causal = (SDPBackend.FLASH_ATTENTION, dict(is_causal=True))
+            fl_in = (qx, kx, vx)
+            fl_out = sdpa(causal[0], *fl_in, **causal[1])
+            lib["causal"] = (f"flash backend, is_causal, K/V repeated "
+                             f"(enable_gqa: {str(e).splitlines()[0]})")
+        lib_fwd = [(causal, fl_in), (masked, (qx, kx, vx))]
+        lib_bwd = [(fl_out, fl_in), (sd_out, (qx, kx, vx))]
+    else:
+        lib_fwd, lib_bwd = [(masked, (qx, kx, vx))], [(sd_out, (qx, kx, vx))]
+
+    def sdpa_fwd(how, qkv):
+        return lambda: sdpa(how[0], *(t.detach() for t in qkv), **how[1])
+
+    def sdpa_bwd(out, qkv):
+        return lambda: torch.autograd.grad(out, qkv, dox, retain_graph=True)
+
+    def library(fns, **kw):
+        """library_ms (the first yardstick) and library_masked_ms."""
+        ms = [cuda_ms(fn, graph=False, **kw) for fn in fns]
+        return {"library_ms": ms[0], "library_masked_ms": ms[-1],
+                "library": lib}
+
+    fwd_ms, fwd_bound = cuda_ms(lambda: flash_attention_cuda(
+        q, k, v, return_lse=True, **kw), reps=10), bound(
+        nbytes(q, k, v, o, lse), 4 * d * pairs)
+    fwd = {"call": f"train layer (B={B}, S={S}, window={w}), with lse",
+           "ms": fwd_ms, "eager_ms": cuda_ms(lambda: flash_attention_cuda(
+               q, k, v, return_lse=True, **kw), reps=10, graph=False),
+           "plain_ms": cuda_ms(lambda: mha_ref(q, k, v, return_lse=True,
+                                               **kw), reps=2, graph=False),
+           **library([sdpa_fwd(*a) for a in lib_fwd], reps=5),
+           "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+           "flop": 4 * d * pairs, "card": card}
+    log(f"  flash_attention_cuda train layer: {json.dumps(fwd)}")
+    moved = nbytes(q, k, v, o, lse, do) + nbytes(q, k, v)
+    b_ms, b_by = bound(moved, 10 * d * pairs)
+    call = f"train layer (B={B}, S={S}, window={w})"
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = mha_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                       do.float(), **kw)
+    t_err, t_used = grad_compare(got, want, ATTN_TOL[cfg.dtype],
+                                 f"flash backward {call}")
+    del got, want
+    bwd = {"call": call, "max_abs_err": t_err, "limit_used": t_used,
+           "ms": cuda_ms(lambda: flash_attention_bwd_cuda(
+               q, k, v, o, lse, do, **kw), reps=10),
+           "eager_ms": cuda_ms(lambda: flash_attention_bwd_cuda(
+               q, k, v, o, lse, do, **kw), reps=10, graph=False),
+           "plain_ms": cuda_ms(lambda: mha_bwd_ref(q, k, v, o, lse, do,
+                                                   **kw),
+                               reps=2, warm=1, graph=False),
+           **library([sdpa_bwd(*a) for a in lib_bwd], reps=5, warm=1),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
+           "flop": 10 * d * pairs, "pairs": pairs}
+    log(f"  flash_attention_bwd_cuda train layer: {json.dumps(bwd)}")
+    del q, k, v, do, o, lse, qx, kx, vx, sd_out, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
+    log(f"phase train_kernel_timing: {json.dumps({'seconds': time.perf_counter() - t0})}")
+    row = {
+        "name": "flash_attention_bwd_cuda", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:41 (no TPU kernel: "
+                    "jax.value_and_grad through chunked_attention)",
+        "launches": train["launches"]["flash_attention_bwd_cuda"],
+        "launches_by_route": train["routes"]["flash_attention_bwd_cuda"],
+        "max_abs_err": max(r["max_abs_err"] for r in sweep + [bwd]),
+        "limit_used": max(r["limit_used"] for r in sweep + [bwd]),
+        "ms": bwd["ms"], "eager_ms": bwd["eager_ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+        "library_masked_ms": bwd["library_masked_ms"],
+        "hot_call": bwd["call"], "calls": sweep + [bwd], "card": card,
+        "train_route": TRAIN_BWD_ROUTE,
+    }
+    return row, {"train_launches": train["launches"]["flash_attention_cuda"],
+                 "train_launches_by_route":
+                     train["routes"]["flash_attention_cuda"],
+                 "train_route": TRAIN_FLASH_ROUTE, "train_call": fwd,
+                 "lse_max_err": max(r["lse_err"] for r in sweep)}
+
+
 
 def main() -> int:
     try:
@@ -4069,6 +4638,16 @@ def main() -> int:
     lm.clear()
     torch.cuda.empty_cache()
     report += attention_report(shapes, launches, routes, card, rate)
+    # 11. LM training, launches counted (inside train_path), then the
+    # backward kernel against its plain version and timed
+    t0 = time.perf_counter()
+    train = train_path(card, "cuda")
+    print(f"phase train_path: {json.dumps({'seconds': time.perf_counter() - t0})}")
+    bwd_row, flash_train = train_kernel_report(train, card, rate)
+    for rec in report:
+        if rec["name"] == "flash_attention_cuda":
+            rec.update(flash_train)
+    report.append(bwd_row)
     for rec in report:  # the examples phase's launches of each kernel
         rec.setdefault("mesh_launches", 0)  # attention: not on the mesh
         rec["examples_launches"] = {

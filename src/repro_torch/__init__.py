@@ -1,5 +1,5 @@
-"""GoFFish temporal graph analytics, and its dense LM serving stack, on
-PyTorch and CUDA (NVIDIA Hopper).
+"""GoFFish temporal graph analytics, and its dense LM serving and training
+stack, on PyTorch and CUDA (NVIDIA Hopper).
 
 A port of the JAX/Pallas package ``repro`` that mirrors its module names:
 ``repro_torch.core.engine`` is the counterpart of ``repro.core.engine``,
@@ -21,9 +21,13 @@ What is here so far:
   prefill and decode over a KV cache), ``dist.sharding`` (embed and head
   on one device), ``train.serve_step`` and ``launch.serve``
   (``BatchedServer``);
-* four hand-written CUDA kernels for ``sm_90a`` — the blocked semiring
-  SpMV, the fused superstep stage, flash attention (prefill) and decode
-  attention (``kernels/``), each beside its plain PyTorch version.
+* dense LM training: ``models.forward_train``, ``train`` (data, AdamW,
+  the train step, checkpoints), ``dist.compression`` and
+  ``launch.train``;
+* five hand-written CUDA kernels for ``sm_90a`` — the blocked semiring
+  SpMV, the fused superstep stage, flash attention (prefill and the
+  training forward), its backward, and decode attention (``kernels/``),
+  each beside its plain PyTorch version.
 
 Entry points (``TemporalEngine``, ``device_graph``,
 ``init_model_params``, ``params_from_numpy``, ``init_serve_cache``) run

@@ -1,2 +1,3 @@
-"""Single-device counterparts of ``repro.dist`` (the mesh waits for
-multi-GPU)."""
+"""Single-device counterparts of ``repro.dist``: embed, head and loss
+(``sharding``), gradient compression (``compression``) and the boundary
+exchange's cost model (``collectives``)."""

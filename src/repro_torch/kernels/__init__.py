@@ -10,6 +10,7 @@ sources live in ``csrc/`` and are built at first use by ``_build.py``.
 * ``semiring_superstep`` — fused sweep + semiring combine + halt vote.
 * ``walk_plan``          — the two graph kernels' work list (runs cut
   into chunks, one CTA each), built once per tile index.
-* ``flash_attention``    — prefill attention (causal, sliding window, GQA).
+* ``flash_attention``    — prefill and training attention (causal,
+  sliding window, GQA; optional log-sum-exp) and its backward (``bwd``).
 * ``decode_attention``   — one new token against the KV cache (split-S).
 """

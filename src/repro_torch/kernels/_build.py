@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-One shared library holds all four kernels: the semiring SpMV and fused
-superstep of the graph engine, and the flash (prefill) and decode
-attention of the LM serving path.  At first use, ``nvcc`` compiles every
+One shared library holds all the kernels: the semiring SpMV and fused
+superstep of the graph engine, the flash (prefill and training forward)
+and decode attention of the LM serving path, and the flash backward of
+LM training.  At first use, ``nvcc`` compiles every
 ``csrc/*.cu`` into one object each (all compiles started together), links
 them into the library with a plain C interface, and the library is loaded
 with ``ctypes``.  The build
@@ -132,10 +133,13 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         i32, i32, i32, vp]
     lib.fused_step_f32.restype = i32
     f32 = ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, *[i32] * 6,
+    lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, vp, *[i32] * 6,
                                         *[i64] * 8, i32, i32, i32, f32, i32,
                                         ctypes.POINTER(i32), vp]
     lib.flash_attention_fwd.restype = i32
+    lib.flash_attention_bwd.argtypes = [vp] * 10 + [i32] * 9 + [
+        f32, i32, ctypes.POINTER(i32), vp]
+    lib.flash_attention_bwd.restype = i32
     lib.decode_attention_fwd.argtypes = [vp] * 7 + [i32] * 5 + [i64] * 6 + [
         i32, i32, f32, i32, ctypes.POINTER(i32), vp]
     lib.decode_attention_fwd.restype = i32

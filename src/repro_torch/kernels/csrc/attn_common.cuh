@@ -15,6 +15,9 @@ namespace attn_kernels {
 // correction exp(m_prev - m_new) = 0, as in the reference.
 constexpr float NEG_INF = -1e30f;
 
+// -inf: the log-sum-exp of a query row that sees no key
+__device__ __forceinline__ float neg_inf() { return __int_as_float((int)0xff800000u); }
+
 template <class T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;

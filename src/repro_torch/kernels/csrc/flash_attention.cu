@@ -9,7 +9,11 @@
 // query head h reads KV head h / G: no repeated or transposed copy.
 // Online softmax with float32 (acc, m, l); p is rounded to bf16 before p.v
 // and l sums the unrounded p; the output is acc / max(l, 1e-30), in q's
-// type.  Replaces the TPU kernel flash_attention_pallas
+// type.  Given a non-null ``lse`` (float32 (B, H, Sq)), every route also
+// writes m + log l of each query row in the natural-log scale of the
+// scaled logits, -inf for a row that sees no key: the statistic the
+// backward kernel (flash_attention_bwd.cu) recomputes p from.  With a null
+// pointer (serving) nothing else changes.  Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention/kernel.py:86).
 //
 // Three routes, picked by (dtype, d) alone (flash_route below):
@@ -69,6 +73,7 @@ constexpr int kStages = 3;
 constexpr int kThreads = 384;  // 2 consumer warpgroups + 1 producer
 constexpr int kHalfQ = BM * 128;   // bytes of a 64-column half of the Q tile
 constexpr int kHalfKV = BN * 128;  // the same of a K or V tile
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Layout {  // byte offsets from a 1024-byte aligned base
@@ -328,8 +333,9 @@ __global__ void __launch_bounds__(wg::kThreads, 1) flash_fwd_bf16_wgmma(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, uint16_t* __restrict__ o,
-    int Sq, int Skv, int Kh, int G, int nqb, long long o_bs, long long o_rs,
-    int causal, int window, int q_offset, float sl2) {
+    float* __restrict__ lse, int Sq, int Skv, int Kh, int G, int nqb,
+    long long o_bs, long long o_rs, int causal, int window, int q_offset,
+    float sl2) {
   using namespace wg;
   using L = Layout<D>;
   constexpr int HALVES = D / 64;
@@ -508,6 +514,16 @@ __global__ void __launch_bounds__(wg::kThreads, 1) flash_fwd_bf16_wgmma(
     l_r0 += __shfl_xor_sync(0xffffffffu, l_r0, 2);
     l_r1 += __shfl_xor_sync(0xffffffffu, l_r1, 1);
     l_r1 += __shfl_xor_sync(0xffffffffu, l_r1, 2);
+    if (lse != nullptr && t == 0) {
+      // m is kept unscaled: m scale + log l = (m sl2 + log2 l) ln 2
+      float* lrow = lse + ((long long)b * Kh * G + h) * Sq;
+      if (r0 < Sq)
+        lrow[r0] = sm.m0 <= NEG_INF ? neg_inf()
+                                    : (sm.m0 * sl2 + log2f(l_r0)) * kLn2;
+      if (r0 + 8 < Sq)
+        lrow[r0 + 8] = sm.m1 <= NEG_INF ? neg_inf()
+                                        : (sm.m1 * sl2 + log2f(l_r1)) * kLn2;
+    }
     l_r0 = fmaxf(l_r0, 1e-30f);
     l_r1 = fmaxf(l_r1, 1e-30f);
     // acc[4c + e]: row r0 + 8 * (e >> 1), dim 8c + 2t + (e & 1)
@@ -557,10 +573,11 @@ __device__ __forceinline__ void load_kv_block(uint16_t* sK, uint16_t* sV,
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS) flash_fwd_bf16_small(
     const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-    const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int Sq, int Skv,
-    int G, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-    long long v_bs, long long v_rs, long long o_bs, long long o_rs,
-    int causal, int window, int q_offset, float scale) {
+    const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Skv, int G, long long q_bs,
+    long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+    long long v_rs, long long o_bs, long long o_rs, int causal, int window,
+    int q_offset, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* smem = reinterpret_cast<uint16_t*>(smem_raw);
   constexpr int LD = D + 8;
@@ -703,6 +720,10 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_bf16_small(
   for (int rr = 0; rr < 2; ++rr) {
     l_r[rr] += __shfl_xor_sync(0xffffffffu, l_r[rr], 1);
     l_r[rr] += __shfl_xor_sync(0xffffffffu, l_r[rr], 2);
+    const int r = r0 + rr * 8;
+    if (lse != nullptr && t == 0 && r < Sq)
+      lse[((long long)b * gridDim.y + h) * Sq + r] =
+          m_r[rr] <= NEG_INF ? neg_inf() : m_r[rr] + logf(l_r[rr]);
     l_r[rr] = fmaxf(l_r[rr], 1e-30f);
   }
 #pragma unroll
@@ -727,10 +748,11 @@ constexpr int FBN = 32;  // keys per block
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS) flash_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-    int G, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-    long long v_bs, long long v_rs, long long o_bs, long long o_rs,
-    int causal, int window, int q_offset, float scale) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Skv, int G, long long q_bs,
+    long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+    long long v_rs, long long o_bs, long long o_rs, int causal, int window,
+    int q_offset, float scale) {
   constexpr int C4 = D / 4;   // float4 per row
   constexpr int NC = D / 16;  // float4 per thread: chunks c*4 + part
   __shared__ float4 sK[FBN][C4];
@@ -815,6 +837,9 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_f32(
     }
   }
   if (r < Sq) {
+    if (lse != nullptr && part == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + r] =
+          m <= NEG_INF ? neg_inf() : m + logf(l);
     l = fmaxf(l, 1e-30f);
     float4* o4 = reinterpret_cast<float4*>(o + b * o_bs + (long long)r * o_rs +
                                            (long long)h * D);
@@ -837,7 +862,8 @@ inline int flash_route(int dtype, int D) {
 
 template <int D>
 cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v,
-                               void* o, int B, int Sq, int Skv, int H, int Kh,
+                               void* o, float* lse, int B, int Sq, int Skv,
+                               int H, int Kh,
                                const long long* st, int causal, int window,
                                int q_offset, float scale, cudaStream_t s) {
   using L = wg::Layout<D>;
@@ -862,14 +888,14 @@ cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v,
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   constexpr float kLog2e = 1.4426950408889634f;
   flash_fwd_bf16_wgmma<D><<<(unsigned)ctas, wg::kThreads, L::kSmem, s>>>(
-      mq, mk, mv, (uint16_t*)o, Sq, Skv, Kh, G, nqb, st[6], st[7], causal,
+      mq, mk, mv, (uint16_t*)o, lse, Sq, Skv, Kh, G, nqb, st[6], st[7], causal,
       window, q_offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Skv, int H, int G,
+                         float* lse, int B, int Sq, int Skv, int H, int G,
                          const long long* st, int causal, int window,
                          int q_offset, float scale, int dtype,
                          cudaStream_t s) {
@@ -887,13 +913,13 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
     const dim3 grid((Sq + BM - 1) / BM, H, B);
     flash_fwd_bf16_small<D><<<grid, FA_THREADS, smem, s>>>(
         (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
-        (uint16_t*)o, Sq, Skv, G, st[0], st[1], st[2], st[3], st[4], st[5],
+        (uint16_t*)o, lse, Sq, Skv, G, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], causal, window, q_offset, scale);
   } else {
     const dim3 grid((Sq + FBM - 1) / FBM, H, B);
     flash_fwd_f32<D><<<grid, FA_THREADS, 0, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-        G, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], causal,
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
+        Skv, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], causal,
         window, q_offset, scale);
   }
   return cudaGetLastError();
@@ -905,9 +931,12 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
 // Strides are in elements: batch and row (sequence) strides of q, k, v, o;
 // the head dim is contiguous and heads are packed (stride d).  ``route``
 // receives the route taken (0 float32, 1 bf16 mma.sync, 2 bf16 wgmma)
-// before the launch.  Returns cudaGetLastError() after the launch.
+// before the launch.  ``lse`` is null or a float32 (B, H, Sq) buffer that
+// receives each row's log-sum-exp.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int Sq,
     int Skv, int H, int K, int D, long long q_bs, long long q_rs,
     long long k_bs, long long k_rs, long long v_bs, long long v_rs,
     long long o_bs, long long o_rs, int causal, int window, int q_offset,
@@ -921,19 +950,20 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = (cudaStream_t)stream;
   const int r = flash_route(dtype, D);
   *route = r;
+  float* l = (float*)lse;
   cudaError_t e;
   if (r == ROUTE_BF16_WGMMA) {
     if (D == 128)
-      e = launch_flash_wgmma<128>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window, q_offset, scale, s);
+      e = launch_flash_wgmma<128>(q, k, v, o, l, B, Sq, Skv, H, K, st, causal, window, q_offset, scale, s);
     else
-      e = launch_flash_wgmma<64>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window, q_offset, scale, s);
+      e = launch_flash_wgmma<64>(q, k, v, o, l, B, Sq, Skv, H, K, st, causal, window, q_offset, scale, s);
     return (int)e;
   }
   switch (D) {
-    case 16: e = launch_flash<16>(q, k, v, o, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
-    case 32: e = launch_flash<32>(q, k, v, o, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
-    case 64: e = launch_flash<64>(q, k, v, o, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
-    case 128: e = launch_flash<128>(q, k, v, o, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
+    case 16: e = launch_flash<16>(q, k, v, o, l, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
+    case 32: e = launch_flash<32>(q, k, v, o, l, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
+    case 64: e = launch_flash<64>(q, k, v, o, l, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
+    case 128: e = launch_flash<128>(q, k, v, o, l, B, Sq, Skv, H, G, st, causal, window, q_offset, scale, dtype, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)e;

@@ -36,6 +36,14 @@ Rows that see no key at all (only possible when ``q_offset + Sq >
 Skv + window``, never on the serving path) get 0 where their whole query
 block sees none, as in the TPU kernel.
 
+With ``return_lse=True`` (the training forward, ``models.attention``'s
+``FlashAttentionFn``) every route also writes each row's log-sum-exp
+``m + log l`` (float32 (B, H, Sq), natural log of the scaled logits, -inf
+for a row that sees no key), which the backward kernel
+(``bwd.flash_attention_bwd_cuda``) recomputes the probabilities from.
+Without it the kernel is given a null pointer and computes what it
+computed before, bit for bit.
+
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises.
 """
@@ -84,11 +92,13 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
-) -> torch.Tensor:
-    """Attention of q over k/v; returns ``(B, Sq, H, d)`` in q's type."""
+    return_lse: bool = False,
+):
+    """Attention of q over k/v; returns ``(B, Sq, H, d)`` in q's type, and
+    with ``return_lse`` also the float32 ``(B, H, Sq)`` log-sum-exp."""
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window,
-                       q_offset=q_offset)
+                       q_offset=q_offset, return_lse=return_lse)
     _need(q.device.type == "cuda",
           f"tensors on {q.device} (need cuda, or cpu for the plain version)")
     _need(q.ndim == 4 and k.ndim == 4 and v.ndim == 4,
@@ -112,12 +122,17 @@ def flash_attention_cuda(
     _check_heads_layout(v, "v", _need)
     _need(window >= 0 and q_offset >= 0, "window and q_offset must be >= 0")
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.numel() == 0 or Skv == 0:
-        return o.zero_()
+        o.zero_()
+        if lse is None:
+            return o
+        return o, lse.fill_(float("-inf"))
     route = ctypes.c_int(-1)
     code = _build.library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Sq, Skv, H, K, d,
+        None if lse is None else lse.data_ptr(), B, Sq, Skv, H, K, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         int(causal), int(window), int(q_offset), 1.0 / math.sqrt(d),
@@ -126,7 +141,7 @@ def flash_attention_cuda(
     _build.check(code, "flash_attention_cuda")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_route[ROUTES[route.value]] += 1
-    return o
+    return o if lse is None else (o, lse)
 
 
 def reset_launches() -> None:

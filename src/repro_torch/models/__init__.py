@@ -1,18 +1,25 @@
-"""Dense LM serving stack (counterpart of ``repro.models``, dense family):
-``layers`` (norms, MLPs, RoPE), ``attention`` (GQA over a KV cache,
-through the flash and decode kernels), ``transformer`` (the layer stack)
-and ``model`` (parameters, cache, prefill, decode)."""
+"""Dense LM stack (counterpart of ``repro.models``, dense family):
+``layers`` (norms, MLPs, RoPE), ``attention`` (GQA through the flash and
+decode kernels, with a KV cache for serving and without one, with a
+gradient, for training), ``transformer`` (the layer stack, its remat
+policies) and ``model`` (parameters, the training forward, cache, prefill,
+decode)."""
 from repro_torch.models.model import (
     decode_step,
+    forward_train,
     init_model_params,
     init_serve_cache,
     model_schema,
+    opt_state_from_numpy,
+    opt_state_to_numpy,
     params_from_numpy,
+    params_to_numpy,
     prefill,
 )
 from repro_torch.models.transformer import DecoderLM
 
 __all__ = [
-    "DecoderLM", "decode_step", "init_model_params", "init_serve_cache",
-    "model_schema", "params_from_numpy", "prefill",
+    "DecoderLM", "decode_step", "forward_train", "init_model_params",
+    "init_serve_cache", "model_schema", "opt_state_from_numpy",
+    "opt_state_to_numpy", "params_from_numpy", "params_to_numpy", "prefill",
 ]

@@ -1,24 +1,31 @@
-"""GQA self-attention with a KV cache, routed through the attention kernels
-(counterpart of ``repro.models.attention``).
+"""GQA self-attention, with a KV cache (serving) or without (training),
+routed through the attention kernels (counterpart of
+``repro.models.attention``).
 
 The reference computes attention with ``chunked_attention``, an
 online-softmax jnp path over KV chunks that its docstring calls
 mathematically identical to flash attention and the large-shape oracle of
 its Pallas kernels.  Here ``chunked_attention`` stays as the plain oracle
-on tensors, and the serving path runs the kernels, which compute the same
-function:
+on tensors, and serving and training run the kernels, which compute the
+same function:
 
 * prefill (``Sq > 1``): the new K/V go into the cache, then the flash
   kernel runs q (the new tokens) over cache slots ``[0, len + Sq)`` with
   ``q_offset = len``, causal, window ``cfg.sliding_window``;
 * decode (``Sq == 1``): the new K/V go into the cache, then the decode
-  kernel runs with ``lengths = len + 1``.
+  kernel runs with ``lengths = len + 1``;
+* training (no cache): :class:`FlashAttentionFn` runs the flash kernel
+  over the layer's own K/V, causal, window ``cfg.sliding_window``, with
+  its log-sum-exp, and its backward runs the flash backward kernel
+  (``kernels/flash_attention/bwd.py``), the gradient the reference takes
+  by differentiating ``chunked_attention``.  On CPU tensors both
+  directions run the plain versions.
 
-Both take slot index as position, which holds in dense serving: slot i
-holds the token at position i, and the reference masks unwritten slots
-(``pos = -2^30``), which all lie at or past ``len``.  The reference's
-window test ``kpos > qpos - window`` is the decode kernel's ``pos >
-length - 1 - window``.  Callers pass positions ``len + arange(Sq)`` (what
+The serving kernels take slot index as position, which holds in dense
+serving: slot i holds the token at position i, and the reference masks
+unwritten slots (``pos = -2^30``), which all lie at or past ``len``.
+The reference's window test ``kpos > qpos - window`` is the decode
+kernel's ``pos > length - 1 - window``.  Callers pass positions ``len + arange(Sq)`` (what
 ``models.model.prefill``/``decode_step`` do).
 
 Unlike the reference, ``cache_update`` writes into the cache in place and
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.superstep import resolve_device
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.flash_attention.bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.models.layers import ParamDef, apply_rope
 
@@ -179,6 +187,29 @@ def cache_update(
     return layer_cache
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal (optionally windowed) self-attention of q over k/v at
+    positions ``arange(S)``, with a gradient: the forward is the flash
+    kernel with its log-sum-exp, the backward the flash backward kernel.
+    q (B, S, H, d), k/v (B, S, K, d); returns (B, S, H, d)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_cuda(q, k, v, causal=True, window=window,
+                                      q_offset=0, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=True, window=ctx.window, q_offset=0)
+        return dq, dk, dv, None
+
+
 def apply_attention(
     p,
     x: torch.Tensor,  # (B, Sq, d)
@@ -189,16 +220,16 @@ def apply_attention(
     window: Optional[int] = None,
     rope: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal self-attention over a KV cache through the attention kernels.
-    Returns (output (B, Sq, d), the updated layer cache).  Of the
-    reference's options, only those dense serving sets are ported: other
-    families (logit softcap, bidirectional prefix, cross-attention) and the
+    """Causal self-attention through the attention kernels: over a KV cache
+    (serving), or without one over the layer's own tokens (training; the
+    caller passes positions ``arange(Sq)``, as ``models.model``'s
+    ``forward_train`` does).  Returns (output (B, Sq, d), the updated
+    layer cache, None without one).  Of the reference's options, only
+    those the dense family sets are ported: other families (logit
+    softcap, bidirectional prefix, cross-attention) and the
     tensor-parallel decode wait in ROADMAP.md queue 1."""
     if cfg.attn_logit_softcap > 0.0:
         raise _not_ported("attention logit softcap", "9: other LM families")
-    if layer_cache is None:
-        raise _not_ported("attention without a KV cache (training)",
-                          "10: LM training")
     B, Sq, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -210,7 +241,9 @@ def apply_attention(
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
     win = int(window) if window is not None else 0
-    if Sq == 1:
+    if layer_cache is None:
+        out = FlashAttentionFn.apply(q, k, v, win)
+    elif Sq == 1:
         layer_cache = cache_update(layer_cache, k, v, positions,
                                    layer_cache["len"])
         kc, vc = layer_cache["k"], layer_cache["v"]

@@ -1,31 +1,40 @@
-"""Dense LM serving: parameters, cache, prefill and decode (counterpart of
-``repro.models.model``, dense family).
+"""Dense LM: parameters, the training forward, cache, prefill and decode
+(counterpart of ``repro.models.model``, dense family).
 
 Public surface:
   model_schema(cfg)                        -> the reference's param schema
-  init_model_params(cfg, generator, device) -> DecoderLM, random weights
-  params_from_numpy(tree, cfg, device)     -> DecoderLM from the reference's
-                                              parameter tree (numpy)
+  init_model_params(cfg, generator, device, trainable) -> DecoderLM,
+                                              random weights
+  params_from_numpy(tree, cfg, device, trainable) -> DecoderLM from the
+                                              reference's parameter tree
+  params_to_numpy(model)                   -> the reference's tree (numpy)
+  train_leaves(model)                      -> the masters, by reference leaf
+  opt_state_from_numpy / opt_state_to_numpy -> optimizer state <-> the
+                                              reference's ``{mu, nu, step}``
+  forward_train(model, batch)              -> (loss, metrics)
   init_serve_cache(cfg, batch, max_len, dtype, device) -> KV cache
   prefill(model, batch)                    -> (last-token logits, cache)
   decode_step(model, batch)                -> (logits, cache)
 
 The reference keeps float32 parameters and casts each matmul weight to
-``cfg.dtype`` at every use (``x @ p["wq"].astype(dt)``).  The port casts
-them once, when the model is built, which gives the same values; embed,
-head and norm parameters stay float32, and the head is applied in float32
-as the reference's ``_masked_logits`` does.  Training, the mesh and the
-other families are not ported (ROADMAP.md queue 1).
+``cfg.dtype`` at every use (``x @ p["wq"].astype(dt)``).  For serving the
+port casts them once, when the model is built, which gives the same
+values; embed, head and norm parameters stay float32, and the head is
+applied in float32 as the reference's ``_masked_logits`` does.  A
+trainable model keeps every parameter a float32 master and casts at
+every use, as the reference does.  The mesh and the other families are
+not ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.superstep import resolve_device
-from repro_torch.dist.sharding import embed_lookup, lm_head_logits
+from repro_torch.dist.sharding import (embed_lookup, lm_head_logits,
+                                       lm_head_loss)
 from repro_torch.models import transformer
 from repro_torch.models.layers import ParamDef, apply_norm, init_leaf
 from repro_torch.models.transformer import DecoderLM
@@ -46,13 +55,14 @@ def model_schema(cfg) -> Any:
     return transformer.decoder_schema(cfg)
 
 
-def _build(cfg, leaf: Callable[[Tuple[str, ...], ParamDef], torch.Tensor]
-           ) -> DecoderLM:
+def _build(cfg, leaf: Callable[[Tuple[str, ...], ParamDef], torch.Tensor],
+           trainable: bool = False) -> DecoderLM:
     """DecoderLM from ``leaf(path, ParamDef)`` -> float32 tensor, one leaf
-    at a time (each matmul weight is cast before the next is made, so the
-    float32 tree never exists whole)."""
+    at a time (for serving, each matmul weight is cast before the next is
+    made, so the float32 tree never exists whole; a trainable model keeps
+    the float32 masters)."""
     sch = model_schema(cfg)
-    dt = getattr(torch, cfg.dtype)
+    dt = torch.float32 if trainable else getattr(torch, cfg.dtype)
     embed = leaf(("embed",), sch["embed"])
     layer_sch = transformer.layer_schema(cfg)
     layers = []
@@ -65,27 +75,31 @@ def _build(cfg, leaf: Callable[[Tuple[str, ...], ParamDef], torch.Tensor]
             for grp, defs in layer_sch.items()})
     ln_f = {n: leaf(("ln_f", n), pd) for n, pd in sch["ln_f"].items()}
     head = None if cfg.tie_embeddings else leaf(("head",), sch["head"])
-    return DecoderLM(cfg, embed, layers, ln_f, head)
+    return DecoderLM(cfg, embed, layers, ln_f, head, trainable=trainable)
 
 
 def init_model_params(cfg, generator: torch.Generator = None,
-                      device="cuda") -> DecoderLM:
+                      device="cuda", trainable: bool = False) -> DecoderLM:
     """Random weights by the reference's init laws, drawn from
     ``generator`` (a seeded ``torch.Generator`` on ``device``; seed 0 when
     None).  The draws differ from the reference's: for parity, build the
-    model from the reference's weights with :func:`params_from_numpy`."""
+    model from the reference's weights with :func:`params_from_numpy`.
+    ``trainable`` builds float32 masters that require gradients."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
-    return _build(cfg, lambda path, pd: init_leaf(pd, generator, dev))
+    return _build(cfg, lambda path, pd: init_leaf(pd, generator, dev),
+                  trainable)
 
 
-def params_from_numpy(tree: Dict, cfg, device="cuda") -> DecoderLM:
+def params_from_numpy(tree: Dict, cfg, device="cuda",
+                      trainable: bool = False) -> DecoderLM:
     """DecoderLM from the reference's parameter tree as numpy arrays:
     ``embed``, ``groups.dense.{ln1, attn.{wq, wk, wv, wo}, ln2,
-    mlp.{wi, wo}}`` (stacked over the layers), ``ln_f`` and ``head``."""
+    mlp.{wi, wo}}`` (stacked over the layers), ``ln_f`` and ``head``.
+    ``trainable`` builds float32 masters that require gradients."""
     dev = resolve_device(device)
     sch = model_schema(cfg)
 
@@ -104,7 +118,137 @@ def params_from_numpy(tree: Dict, cfg, device="cuda") -> DecoderLM:
                              f"{stacked_shape.shape}")
         return torch.tensor(arr if layer is None else arr[layer], device=dev)
 
-    return _build(cfg, leaf)
+    return _build(cfg, leaf, trainable)
+
+
+def train_leaves(model: DecoderLM) -> List[Tuple[str, List[torch.Tensor]]]:
+    """The parameters by leaf of the reference's tree, in the order its
+    checkpoints flatten it (keys sorted): ``(name, tensors)`` with the
+    name's keys joined by ``/`` and one tensor per layer for a leaf
+    stacked under ``groups/dense``, else one.  The optimizer state's lists
+    follow the concatenated order."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, ParamDef):
+            name = "/".join(path)
+            if path[0] == "groups":
+                out.append((name, [getattr(model.layers[i], path[2])[path[3]]
+                                   for i in range(len(model.layers))]))
+            elif path[0] == "ln_f":
+                out.append((name, [model.ln_f[path[1]]]))
+            else:
+                out.append((name, [getattr(model, path[0])]))
+            return
+        for k in sorted(node):
+            walk(node[k], path + (k,))
+
+    walk(model_schema(model.cfg), ())
+    return out
+
+
+def flat_leaves(model: DecoderLM) -> Tuple[List[torch.Tensor], List[bool]]:
+    """The masters in :func:`train_leaves` order, and for each whether the
+    reference's optimizer decays it (its leaf in the reference's tree has
+    two dimensions or more: every stacked layer leaf, embed and head)."""
+    params, decay = [], []
+    for name, ts in train_leaves(model):
+        for t in ts:
+            params.append(t)
+            decay.append(name.startswith("groups/") or t.ndim >= 2)
+    return params, decay
+
+
+def _set_leaf(tree: Dict, name: str, value) -> None:
+    keys = name.split("/")
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = value
+
+
+def _get_leaf(tree: Dict, name: str):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _stacked_to_numpy(model: DecoderLM, lists: List[torch.Tensor]) -> Dict:
+    """Tensors in :func:`train_leaves` order -> the reference's tree of
+    float32 numpy arrays, each tensor copied once, straight into its slot
+    of the stacked array (numpy has no bfloat16: bf16 widens exactly)."""
+    tree, i = {}, 0
+    for name, ts in train_leaves(model):
+        part = lists[i:i + len(ts)]
+        i += len(ts)
+        stacked = name.startswith("groups/")
+        arr = np.empty(((len(part),) if stacked else ())
+                       + tuple(part[0].shape), np.float32)
+        for j, t in enumerate(part):
+            torch.from_numpy(arr[j] if stacked else arr).copy_(t.detach())
+        _set_leaf(tree, name, arr)
+    return tree
+
+
+def params_to_numpy(model: DecoderLM) -> Dict:
+    """The reference's parameter tree of ``model`` as numpy arrays, layer
+    leaves stacked under ``groups/dense``: what its ``init_model_params``
+    returns and its checkpoints store under ``params``."""
+    return _stacked_to_numpy(model, flat_leaves(model)[0])
+
+
+def opt_state_to_numpy(model: DecoderLM, state: Dict[str, Any]) -> Dict:
+    """Optimizer state as the reference's ``{"mu", "nu", "step"}`` tree
+    (moments shaped as the parameter tree, step an int32 scalar), what its
+    checkpoints store under ``opt``.  bfloat16 moments are stored widened
+    to float32 (numpy has no bfloat16) and narrowed exactly on restore."""
+    return {"mu": _stacked_to_numpy(model, state["mu"]),
+            "nu": _stacked_to_numpy(model, state["nu"]),
+            "step": np.asarray(state["step"], dtype=np.int32)}
+
+
+def opt_state_from_numpy(tree: Dict, model: DecoderLM, oc) -> Dict[str, Any]:
+    """The port's optimizer state (moments in ``oc.state_dtype`` on the
+    model's device, in :func:`train_leaves` order) from the reference's
+    ``{"mu", "nu", "step"}`` tree."""
+    dt = getattr(torch, oc.state_dtype)
+
+    def moments(sub):
+        out = []
+        for name, ts in train_leaves(model):
+            arr = np.asarray(_get_leaf(sub, name))
+            parts = list(arr) if name.startswith("groups/") else [arr]
+            if len(parts) != len(ts) or any(
+                    p.shape != tuple(t.shape) for p, t in zip(parts, ts)):
+                raise ValueError(f"opt state {name}: shape {arr.shape} "
+                                 f"does not fit the model")
+            out += [torch.tensor(np.asarray(p, dtype=np.float32),
+                                 device=model.device).to(dt) for p in parts]
+        return out
+
+    return {"mu": moments(tree["mu"]), "nu": moments(tree["nu"]),
+            "step": int(np.asarray(tree["step"]))}
+
+
+def forward_train(model: DecoderLM, batch: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training forward of the dense family: mean next-token
+    cross-entropy of ``batch["labels"]`` given ``batch["tokens"]`` (both
+    (B, S) ints), every layer under ``cfg.remat``.  Returns (loss,
+    ``{"loss", "ce", "aux"}``); ``aux`` is 0 for the dense family."""
+    cfg = model.cfg
+    _check_family(cfg)
+    dt = getattr(torch, cfg.dtype)
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    labels = torch.as_tensor(batch["labels"], device=model.device)
+    B, S = tokens.shape
+    x = embed_lookup(model.embed, tokens).to(dt)
+    x, _ = transformer.apply_stack(model, x,
+                                   positions=_positions(B, S, model.device))
+    x = apply_norm(model.ln_f, x, cfg)
+    loss_ce = lm_head_loss(x, model.head, labels, valid_vocab=cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=model.device)
+    loss = loss_ce + cfg.moe.aux_loss_weight * aux
+    return loss, {"loss": loss, "ce": loss_ce, "aux": aux}
 
 
 def init_serve_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

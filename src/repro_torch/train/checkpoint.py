@@ -1,4 +1,4 @@
-"""GoFS-style atomic checkpoints (counterpart of the atomic-rename half of
+"""GoFS-style atomic checkpoints (counterpart of
 ``repro.train.checkpoint``).
 
 Each leaf of a state dict is a *slice file* (``.npy``), a *manifest*
@@ -13,11 +13,12 @@ Fault-tolerance contract:
     rename);
   * ``list_steps`` and ``restore`` skip incomplete step directories (no
     manifest = not committed; ``.tmp`` = never renamed);
-  * retention keeps the newest K checkpoints.
+  * retention keeps the newest K checkpoints;
+  * ``AsyncCheckpointer.save`` snapshots to host memory synchronously and
+    writes on a background thread, so the train loop is not I/O-bound.
 
 State dicts hold numpy arrays, tensors (moved to the host) or scalars,
-nested in dicts, lists and tuples.  The background writer
-(``AsyncCheckpointer``) comes with LM training (ROADMAP item 10).
+nested in dicts, lists and tuples.
 
 >>> import numpy as np, tempfile
 >>> d = tempfile.mkdtemp()
@@ -33,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -159,5 +161,54 @@ def restore(
 
             arrays.append(torch.from_numpy(arr).to(leaf.dtype))
         else:
-            arrays.append(arr.astype(np.asarray(leaf).dtype))
+            arrays.append(arr.astype(np.asarray(leaf).dtype, copy=False))
     return _unflatten(like, iter(arrays)), step
+
+
+def _snapshot(tree: Any) -> Any:
+    """``tree`` with every leaf a host numpy array; tensors are copied (a
+    CPU tensor's memory would otherwise be shared with the array, and the
+    train step updates its parameters in place)."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_snapshot(v) for v in tree)
+    if tree is None:
+        return None
+    if hasattr(tree, "detach") and tree.device.type == "cpu":
+        return tree.detach().numpy().copy()
+    return _to_host(tree)
+
+
+class AsyncCheckpointer:
+    """Snapshot-on-host, write-in-background checkpointer.  ``save`` waits
+    for the previous write, snapshots ``state`` to host numpy and starts a
+    thread that writes it with :func:`save` (atomic, with retention
+    ``keep``); ``wait`` joins it and re-raises the writer's error."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[BaseException] = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise err
+
+    def save(self, step: int, state: Dict[str, Any], **kw) -> None:
+        self.wait()
+        snapshot = _snapshot(state)
+
+        def work():
+            try:
+                save(self.ckpt_dir, step, snapshot, keep=self.keep, **kw)
+            except BaseException as e:  # surfaced on the next wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()

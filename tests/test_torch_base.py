@@ -275,7 +275,11 @@ def test_import_loads_no_jax():
         "repro_torch.core.temporal, repro_torch.core.comm, "
         "repro_torch.examples.quickstart, repro_torch.examples.temporal_sssp, "
         "repro_torch.examples.vehicle_tracking, "
-        "repro_torch.examples.serve_lm\n"
+        "repro_torch.examples.serve_lm, repro_torch.examples.train_lm, "
+        "repro_torch.train, repro_torch.train.data, "
+        "repro_torch.train.optimizer, repro_torch.train.train_step, "
+        "repro_torch.dist.compression, repro_torch.launch.train, "
+        "repro_torch.kernels.flash_attention.bwd\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -679,6 +679,194 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch, dtype, tol):
 
 
 # ---------------------------------------------------------------------------
+# LM training: the flash forward's log-sum-exp, the backward kernel, a step
+# ---------------------------------------------------------------------------
+
+def grad_limit(ref, tol):
+    """Elementwise limit on |kernel - plain| for an attention gradient (last
+    dim the head dim): ``tol * (|ref| + 2 * max(row mean, tensor mean)
+    |ref|)``, a row being one query's dq or one key's dk or dv of one
+    head.  Unlike :func:`attn_limit`'s forward rows, which average V and
+    stay of order 1, a gradient row sums the terms of every query or key
+    it meets (thousands at the training shape, of the row's own size), so
+    its absolute part scales with the row's mean uncapped: the kernel's
+    bf16 rounding of P and dS leaves errors of that size on entries whose
+    terms cancel.  The row mean is floored at the tensor's mean, since a
+    row can be exactly 0 (dq of a causal head's first query: one visible
+    key makes dS vanish).  The wrong controls exceed it many times."""
+    a = ref.abs()
+    row = torch.maximum(a.mean(dim=-1, keepdim=True), a.mean())
+    return tol * (a + 2.0 * row)
+
+
+BWD_CASES = [
+    # (B, S, H, K, d, window, dtype)
+    (1, 300, 36, 4, 128, 128, torch.bfloat16),  # G = 9, the training d
+    (2, 100, 8, 2, 64, 0, torch.bfloat16),
+    (1, 77, 4, 2, 32, 20, torch.bfloat16),  # S not a multiple of a block
+    (2, 50, 4, 1, 16, 0, torch.bfloat16),
+    (1, 129, 4, 2, 128, 50, torch.float32),
+    (2, 37, 4, 4, 64, 0, torch.float32),
+    (1, 45, 9, 1, 32, 7, torch.float32),
+    (1, 33, 2, 2, 16, 0, torch.float32),
+]
+
+
+def _bwd_inputs(cuda, B, S, H, K, d, dt, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(B, S, H, d, generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, K, d, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_lse_and_backward_match_plain(cuda, case):
+    """Kernel 3 with ``return_lse`` gives the output without it bit for bit
+    and the plain log-sum-exp within 1e-5; the backward kernel's dq, dk,
+    dv are within :func:`grad_limit` of the plain backward in float32 on
+    the same inputs, and a second launch gives the same bits."""
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    B, S, H, K, d, w, dt = case
+    q, k, v, do = _bwd_inputs(cuda, B, S, H, K, d, dt, S)
+    kw = dict(causal=True, window=w)
+    o0 = flash_attention_cuda(q, k, v, **kw)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o0, o)
+    _, lse_p = mha_ref(q.float(), k.float(), v.float(), return_lse=True, **kw)
+    assert float((lse - lse_p).abs().max()) <= 1e-5 * max(
+        1.0, float(lse_p.abs().max()))
+    before = dict(flash_attention_bwd_cuda.launches_by_route)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    route = "bf16_mma_sync" if dt == torch.bfloat16 else "f32"
+    assert flash_attention_bwd_cuda.launches_by_route[route] == \
+        before[route] + 2
+    want = mha_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                       do.float(), **kw)
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == dt and torch.equal(a, b)
+        err = (a.float() - c).abs()
+        assert bool((err <= grad_limit(c, ATTN_TOL[dt])).all()), float(
+            err.max())
+
+
+def test_flash_backward_controls_fail_the_limit(cuda):
+    """A backward without the window mask, and one without the D term,
+    exceed :func:`grad_limit`: the check sees such defects."""
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+
+    q, k, v, do = _bwd_inputs(cuda, 1, 300, 36, 4, 128, torch.bfloat16, 1)
+    o, lse = flash_attention_cuda(q, k, v, window=64, return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=64)
+    f = [t.float() for t in (q, k, v, o, lse, do)]
+    no_window = mha_bwd_ref(*f, window=0)
+    no_d = mha_bwd_ref(*f[:3], torch.zeros_like(f[3]), f[4], f[5],
+                       window=64)
+    for wrong in (no_window, no_d):
+        assert any(bool(((a.float() - c).abs()
+                         > grad_limit(c, 2e-2)).any())
+                   for a, c in zip(got, wrong))
+
+
+def test_flash_backward_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+
+    q, k, v, do = _bwd_inputs(cuda, 1, 8, 2, 1, 16, torch.bfloat16, 2)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd_cuda(q[..., :8], k[..., :8], v[..., :8],
+                                 q[..., :8], lse, do[..., :8])
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, k, v, q, lse.half(), do)
+    with pytest.raises(ValueError, match="share"):
+        flash_attention_bwd_cuda(q, k, v, q.float(), lse, do)
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step of reduced starcoder2-7b on the card (flash
+    forward and backward kernels) == the same step on the CPU (plain
+    versions) within 1e-4: metrics, parameters and moments."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.models import init_model_params, params_to_numpy
+    from repro_torch.models.model import flat_leaves, params_from_numpy
+    from repro_torch.train.data import SyntheticLMDataset
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("starcoder2-7b").reduced().with_overrides(
+        dtype="float32", remat="full")
+    oc = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4, eps=1.0)
+    tree = params_to_numpy(init_model_params(
+        cfg, torch.Generator().manual_seed(0), "cpu", trainable=True))
+    batch = SyntheticLMDataset(cfg.vocab_size, 96, 2).batch_at(0)
+    out = []
+    before = (flash_attention_cuda.launches, flash_attention_bwd_cuda.launches)
+    for dev in ("cpu", cuda):
+        m = params_from_numpy(tree, cfg, device=dev, trainable=True)
+        st = init_opt_state(flat_leaves(m)[0], oc)
+        m, st, met = make_train_step(cfg, oc)(m, st, batch)
+        out.append((met, [t.detach().cpu() for t in flat_leaves(m)[0]
+                          + st["mu"] + st["nu"]]))
+    # full remat: the forward runs twice a layer, the backward once
+    assert flash_attention_cuda.launches == before[0] + 2 * cfg.num_layers
+    assert flash_attention_bwd_cuda.launches == before[1] + cfg.num_layers
+    for key in ("loss", "grad_norm", "lr", "skipped"):
+        np.testing.assert_allclose(float(out[1][0][key]),
+                                   float(out[0][0][key]), rtol=1e-4)
+    for a, b in zip(out[1][1], out[0][1]):
+        tol = 1e-4 * max(float(a.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_policies_on_card_match_none(cuda, remat):
+    """The training forward and backward on the card under ``remat``
+    (``torch.utils.checkpoint``, and the selective policy that keeps the
+    matmul outputs around the flash Function) give the loss and gradients
+    of ``remat="none"`` (float32 reduced starcoder2-7b; within 1e-5 of
+    each leaf's largest, since the embedding's gradient sums with
+    atomics on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (forward_train, init_model_params,
+                                    params_to_numpy)
+    from repro_torch.models.model import flat_leaves, params_from_numpy
+    from repro_torch.train.data import SyntheticLMDataset
+
+    cfg = get_config("starcoder2-7b").reduced().with_overrides(
+        dtype="float32")
+    tree = params_to_numpy(init_model_params(
+        cfg, torch.Generator().manual_seed(1), "cpu", trainable=True))
+    batch = SyntheticLMDataset(cfg.vocab_size, 80, 2).batch_at(1)
+    out = []
+    for r in ("none", remat):
+        m = params_from_numpy(tree, cfg.with_overrides(remat=r), device=cuda,
+                              trainable=True)
+        loss, _ = forward_train(m, batch)
+        loss.backward()
+        out.append((float(loss), [p.grad.cpu() for p in flat_leaves(m)[0]]))
+    assert abs(out[0][0] - out[1][0]) <= 1e-6 * abs(out[0][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            float(a.abs().max()), 1e-30)
+
+
+# ---------------------------------------------------------------------------
 # async and streamed staging on the card (pinned ring, side-stream copies)
 # ---------------------------------------------------------------------------
 

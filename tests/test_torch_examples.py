@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.examples import (quickstart, serve_lm, temporal_sssp,
-                                  vehicle_tracking)
+                                  train_lm, vehicle_tracking)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -113,10 +113,53 @@ def test_serve_lm_serves_the_reference_requests(capsys):
     assert got[5] == "✓ batched serving"
 
 
+class _Tiny:
+    """A stand-in for ``get_config("glm4-9b")`` whose ``with_overrides``
+    gives the reduced glm4-9b (4 layers, d 128, vocab 512) whatever the
+    example asks: both examples then train the same small model on the
+    CPU in seconds (their own sizes take minutes a run)."""
+
+    def __init__(self, get_config):
+        self.cfg = get_config("glm4-9b").reduced()
+
+    def with_overrides(self, **kw):
+        return self.cfg
+
+
+def test_train_lm_prints_the_reference_lines(capsys, monkeypatch):
+    """The train, checkpoint, crash and resume walk of
+    ``examples/train_lm.py``, its asserts live (it must resume, and the
+    loss must fall by 0.5), line for line with the reference's; the
+    numbers differ (weights from a torch generator) and are compared by
+    their shape."""
+    import repro.configs as j_configs
+
+    ref = _reference("train_lm")
+    monkeypatch.setattr(ref, "get_config",
+                        lambda name: _Tiny(j_configs.get_config))
+    monkeypatch.setattr(train_lm, "get_config",
+                        lambda name: _Tiny(get_config))
+    monkeypatch.setattr("sys.argv", ["train_lm.py", "--steps", "80",
+                                     "--batch", "16", "--seq", "48"])
+    ref.main()
+    want = capsys.readouterr().out
+    train_lm.main(device="cpu", steps=80, batch=16, seq=48)
+    got = capsys.readouterr().out
+
+    def shape(text):
+        return [re.sub(r"\d+\.\d+(e[-+]\d+)?", "<n>", ln)
+                for ln in text.splitlines()]
+
+    assert shape(got) == shape(want)
+    assert "[train] resumed from step 40" in got
+    assert got.splitlines()[-1] == "✓ end-to-end train + checkpoint/restart"
+
+
 def test_examples_default_to_the_card():
     """No flag-less example runs on the CPU: ``device`` defaults to
     ``cuda``, which raises where there is no card."""
-    for mod in (quickstart, temporal_sssp, vehicle_tracking, serve_lm):
+    for mod in (quickstart, temporal_sssp, vehicle_tracking, serve_lm,
+                train_lm):
         assert inspect.signature(mod.main).parameters[
             "device"].default == "cuda"
     if not torch.cuda.is_available():

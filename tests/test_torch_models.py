@@ -326,9 +326,21 @@ def test_apply_attention_raises_for_paths_not_ported():
     cache = {n: t[0] for n, t in
              init_serve_cache(cfg, 1, 8, device="cpu")["dense"].items()}
     capped = cfg.with_overrides(attn_logit_softcap=30.0)
-    for c, lc, item in ((capped, cache, "item 9"), (cfg, None, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            apply_attention(p, x, c, positions=pos, layer_cache=lc)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        apply_attention(p, x, capped, positions=pos, layer_cache=cache)
+    # without a cache (training, item 10, ported): the reference's output
+    from repro.models.attention import apply_attention as j_apply_attention
+    xr = torch.randn(2, 5, cfg.d_model, generator=g)
+    pr = torch.arange(5)[None].expand(2, 5)
+    got, none = apply_attention(p, xr, cfg, positions=pr, layer_cache=None,
+                                window=cfg.sliding_window or None)
+    want, _ = j_apply_attention(
+        {n: jnp.asarray(t.numpy()) for n, t in p.items()},
+        jnp.asarray(xr.numpy()), cfg, positions=jnp.asarray(pr.numpy()),
+        window=cfg.sliding_window or None, layer_cache=None)
+    assert none is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
     cache["len"][0] = 6  # 6 + 3 tokens > 8 slots
     with pytest.raises(ValueError, match="overflows"):
         apply_attention(p, x, cfg, positions=pos, layer_cache=cache)

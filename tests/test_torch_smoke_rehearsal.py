@@ -1,0 +1,60 @@
+"""``chip_smoke.py``'s GoFS phases rehearsed on the CPU at TR_TINY.
+
+On the card the smoke drives phase 6 (a GoFS deployment, the Gopher
+session), 6c (two cluster worker processes) and 6d (mesh ranks) at
+TR_SMALL.  Here the same functions run at TR_TINY with ``device="cpu"``,
+where every check of the plain versions' results stays live and only the
+launch counts are skipped, so that a fault in their control flow shows
+before a card run, the depth cuts included: the session's streamed
+sparse run over the first time pack held bitwise against the auto plan's
+first instances, each worker's SSSP rerun in the kernel modes its auto
+plans did not launch (both, on the CPU) held bitwise against its first
+SSSP's first instances, and the mesh's in-memory runs over the first
+time pack held against phases 5 and 5b's first instances.
+"""
+import importlib.util
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch.configs.goffish_tr import TR_TINY
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield mod
+    torch.set_num_threads(n)
+
+
+def test_gofs_session_cluster_and_mesh_phases_on_the_cpu(smoke, monkeypatch):
+    # TR_TINY has 6 instances: spans of 2 let the killed run die in its
+    # second span as TR_SMALL's spans of 12 do
+    monkeypatch.setattr(smoke, "RESUME_CHUNK", 2)
+    log = []
+    keep = smoke.main_path(TR_TINY, "cpu", log=log.append)
+    smoke.query_phase(keep, "cpu", log=log.append)
+    recs = smoke.gofs_path(TR_TINY, keep, "cpu", log=log.append)
+    pack = TR_TINY.instances_per_slice
+    assert recs["cut"] == {"host_ibsp_instances": pack,
+                           "sparse_load_instances": pack,
+                           "session_delta_route_instances": pack,
+                           "cluster_other_mode_instances": pack}
+    delta = recs["session"]["sssp_delta_fused"]
+    assert delta["instances"] == pack
+    assert delta["staged_bytes"] > 0
+    cluster = recs["cluster"]
+    assert cluster["rerun_modes"] == [["spmv", "fused"]] * 2
+    assert cluster["rerun_instances"] == [pack] * 2
+    assert cluster["snapshots_after_kill"] == [smoke.RESUME_CHUNK]
+    mesh = recs["mesh"]
+    assert mesh["cut"] == {"in_memory_instances": pack}
+    assert mesh["control_failed"]
