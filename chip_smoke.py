@@ -44,7 +44,8 @@ Phases (any failure exits non-zero before the result lines):
    (about 20M parameters, 200 steps, a crash and a resume) with
    ``device="cuda"`` in this process, at their own sizes and asserts
    live; each one's seconds and launches (the attention kernels', the
-   flash backward's included, by route);
+   flash backward's included, by route; train_lm's backward all on the
+   bf16 wgmma route);
 6. the same graph path from a GoFS deployment (``gofs_path``): the
    collection deployed with ``deploy_collection`` (latency tile maps and
    the delta chain) into a temporary directory; host iBSP SSSP
@@ -191,16 +192,19 @@ Phases (any failure exits non-zero before the result lines):
    float32 masters and moments, ``remat="full"``; every loss and
    gradient norm finite, no step skipped, kernel 3 launched twice a
    layer a step (the recompute) on the bf16 wgmma route and the backward
-   once a layer a step; one ``AsyncCheckpointer`` snapshot restored bit
+   once a layer a step, on its bf16 wgmma route; one
+   ``AsyncCheckpointer`` snapshot restored bit
    for bit and deleted; NaN masters skipped with the state bitwise
    unchanged.  Then (``train_kernel_report``) the flash backward against
-   its plain version over BWD_CASES within :func:`grad_limit`, each case
+   its plain version over BWD_CASES within :func:`grad_limit` (its three
+   routes, each case on the route its dtype and head dim pick), each case
    launched twice bit for bit, kernel 3's ``lse`` output (the output bit
    for bit the output without it, ``lse`` within 1e-5 of the plain
    log-sum-exp), two wrong backwards (no window mask, no D term) that
    must fail the limit, and both kernels at the training layer's shape
    (the backward held there too within the limit) timed beside the plain
-   versions, the bound and SDPA: on the flash backend with
+   versions, the bound and SDPA (the backward's three launches, D, dK/dV
+   and dQ, also apart): SDPA on the flash backend with
    ``is_causal`` where the window does not cut, and with the mask on the
    memory-efficient backend;
 12. the card's line again and the last line: ``{"ok": true, "device":
@@ -1478,6 +1482,11 @@ def examples_phase(device="cuda", log=print):
                     ("train_lm", "flash_attention_bwd_cuda")):
         need(recs[name]["launches"][k] > 0 or device != "cuda",
              f"examples: {name} did not launch {k}")
+    bwd = recs["train_lm"]["attention_routes"]["flash_attention_bwd_cuda"]
+    need(bwd.get("bf16_wgmma", 0) ==
+         recs["train_lm"]["launches"]["flash_attention_bwd_cuda"],
+         f"examples: train_lm's backward launches took the routes {bwd}, "
+         f"not all bf16_wgmma")
     return recs
 
 
@@ -3985,11 +3994,12 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
 # depth, batch and steps (each cut on the ``train path cuts`` line)
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS = "starcoder2-7b", 4, 4, 4
 TRAIN_PARAMS = 1_321_288_704  # 4 layers + embed + head + ln_f at full width
-TRAIN_FLASH_ROUTE, TRAIN_BWD_ROUTE = "bf16_wgmma", "bf16_mma_sync"
+TRAIN_FLASH_ROUTE, TRAIN_BWD_ROUTE = "bf16_wgmma", "bf16_wgmma"
 # (B, S, H, K, d, window, dtype) of the backward against its plain
 # version: the training layer's shape at batch 1 (window = S: the mask is
 # causal only), a windowed case where the controls run, d 32 and 64 with
-# S not a multiple of a block, a float32 case
+# S not a multiple of a block, a float32 case: the three routes (bf16 at
+# d 64 and 128 wgmma, at d 32 mma.sync; float32), each held to its own
 BWD_CASES = [
     (1, 4096, 36, 4, 128, 4096, "bfloat16"),
     (1, 1000, 36, 4, 128, 256, "bfloat16"),
@@ -3998,6 +4008,14 @@ BWD_CASES = [
     (1, 257, 9, 1, 128, 64, "float32"),
 ]
 BWD_CONTROL_CASE = 1  # the windowed case: its window bites
+
+
+def bwd_route(dtype, d):
+    """The flash backward's route by (dtype name, head dim), as
+    ``bwd_route`` in flash_attention_bwd.cu picks it."""
+    if dtype == "float32":
+        return "f32"
+    return "bf16_wgmma" if d in (64, 128) else "bf16_mma_sync"
 
 
 def grad_limit(ref, tol):
@@ -4206,16 +4224,130 @@ def train_path(card, device="cuda", log=print):
                        "flash_attention_bwd_cuda": bwd_routes}}
 
 
+def bwd_inputs(gen, B, S, H, K, d, dt, device):
+    """q, k, v, dO of the backward's checks, from ``gen``."""
+    import torch
+
+    dt = getattr(torch, dt)
+    q, do = (torch.randn(B, S, H, d, generator=gen, device=device).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, K, d, generator=gen, device=device).to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def bwd_sweep(gen, device="cuda", log=print):
+    """The flash backward against its plain version over BWD_CASES (the
+    checks :func:`train_kernel_report` lists).  On the CPU the wrappers
+    run their plain versions and launch nothing, so the route check is
+    the card's alone; the other checks, the wrong controls included,
+    hold there too."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    sweep = []
+    for i, case in enumerate(BWD_CASES):
+        B, S, H, K, d, w, dt = case
+        q, k, v, do = bwd_inputs(gen, B, S, H, K, d, dt, device)
+        kw = dict(causal=True, window=w)
+        o0 = flash_attention_cuda(q, k, v, **kw)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        need(same_tensors(o0, o), f"flash {case}: the output with lse "
+                                  f"differs from the output without")
+        f = [t.float() for t in (q, k, v)]
+        _, lse_p = mha_ref(*f, return_lse=True, **kw)
+        lse_err = float((lse - lse_p).abs().max())
+        need(lse_err <= 1e-5 * max(1.0, float(lse_p.abs().max())),
+             f"flash {case}: lse off by {lse_err}")
+        before = dict(flash_attention_bwd_cuda.launches_by_route)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        need(all(same_tensors(a, b) for a, b in zip(got, again)),
+             f"flash backward {case}: two launches differ")
+        routes = {r: n - before[r] for r, n in
+                  flash_attention_bwd_cuda.launches_by_route.items() if
+                  n - before[r]}
+        need(routes == {bwd_route(dt, d): 2} or device != "cuda",
+             f"flash backward {case}: launched on {routes}, not "
+             f"{bwd_route(dt, d)}")
+        f += [o.float(), lse, do.float()]
+        want = mha_bwd_ref(*f, **kw)
+        err, used = grad_compare(got, want, ATTN_TOL[dt],
+                                 f"flash backward {case}")
+        rec = {"case": list(case), "route": bwd_route(dt, d),
+               "max_abs_err": err, "limit_used": used,
+               "lse_err": lse_err, "repeat_bitwise": True}
+        if i == BWD_CONTROL_CASE:
+            controls = {
+                "no window mask": mha_bwd_ref(*f, causal=True, window=0),
+                "no D term": mha_bwd_ref(f[0], f[1], f[2],
+                                         torch.zeros_like(f[3]), f[4], f[5],
+                                         **kw)}
+            rec["controls_limit_used"] = {}
+            for name, wrong in controls.items():
+                share = max(float(((a.float() - c).abs()
+                                   / grad_limit(c, ATTN_TOL[dt])).max())
+                            for a, c in zip(got, wrong))
+                need(share > 1.0, f"flash backward: the control '{name}' "
+                                  f"stays within the limit ({share:.3g}x)")
+                rec["controls_limit_used"][name] = share
+        sweep.append(rec)
+        log(f"  flash backward {case}: {json.dumps(rec)}")
+        del q, k, v, do, o, lse, got, again, want, f
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return sweep
+
+
+#: the flash backward's three launches, by the kernel names the profiler
+#: shows (the routes' kernels share these stems)
+BWD_LAUNCHES = {"D": "bwd_row_dot", "dK_dV": "bwd_dkdv_", "dQ": "bwd_dq_"}
+
+
+def bwd_launch_ms(fn, reps=10):
+    """Device milliseconds per call of each of the flash backward's three
+    launches (the D pre-pass, dK/dV, dQ) under ``torch.profiler`` over
+    ``reps`` calls of ``fn``, and their sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(BWD_LAUNCHES, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for part, stem in BWD_LAUNCHES.items():
+            if stem in e.key:
+                out[part] += e.self_device_time_total / 1e3 / reps
+    need(all(out.values()), f"flash backward: the profiler saw no time for "
+                            f"some launch ({out})")
+    out["sum"] = sum(out.values())
+    return out
+
+
 def train_kernel_report(train, card, rate, device="cuda", log=print):
     """The flash backward against its plain version on the card over
     BWD_CASES (bf16 within :func:`grad_limit` at the bf16 tol, float32 at
-    the float32 tol; each case launched twice, bit for bit), kernel 3's
+    the float32 tol; each case launched twice, bit for bit, on the route
+    :func:`bwd_route` names), kernel 3's
     ``lse`` (its output with ``return_lse`` bit for bit the output without,
     its ``lse`` within 1e-5 of the plain log-sum-exp), and two wrong
     backwards that must fail the limit (no window mask, no D term).  Then
     both at the training layer's shape (B = TRAIN_BATCH), the backward
     held there too within :func:`grad_limit` against the plain float32
-    backward on the same inputs: device ms, eager ms, plain ms, the bound,
+    backward on the same inputs: device ms (the three launches also apart,
+    :func:`bwd_launch_ms`), eager ms, plain ms, the bound,
     and one PyTorch call as a yardstick, its forward for kernel 3 and its
     backward for the backward: SDPA on the flash backend with
     ``is_causal`` (GQA by ``enable_gqa``) where the window does not cut,
@@ -4235,65 +4367,15 @@ def train_kernel_report(train, card, rate, device="cuda", log=print):
     from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
 
     gen = torch.Generator(device=device).manual_seed(3)
-
-    def inputs(B, S, H, K, d, dt):
-        dt = getattr(torch, dt)
-        q, do = (torch.randn(B, S, H, d, generator=gen, device=device).to(dt)
-                 for _ in range(2))
-        k, v = (torch.randn(B, S, K, d, generator=gen, device=device).to(dt)
-                for _ in range(2))
-        return q, k, v, do
-
     t0 = time.perf_counter()
-    sweep = []
-    for i, case in enumerate(BWD_CASES):
-        B, S, H, K, d, w, dt = case
-        q, k, v, do = inputs(B, S, H, K, d, dt)
-        kw = dict(causal=True, window=w)
-        o0 = flash_attention_cuda(q, k, v, **kw)
-        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        need(same_tensors(o0, o), f"flash {case}: the output with lse "
-                                  f"differs from the output without")
-        f = [t.float() for t in (q, k, v)]
-        _, lse_p = mha_ref(*f, return_lse=True, **kw)
-        lse_err = float((lse - lse_p).abs().max())
-        need(lse_err <= 1e-5 * max(1.0, float(lse_p.abs().max())),
-             f"flash {case}: lse off by {lse_err}")
-        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-        need(all(same_tensors(a, b) for a, b in zip(got, again)),
-             f"flash backward {case}: two launches differ")
-        f += [o.float(), lse, do.float()]
-        want = mha_bwd_ref(*f, **kw)
-        err, used = grad_compare(got, want, ATTN_TOL[dt],
-                                 f"flash backward {case}")
-        rec = {"case": list(case), "max_abs_err": err, "limit_used": used,
-               "lse_err": lse_err, "repeat_bitwise": True}
-        if i == BWD_CONTROL_CASE:
-            controls = {
-                "no window mask": mha_bwd_ref(*f, causal=True, window=0),
-                "no D term": mha_bwd_ref(f[0], f[1], f[2],
-                                         torch.zeros_like(f[3]), f[4], f[5],
-                                         **kw)}
-            rec["controls_limit_used"] = {}
-            for name, wrong in controls.items():
-                share = max(float(((a.float() - c).abs()
-                                   / grad_limit(c, ATTN_TOL[dt])).max())
-                            for a, c in zip(got, wrong))
-                need(share > 1.0, f"flash backward: the control '{name}' "
-                                  f"stays within the limit ({share:.3g}x)")
-                rec["controls_limit_used"][name] = share
-        sweep.append(rec)
-        log(f"  flash backward {case}: {json.dumps(rec)}")
-        del q, k, v, do, o, lse, got, again, want, f
-        torch.cuda.empty_cache()
+    sweep = bwd_sweep(gen, device, log)
 
     # timing at the training layer's shape
     cfg = get_config(TRAIN_ARCH)
     B, S = TRAIN_BATCH, TRAIN_4K.seq_len
     H, K, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
         cfg.sliding_window
-    q, k, v, do = inputs(B, S, H, K, d, cfg.dtype)
+    q, k, v, do = bwd_inputs(gen, B, S, H, K, d, cfg.dtype, device)
     kw = dict(causal=True, window=w)
     o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     pairs = B * H * visible_pairs(S, S, 0, w)
@@ -4377,6 +4459,8 @@ def train_kernel_report(train, card, rate, device="cuda", log=print):
     bwd = {"call": call, "max_abs_err": t_err, "limit_used": t_used,
            "ms": cuda_ms(lambda: flash_attention_bwd_cuda(
                q, k, v, o, lse, do, **kw), reps=10),
+           "launch_ms": bwd_launch_ms(lambda: flash_attention_bwd_cuda(
+               q, k, v, o, lse, do, **kw)),
            "eager_ms": cuda_ms(lambda: flash_attention_bwd_cuda(
                q, k, v, o, lse, do, **kw), reps=10, graph=False),
            "plain_ms": cuda_ms(lambda: mha_bwd_ref(q, k, v, o, lse, do,
@@ -4398,7 +4482,8 @@ def train_kernel_report(train, card, rate, device="cuda", log=print):
         "launches_by_route": train["routes"]["flash_attention_bwd_cuda"],
         "max_abs_err": max(r["max_abs_err"] for r in sweep + [bwd]),
         "limit_used": max(r["limit_used"] for r in sweep + [bwd]),
-        "ms": bwd["ms"], "eager_ms": bwd["eager_ms"],
+        "ms": bwd["ms"], "launch_ms": bwd["launch_ms"],
+        "eager_ms": bwd["eager_ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
         "library_masked_ms": bwd["library_masked_ms"],

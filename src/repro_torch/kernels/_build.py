@@ -140,6 +140,8 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [vp] * 10 + [i32] * 9 + [
         f32, i32, ctypes.POINTER(i32), vp]
     lib.flash_attention_bwd.restype = i32
+    lib.flash_attention_bwd_scratch.argtypes = [i32] * 3
+    lib.flash_attention_bwd_scratch.restype = i64
     lib.decode_attention_fwd.argtypes = [vp] * 7 + [i32] * 5 + [i64] * 6 + [
         i32, i32, f32, i32, ctypes.POINTER(i32), vp]
     lib.decode_attention_fwd.restype = i32

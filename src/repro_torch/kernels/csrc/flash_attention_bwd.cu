@@ -21,28 +21,69 @@
 // kernel too.
 //
 // What bounds it: operations.  A visible (query, key) pair costs five
-// products of 2 d operations (S, dP, dV, dK, dQ; S is recomputed in both
-// passes below, so the kernels issue six): 10 d operations on inputs read
-// about once, far above the H100's ~295 bf16 operations a byte.  At the
-// training layer shape of starcoder2-7b (B 4, S 4,096, window 4,096, 36
-// heads, d 128) that is 1.55 TFLOP, 1.56 ms at 989 TFLOP/s.
+// products of 2 d operations (S, dP, dV, dK, dQ): 10 d operations on
+// inputs read about once, far above the H100's ~295 bf16 operations a
+// byte.  At the training layer shape of starcoder2-7b (B 4, S 4,096,
+// window 4,096, 36 heads over 4, d 128) that is 1.55 TFLOP, 1.56 ms at
+// 989 TFLOP/s.  The kernels issue seven products a pair (S and dP once
+// more in the dQ pass): 14 d, 2.19 ms at that rate.
 //
-// What the design does (FA2's shape, simple and right first): three
-// kernels and no floating-point atomics, so two launches give the same
-// bits.
+// Three launches and no floating-point atomics, so two launches give the
+// same bits:
 //   (a) bwd_row_dot: D = rowsum(dO o) in float32, one warp a row;
 //   (b) bwd_dkdv_*: one CTA per (batch, KV head, block of keys) keeps its
 //       dK and dV in registers and walks the G query heads of its group
 //       and only the query blocks that the causal and window masks let see
-//       its keys, recomputing S^T = K Q^T and P^T from lse;
+//       its keys, recomputing S^T = K Q^T and P^T from lse; the sum over
+//       heads and query blocks is in that fixed order;
 //   (c) bwd_dq_*: one CTA per (batch, head, block of queries) keeps dQ in
 //       registers and walks the key blocks its rows see (the forward's key
 //       range), recomputing S, P and dP.
-// bfloat16 takes mma.sync m16n8k16 with float32 accumulators (every d the
-// forward takes: 16, 32, 64, 128); P and dS are rounded to bf16 as the
-// A operand of their products, as p is in the forward.  float32 takes
-// CUDA-core FMAs in full float32.  wgmma and TMA are later work.
+// P and dS are rounded to bf16 as the A operand of their products, as p
+// is in the forward.  Three routes, picked by (dtype, d) alone
+// (bwd_route below; the wrapper counts each in launches_by_route):
+//
+// * bfloat16, d in {64, 128}: bwd_dkdv_bf16_wgmma and bwd_dq_bf16_wgmma,
+//   the training path's kernels, FA3's shape.  The tensor cores bound
+//   them, and only wgmma reaches their full rate, with operands that
+//   arrive without the consumers' issue slots.  Each CTA is two consumer
+//   warpgroups and one producer warp's thread (384 threads; the producer
+//   drops to 24 registers with setmaxnreg, the consumers rise to 240):
+//   - dK/dV: a CTA owns 128 keys (64 a consumer warpgroup) and loads K and
+//     V once; the producer keeps TMA loads of each step's Q and dO (64
+//     query rows of head h; 4-D tensor maps over the tensors as they lie,
+//     128-byte swizzle, rows past Sq zero-filled) and bulk copies of its
+//     lse and D rows in flight through a ring of three stages with
+//     full/empty mbarriers.  S^T = K Q^T and dP^T = V dO^T are wgmma
+//     m64n64k16 with both operands in shared memory; P^T and dS^T stay in
+//     registers and feed dV += P^T dO and dK += dS^T Q as the A operand of
+//     wgmma m64n{d}k16, B (dO, Q) read MN-major through the transposed-B
+//     bit, as the forward reads V;
+//   - dQ: shaped like flash_fwd_bf16_wgmma: a CTA owns 128 query rows of
+//     one head and loads Q and dO once; a TMA ring of K/V blocks of 64
+//     keys feeds S = Q K^T and dP = dO V^T (SS) and dQ += dS K (RS, K read
+//     MN-major);
+//   - the D pre-pass writes D and lse log2(e) in rows padded to 128 (zero
+//     past Sq), so that a step's rows are one aligned bulk copy and
+//     P = exp2(S scale log2(e) - lse log2(e)) is one FMA and ex2;
+//   - only edge blocks evaluate the mask: the mask-free sub-ranges need
+//     whole blocks of rows and keys (rows past Sq and keys past Skv always
+//     take the mask), and a masked P is a select (lse is -inf on a row
+//     that sees no key, where exp would give inf and inf 0 NaN);
+//   - launch order, the longest CTAs first: dK/dV key blocks from the
+//     first (under the causal mask key block n of 128 sees 64 - 2n query
+//     blocks of 64 a head at the training shape), dQ query blocks from
+//     the last, as the forward orders them.  schedule.py:bwd_schedule
+//     computes the same ranges and order, and tiled_bwd_ref follows them.
+//   A single pass that adds dQ into a float32 workspace in a fixed order
+//   would issue 10 d; it is later work (ROADMAP.md).
+// * bfloat16, d in {16, 32}: bwd_dkdv_bf16 and bwd_dq_bf16, mma.sync
+//   m16n8k16 with float32 accumulators, cp.async loads (FA2's shape):
+//   wgmma's 128-byte swizzle wants rows of at least 64 bf16.
+// * float32: bwd_dkdv_f32 and bwd_dq_f32, CUDA-core FMAs in full float32.
 #include "attn_common.cuh"
+#include "tensor_map.cuh"
+#include "wgmma.cuh"
 
 namespace attn_bwd {
 
@@ -76,23 +117,36 @@ __device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
 }
 
 // (a) Dd[b, h, i] = sum_c dO[b, i, h, c] o[b, i, h, c], one warp a row of
-// the (B, Sq, H) rows of dO and o
+// the (B, ld, H) rows, rows i >= Sq giving 0.  Dd and Lp have rows of
+// ``ld`` >= Sq floats; with a non-null Lp, Lp[b, h, i] = lse[b, h, i]
+// log2(e) (0 past Sq).  The wgmma route pads ld to a multiple of 128 so
+// that a block of rows starts 16-byte aligned (bulk copies) and rows past
+// Sq read zeros; the other routes take ld = Sq and no Lp.
 template <class T>
 __global__ void bwd_row_dot(const T* __restrict__ dout,
-                            const T* __restrict__ o, float* __restrict__ Dd,
-                            int Sq, int H, int D, long long rows) {
+                            const T* __restrict__ o,
+                            const float* __restrict__ lse,
+                            float* __restrict__ Dd, float* __restrict__ Lp,
+                            int Sq, int H, int D, int ld, long long rows) {
   const long long row =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const T* a = dout + row * D;
-  const T* c = o + row * D;
+  const long long h = row % H, bi = row / H;
+  const long long b = bi / ld, i = bi % ld;
   float s = 0.f;
-  for (int j = lane; j < D; j += 32) s += to_f(a[j]) * to_f(c[j]);
-  s = warp_sum(s);
+  if (i < Sq) {
+    const long long off = ((b * Sq + i) * H + h) * D;
+    for (int j = lane; j < D; j += 32)
+      s += to_f(dout[off + j]) * to_f(o[off + j]);
+    s = warp_sum(s);
+  }
   if (lane == 0) {
-    const long long h = row % H, bi = row / H;
-    Dd[((bi / Sq) * H + h) * Sq + bi % Sq] = s;
+    const long long out = (b * H + h) * ld + i;
+    Dd[out] = s;
+    if (Lp != nullptr)
+      Lp[out] = i < Sq ? lse[(b * H + h) * Sq + i] * 1.4426950408889634f
+                       : 0.f;
   }
 }
 
@@ -122,16 +176,14 @@ __device__ __forceinline__ void key_range(int m0, int m1, int Skv, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16
+// bfloat16, d in {16, 32}: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 constexpr int KB = 64;  // keys per CTA of the dK/dV kernel (16 a warp)
 constexpr int QB = 64;  // query rows per CTA of the dQ kernel (16 a warp)
-// queries per step of the dK/dV kernel and keys per step of the dQ kernel:
-// smaller at d = 128, where the dK/dV (dQ) accumulators take 128 (64)
-// registers a thread
 template <int D>
 struct Tile {
-  static constexpr int M = D >= 128 ? 32 : 64;
+  // queries per step of the dK/dV kernel and keys per step of the dQ one
+  static constexpr int M = 64;
   static constexpr int LD = D + 8;  // padded smem row: conflict-free reads
 };
 
@@ -446,6 +498,490 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_bf16(
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, d in {64, 128}: wgmma, TMA rings, warp-specialised producers
+// ---------------------------------------------------------------------------
+namespace wgb {
+
+using attn_kernels::tma_load_4d;
+using namespace attn_kernels::wg;
+
+constexpr int kThreads = 384;  // 2 consumer warpgroups + 1 producer
+constexpr int KVB = 128;  // keys per dK/dV CTA: 64 per consumer warpgroup
+constexpr int QS = 64;    // query rows per step of the dK/dV kernel
+constexpr int QR = 128;   // query rows per dQ CTA: 64 per consumer warpgroup
+constexpr int KS = 64;    // keys per step of the dQ kernel
+constexpr int kRing = 3;  // stages of either kernel's ring
+constexpr int kRowPad = 128;  // lse and D rows padded to a multiple of this
+
+template <int D>
+struct DkdvLayout {  // byte offsets from a 1024-byte aligned base
+  static constexpr int kTileK = KVB * D * 2;  // K or V: 128 keys
+  static constexpr int kHalfK = KVB * 128;    // a 64-dim half of that tile
+  static constexpr int kTileQ = QS * D * 2;   // Q or dO: 64 rows
+  static constexpr int kHalfQ = QS * 128;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTileK;
+  static constexpr int kQ = 2 * kTileK;  // stage s at kQ + s * kTileQ
+  static constexpr int kO = kQ + kRing * kTileQ;
+  static constexpr int kL = kO + kRing * kTileQ;   // lse log2(e): QS floats
+  static constexpr int kDd = kL + kRing * QS * 4;  // D: QS floats a stage
+  static constexpr int kBars = kDd + kRing * QS * 4;
+  // bar_kv, full[kRing], empty[kRing]
+  static constexpr int kBytes = kBars + (1 + 2 * kRing) * 8;
+  static constexpr size_t kSmem = kBytes + 1024;  // + alignment slack
+};
+
+template <int D>
+struct DqLayout {
+  static constexpr int kTileQ = QR * D * 2;  // Q or dO: 128 rows
+  static constexpr int kHalfQ = QR * 128;
+  static constexpr int kTileK = KS * D * 2;  // K or V: 64 keys
+  static constexpr int kHalfK = KS * 128;
+  static constexpr int kQ = 0;
+  static constexpr int kO = kTileQ;
+  static constexpr int kK = 2 * kTileQ;  // stage s at kK + s * kTileK
+  static constexpr int kV = kK + kRing * kTileK;
+  static constexpr int kBars = kV + kRing * kTileK;
+  // bar_q, full[kRing], empty[kRing]
+  static constexpr int kBytes = kBars + (1 + 2 * kRing) * 8;
+  static constexpr size_t kSmem = kBytes + 1024;
+};
+
+// ``bytes`` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory, counted on ``bar`` (whose expect_tx announced them)
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a 64 x 64 f32 accumulator as the bf16 A operand of four m64nNk16
+// products (k-step kk: its columns 16 kk .. 16 kk + 15)
+__device__ __forceinline__ void pack_a(const float (&s)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    a[c >> 1][(c & 1) * 2] = pack_bf16x2(s[c * 4], s[c * 4 + 1]);
+    a[c >> 1][(c & 1) * 2 + 1] = pack_bf16x2(s[c * 4 + 2], s[c * 4 + 3]);
+  }
+}
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+}
+
+// acc (64 x 64) = A B^T over the head dim: A the 64 rows of a K-major
+// tile at ``a`` whose 64-dim halves lie ``half_a`` bytes apart, B the
+// same at ``b``
+template <int D>
+__device__ __forceinline__ void ss_64x64(float (&acc)[32], uint32_t a,
+                                         uint32_t half_a, uint32_t b,
+                                         uint32_t half_b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(acc,
+                 desc_sw128(a + (kk >> 2) * half_a + (kk & 3) * 32, 16, 1024),
+                 desc_sw128(b + (kk >> 2) * half_b + (kk & 3) * 32, 16, 1024),
+                 kk > 0 ? 1 : 0);
+}
+// acc (64 x D) += A (64 x 64, registers) B (64 x D: the 64 rows of a tile
+// at ``b`` read MN-major, its 64-dim halves ``half_b`` bytes apart)
+template <int D>
+__device__ __forceinline__ void rs_64xd(float (&acc)[D / 2],
+                                        const uint32_t (&a)[4][4], uint32_t b,
+                                        uint32_t half_b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 16 * 128, half_b, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128(acc, a[kk], db);
+    else
+      wgmma_rs_n64(acc, a[kk], db);
+  }
+}
+
+}  // namespace wgb
+
+// (b) dK, dV of 128 keys of one KV head.  Grid: one CTA per (key block,
+// batch, KV head), key blocks slowest and from the first: under the
+// causal mask the first key block sees the most query rows, so the
+// longest CTAs start first.  Consumer warpgroup w owns keys n0 + 64 w ..;
+// the producer walks the G heads of the group and, in each, the query
+// blocks of 64 rows [qb_lo, qb_hi) that see a key of the block;
+// [qf_lo, qf_hi) need no mask (schedule.py:bwd_schedule computes the
+// same).
+template <int D>
+__global__ void __launch_bounds__(wgb::kThreads, 1) bwd_dkdv_bf16_wgmma(
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_o, const float* __restrict__ Lp,
+    const float* __restrict__ Dd, int ld, uint16_t* __restrict__ dk,
+    uint16_t* __restrict__ dv, int B, int Sq, int Skv, int Kh, int G,
+    int causal, int window, int q_offset, float sl2, float scale) {
+  using namespace wgb;
+  using L = DkdvLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_kv = base + L::kBars;
+  auto full = [&](int s) { return bar_kv + 8u * (1 + s); };
+  auto empty = [&](int s) { return bar_kv + 8u * (1 + kRing + s); };
+
+  int rest = blockIdx.x;
+  const int kvh = rest % Kh;
+  rest /= Kh;
+  const int b = rest % B, kb = rest / B;
+  const int n0 = kb * KVB, n1 = min(n0 + KVB, Skv);
+  const int H = Kh * G;
+
+  int i_lo, i_hi;
+  query_range(n0, n1, Sq, causal, window, q_offset, i_lo, i_hi);
+  const int qb_lo = i_lo / QS;
+  const int qb_hi = i_hi > i_lo ? (i_hi + QS - 1) / QS : qb_lo;
+  // mask-free query blocks: whole blocks of rows and keys, every row at
+  // or after the last key's causal limit and before the first key's
+  // window end
+  int qf_lo = causal ? (max(0, n0 + KVB - 1 - q_offset) + QS - 1) / QS : 0;
+  int qf_hi = (causal && window > 0)
+                  ? max(0, min(Sq, n0 - q_offset + window)) / QS
+                  : Sq / QS;
+  if (n0 + KVB > Skv) qf_hi = qf_lo;
+  qf_lo = min(max(qf_lo, qb_lo), qb_hi);
+  qf_hi = max(min(qf_hi, qb_hi), qf_lo);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_q))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_o))
+                   : "memory");
+      mbar_expect_tx(bar_kv, 2 * L::kTileK);
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh) {
+        tma_load_4d(sK + hh * L::kHalfK, &tm_k, bar_kv, hh * 64, kvh, n0, b);
+        tma_load_4d(sV + hh * L::kHalfK, &tm_v, bar_kv, hh * 64, kvh, n0, b);
+      }
+      int i = 0;
+      for (int gg = 0; gg < G; ++gg) {
+        const int h = kvh * G + gg;
+        const long long row0 = ((long long)b * H + h) * ld;
+        for (int qb = qb_lo; qb < qb_hi; ++qb, ++i) {
+          const int s = i % kRing;
+          mbar_wait(empty(s), ((i / kRing) & 1) ^ 1);  // round 0 passes
+          mbar_expect_tx(full(s), 2 * L::kTileQ + 2 * QS * 4);
+#pragma unroll
+          for (int hh = 0; hh < D / 64; ++hh) {
+            tma_load_4d(base + L::kQ + s * L::kTileQ + hh * L::kHalfQ, &tm_q,
+                        full(s), hh * 64, h, qb * QS, b);
+            tma_load_4d(base + L::kO + s * L::kTileQ + hh * L::kHalfQ, &tm_o,
+                        full(s), hh * 64, h, qb * QS, b);
+          }
+          bulk_g2s(base + L::kL + s * QS * 4, Lp + row0 + qb * QS, QS * 4,
+                   full(s));
+          bulk_g2s(base + L::kDd + s * QS * 4, Dd + row0 + qb * QS, QS * 4,
+                   full(s));
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 keys each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wgi = threadIdx.x >> 7;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const int j0 = n0 + wgi * 64 + warp * 16 + gq;  // keys j0 and j0 + 8
+    const uint32_t sKw = sK + wgi * 64 * 128, sVw = sV + wgi * 64 * 128;
+
+    float dka[D / 2], dva[D / 2], st[32], dpt[32];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) st[x] = dpt[x] = 0.f;
+    uint32_t pa[4][4], da[4][4];
+
+    mbar_wait(bar_kv, 0);
+    int i = 0;
+    for (int gg = 0; gg < G; ++gg) {
+      for (int qb = qb_lo; qb < qb_hi; ++qb, ++i) {
+        const int s = i % kRing;
+        const uint32_t sQs = base + L::kQ + s * L::kTileQ;
+        const uint32_t sOs = base + L::kO + s * L::kTileQ;
+        const float* sL =
+            reinterpret_cast<const float*>(gbase + L::kL + s * QS * 4);
+        const float* sD =
+            reinterpret_cast<const float*>(gbase + L::kDd + s * QS * 4);
+        const bool edge = qb < qf_lo || qb >= qf_hi;
+        const int m0 = qb * QS;
+        mbar_wait(full(s), (i / kRing) & 1);
+        // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries)
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+        ss_64x64<D>(st, sKw, L::kHalfK, sQs, L::kHalfQ);
+        wgmma_commit();
+        ss_64x64<D>(dpt, sVw, L::kHalfK, sOs, L::kHalfQ);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+        // P^T = exp(S^T scale - lse), on the edge blocks 0 where masked
+        // (a select: lse is -inf on a row that sees no key)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(sL + 8 * c + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(fmaf(st[c * 4 + e], sl2, (e & 1) ? -l2.y : -l2.x));
+            if (edge && !visible(m0 + 8 * c + 2 * t + (e & 1),
+                                 j0 + 8 * (e >> 1), Sq, Skv, causal, window,
+                                 q_offset))
+              p = 0.f;
+            st[c * 4 + e] = p;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        // dS^T = P^T (dP^T - D)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(sD + 8 * c + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[c * 4 + e] =
+                st[c * 4 + e] * (dpt[c * 4 + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        pack_a(st, pa);
+        pack_a(dpt, da);
+        // dV += P^T dO, dK += dS^T Q (dO and Q read MN-major)
+        fence_a(pa);
+        fence_a(da);
+        fence_regs(dva);
+        fence_regs(dka);
+        wgmma_fence();
+        rs_64xd<D>(dva, pa, sOs, L::kHalfQ);
+        rs_64xd<D>(dka, da, sQs, L::kHalfQ);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_a(pa);
+        fence_a(da);
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+    }
+    // dka[4c + e]: key j0 + 8 (e >> 1), dim 8c + 2t + (e & 1)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = j0 + 8 * rr;
+      if (j >= Skv) continue;
+      const long long off =
+          (((long long)b * Skv + j) * Kh + kvh) * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        *reinterpret_cast<uint32_t*>(dk + off + c * 8) = pack_bf16x2(
+            dka[c * 4 + 2 * rr] * scale, dka[c * 4 + 2 * rr + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + c * 8) =
+            pack_bf16x2(dva[c * 4 + 2 * rr], dva[c * 4 + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
+// (c) dQ of 128 query rows of one head.  Grid: one CTA per (batch, KV
+// head, query block, head of the group), in that order from the slowest
+// to the fastest index, query blocks from the last one down (the
+// forward's order: the longest first, the heads of a group side by side
+// on their K/V).  Consumer warpgroup w owns rows m0 + 64 w ..; the
+// producer loads Q and dO once, then the key blocks of 64 [jb_lo, jb_hi)
+// that the rows see; [jf_lo, jf_hi) need no mask.
+template <int D>
+__global__ void __launch_bounds__(wgb::kThreads, 1) bwd_dq_bf16_wgmma(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_o,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ Lp,
+    const float* __restrict__ Dd, int ld, uint16_t* __restrict__ dq, int Sq,
+    int Skv, int Kh, int G, int nqb, int causal, int window, int q_offset,
+    float sl2, float scale) {
+  using namespace wgb;
+  using L = DqLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sO = base + L::kO;
+  const uint32_t bar_q = base + L::kBars;
+  auto full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8u * (1 + kRing + s); };
+
+  int rest = blockIdx.x;
+  const int g = rest % G;
+  rest /= G;
+  const int qb = nqb - 1 - rest % nqb;
+  rest /= nqb;
+  const int kvh = rest % Kh, b = rest / Kh;
+  const int h = kvh * G + g, H = Kh * G;
+  const int m0 = qb * QR, m1 = min(m0 + QR, Sq);
+
+  int kv_lo, kv_hi;
+  key_range(m0, m1, Skv, causal, window, q_offset, kv_lo, kv_hi);
+  const int jb_lo = kv_lo / KS;
+  const int jb_hi = kv_hi > kv_lo ? (kv_hi + KS - 1) / KS : jb_lo;
+  // mask-free key blocks: the forward's sub-range, none in a ragged last
+  // query block
+  int jf_lo = (causal && window > 0)
+                  ? (max(0, m1 + q_offset - window) + KS - 1) / KS
+                  : 0;
+  int jf_hi = (causal ? min(Skv, m0 + q_offset + 1) : Skv) / KS;
+  if (m0 + QR > Sq) jf_hi = jf_lo;
+  jf_lo = min(max(jf_lo, jb_lo), jb_hi);
+  jf_hi = max(min(jf_hi, jb_hi), jf_lo);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_k))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_v))
+                   : "memory");
+      mbar_expect_tx(bar_q, 2 * L::kTileQ);
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh) {
+        tma_load_4d(sQ + hh * L::kHalfQ, &tm_q, bar_q, hh * 64, h, m0, b);
+        tma_load_4d(sO + hh * L::kHalfQ, &tm_o, bar_q, hh * 64, h, m0, b);
+      }
+      for (int j = jb_lo, i = 0; j < jb_hi; ++j, ++i) {
+        const int s = i % kRing;
+        mbar_wait(empty(s), ((i / kRing) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kTileK);
+#pragma unroll
+        for (int hh = 0; hh < D / 64; ++hh) {
+          tma_load_4d(base + L::kK + s * L::kTileK + hh * L::kHalfK, &tm_k,
+                      full(s), hh * 64, kvh, j * KS, b);
+          tma_load_4d(base + L::kV + s * L::kTileK + hh * L::kHalfK, &tm_v,
+                      full(s), hh * 64, kvh, j * KS, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wgi = threadIdx.x >> 7;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const int r0 = m0 + wgi * 64 + warp * 16 + gq;  // rows r0 and r0 + 8
+    const uint32_t sQw = sQ + wgi * 64 * 128, sOw = sO + wgi * 64 * 128;
+    // rows past Sq read the padding (0), within ld
+    const long long li = ((long long)b * H + h) * ld + r0;
+    const float nl0 = -Lp[li], nl1 = -Lp[li + 8];
+    const float dd0 = Dd[li], dd1 = Dd[li + 8];
+
+    float acc[D / 2], sc[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+    uint32_t da[4][4];
+
+    mbar_wait(bar_q, 0);
+    for (int j = jb_lo, i = 0; j < jb_hi; ++j, ++i) {
+      const int s = i % kRing;
+      const uint32_t sKs = base + L::kK + s * L::kTileK;
+      const uint32_t sVs = base + L::kV + s * L::kTileK;
+      const bool edge = j < jf_lo || j >= jf_hi;
+      mbar_wait(full(s), (i / kRing) & 1);
+      // S = Q K^T and dP = dO V^T (64 rows x 64 keys)
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      ss_64x64<D>(sc, sQw, L::kHalfQ, sKs, L::kHalfK);
+      wgmma_commit();
+      ss_64x64<D>(dp, sOw, L::kHalfQ, sVs, L::kHalfK);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      // P = exp(S scale - lse), on the edge blocks 0 where masked
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(sc[c * 4 + e], sl2, (e & 2) ? nl1 : nl0));
+          if (edge && !visible(r0 + 4 * (e & 2),
+                               j * KS + 8 * c + 2 * t + (e & 1), Sq, Skv,
+                               causal, window, q_offset))
+            p = 0.f;
+          sc[c * 4 + e] = p;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // dS = P (dP - D)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[c * 4 + e] =
+              sc[c * 4 + e] * (dp[c * 4 + e] - ((e & 2) ? dd1 : dd0));
+      }
+      pack_a(dp, da);
+      // dQ += dS K (K read MN-major)
+      fence_a(da);
+      fence_regs(acc);
+      wgmma_fence();
+      rs_64xd<D>(acc, da, sKs, L::kHalfK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_a(da);
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+    // acc[4c + e]: row r0 + 8 (e >> 1), dim 8c + 2t + (e & 1)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = r0 + 8 * rr;
+      if (r >= Sq) continue;
+      const long long off = (((long long)b * Sq + r) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(dq + off + c * 8) = pack_bf16x2(
+            acc[c * 4 + 2 * rr] * scale, acc[c * 4 + 2 * rr + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: CUDA cores, four threads a row (d / 4 values each)
 // ---------------------------------------------------------------------------
 constexpr int FB = 32;  // keys (dK/dV) or query rows (dQ) per CTA and step
@@ -630,7 +1166,12 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_f32(
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-enum BwdRoute { BWD_F32 = 0, BWD_BF16_MMA_SYNC = 1 };
+enum BwdRoute { BWD_F32 = 0, BWD_BF16_MMA_SYNC = 1, BWD_BF16_WGMMA = 2 };
+
+inline int bwd_route(int dtype, int D) {
+  if (dtype == 0) return BWD_F32;
+  return (D == 64 || D == 128) ? BWD_BF16_WGMMA : BWD_BF16_MMA_SYNC;
+}
 
 template <class K>
 cudaError_t max_smem(K kernel, size_t bytes) {
@@ -647,26 +1188,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        float scale, int dtype, cudaStream_t s) {
   cudaError_t e;
   if (dtype == 1) {
-    static bool attr_set = false;  // per instantiation, set once
-    if (!attr_set) {
-      if ((e = max_smem(bwd_dkdv_bf16<D>, dkdv_smem<D>())) != cudaSuccess)
-        return e;
-      if ((e = max_smem(bwd_dq_bf16<D>, dq_smem<D>())) != cudaSuccess)
-        return e;
-      attr_set = true;
+    if constexpr (D > 32) {
+      return cudaErrorInvalidValue;  // the wgmma route
+    } else {
+      static bool attr_set = false;  // per instantiation, set once
+      if (!attr_set) {
+        if ((e = max_smem(bwd_dkdv_bf16<D>, dkdv_smem<D>())) != cudaSuccess)
+          return e;
+        if ((e = max_smem(bwd_dq_bf16<D>, dq_smem<D>())) != cudaSuccess)
+          return e;
+        attr_set = true;
+      }
+      const auto* q16 = (const uint16_t*)q;
+      const auto* k16 = (const uint16_t*)k;
+      const auto* v16 = (const uint16_t*)v;
+      const auto* o16 = (const uint16_t*)dout;
+      bwd_dkdv_bf16<D><<<dim3((Skv + KB - 1) / KB, Kh, B), THREADS,
+                         dkdv_smem<D>(), s>>>(
+          q16, k16, v16, o16, lse, Dd, (uint16_t*)dk, (uint16_t*)dv, Sq, Skv,
+          H, Kh, causal, window, q_offset, scale);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      bwd_dq_bf16<D><<<dim3((Sq + QB - 1) / QB, H, B), THREADS, dq_smem<D>(),
+                       s>>>(q16, k16, v16, o16, lse, Dd, (uint16_t*)dq, Sq,
+                            Skv, H, Kh, causal, window, q_offset, scale);
     }
-    const auto* q16 = (const uint16_t*)q;
-    const auto* k16 = (const uint16_t*)k;
-    const auto* v16 = (const uint16_t*)v;
-    const auto* o16 = (const uint16_t*)dout;
-    bwd_dkdv_bf16<D><<<dim3((Skv + KB - 1) / KB, Kh, B), THREADS,
-                       dkdv_smem<D>(), s>>>(
-        q16, k16, v16, o16, lse, Dd, (uint16_t*)dk, (uint16_t*)dv, Sq, Skv,
-        H, Kh, causal, window, q_offset, scale);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    bwd_dq_bf16<D><<<dim3((Sq + QB - 1) / QB, H, B), THREADS, dq_smem<D>(),
-                     s>>>(q16, k16, v16, o16, lse, Dd, (uint16_t*)dq, Sq,
-                          Skv, H, Kh, causal, window, q_offset, scale);
   } else {
     const auto* qf = (const float*)q;
     const auto* kf = (const float*)k;
@@ -683,16 +1228,83 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the wgmma route's two kernels, after the D pre-pass filled Lp and Dd
+// (rows of ld floats)
+template <int D>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* Lp,
+                             const float* Dd, int ld, void* dq, void* dk,
+                             void* dv, int B, int Sq, int Skv, int H, int Kh,
+                             int causal, int window, int q_offset,
+                             float scale, cudaStream_t s) {
+  using namespace wgb;
+  using attn_kernels::EncodeTiledFn;
+  using attn_kernels::encode_heads_map;
+  const EncodeTiledFn enc = attn_kernels::tensor_map_encoder();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  const long long q_rs = (long long)H * D, k_rs = (long long)Kh * D;
+  const long long q_bs = q_rs * Sq, k_bs = k_rs * Skv;
+  // dK/dV: K, V in boxes of 128 keys, Q, dO of 64 rows; dQ: Q, dO of 128
+  // rows, K, V of 64 keys
+  CUtensorMap k128, v128, q64, o64, q128, o128, k64, v64;
+  if (!encode_heads_map(enc, &k128, k, D, Kh, Skv, B, k_rs, k_bs, KVB) ||
+      !encode_heads_map(enc, &v128, v, D, Kh, Skv, B, k_rs, k_bs, KVB) ||
+      !encode_heads_map(enc, &q64, q, D, H, Sq, B, q_rs, q_bs, QS) ||
+      !encode_heads_map(enc, &o64, dout, D, H, Sq, B, q_rs, q_bs, QS) ||
+      !encode_heads_map(enc, &q128, q, D, H, Sq, B, q_rs, q_bs, QR) ||
+      !encode_heads_map(enc, &o128, dout, D, H, Sq, B, q_rs, q_bs, QR) ||
+      !encode_heads_map(enc, &k64, k, D, Kh, Skv, B, k_rs, k_bs, KS) ||
+      !encode_heads_map(enc, &v64, v, D, Kh, Skv, B, k_rs, k_bs, KS))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;  // per instantiation, set once
+  cudaError_t e;
+  if (!attr_set) {
+    if ((e = max_smem(bwd_dkdv_bf16_wgmma<D>, DkdvLayout<D>::kSmem)) !=
+        cudaSuccess)
+      return e;
+    if ((e = max_smem(bwd_dq_bf16_wgmma<D>, DqLayout<D>::kSmem)) !=
+        cudaSuccess)
+      return e;
+    attr_set = true;
+  }
+  const int G = H / Kh;
+  const long long nkb = (Skv + KVB - 1) / KVB, nqb = (Sq + QR - 1) / QR;
+  const long long ctas_kv = nkb * B * Kh, ctas_q = (long long)B * Kh * nqb * G;
+  if (ctas_kv > 0x7fffffffLL || ctas_q > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  constexpr float kLog2e = 1.4426950408889634f;
+  bwd_dkdv_bf16_wgmma<D><<<(unsigned)ctas_kv, kThreads,
+                           DkdvLayout<D>::kSmem, s>>>(
+      k128, v128, q64, o64, Lp, Dd, ld, (uint16_t*)dk, (uint16_t*)dv, B, Sq,
+      Skv, Kh, G, causal, window, q_offset, scale * kLog2e, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_dq_bf16_wgmma<D><<<(unsigned)ctas_q, kThreads, DqLayout<D>::kSmem,
+                         s>>>(q128, o128, k64, v64, Lp, Dd, ld,
+                              (uint16_t*)dq, Sq, Skv, Kh, G, (int)nqb,
+                              causal, window, q_offset, scale * kLog2e,
+                              scale);
+  return cudaGetLastError();
+}
+
 }  // namespace attn_bwd
 
 // C entry point (bound with ctypes).  dtype: 0 = float32, 1 = bfloat16.
 // q, o, dout, dq (B, Sq, H, d) and k, v, dk, dv (B, Skv, K, d) contiguous
-// in that layout; lse and Dd (scratch for D) float32 (B, H, Sq).
-// ``route`` receives the route (0 float32, 1 bf16 mma.sync) before the
-// launches.  Returns the first CUDA error of the three launches, else 0.
+// in that layout; lse float32 (B, H, Sq).  ``scratch`` is float32
+// scratch of flash_attention_bwd_scratch(B, H, Sq) floats.  ``route``
+// receives the route (0 float32, 1 bf16 mma.sync, 2 bf16 wgmma) before
+// the launches.  Returns the first CUDA error of the three launches,
+// else 0.
+extern "C" long long flash_attention_bwd_scratch(int B, int H, int Sq) {
+  const long long ld =
+      (Sq + attn_bwd::wgb::kRowPad - 1) / attn_bwd::wgb::kRowPad *
+      attn_bwd::wgb::kRowPad;
+  return 2LL * B * H * ld;  // D and lse log2(e), rows of ld
+}
+
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* Dd, void* dq, void* dk,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int B, int Sq, int Skv, int H, int K, int D, int causal,
     int window, int q_offset, float scale, int dtype, int* route,
     void* stream) {
@@ -701,27 +1313,39 @@ extern "C" int flash_attention_bwd(
       (dtype != 0 && dtype != 1) ||
       (D != 16 && D != 32 && D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
-  *route = dtype == 1 ? BWD_BF16_MMA_SYNC : BWD_F32;
+  const int r = bwd_route(dtype, D);
+  *route = r;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long rows = (long long)B * Sq * H;
+  // the wgmma route reads D and lse in rows padded to kRowPad; the others
+  // read D in rows of Sq
+  const int ld = r == BWD_BF16_WGMMA
+                     ? (Sq + wgb::kRowPad - 1) / wgb::kRowPad * wgb::kRowPad
+                     : Sq;
+  float* Dd = (float*)scratch;
+  float* Lp = r == BWD_BF16_WGMMA ? Dd + (long long)B * H * ld : nullptr;
+  const long long rows = (long long)B * ld * H;
   const long long blocks = (rows + 7) / 8;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const float* l = (const float*)lse;
   if (dtype == 1)
     bwd_row_dot<uint16_t><<<(unsigned)blocks, 256, 0, s>>>(
-        (const uint16_t*)dout, (const uint16_t*)o, (float*)Dd, Sq, H, D,
+        (const uint16_t*)dout, (const uint16_t*)o, l, Dd, Lp, Sq, H, D, ld,
         rows);
   else
     bwd_row_dot<float><<<(unsigned)blocks, 256, 0, s>>>(
-        (const float*)dout, (const float*)o, (float*)Dd, Sq, H, D, rows);
+        (const float*)dout, (const float*)o, l, Dd, Lp, Sq, H, D, ld, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const float* l = (const float*)lse;
-  const float* dd = (const float*)Dd;
+  if (r == BWD_BF16_WGMMA) {
+    e = D == 128 ? launch_bwd_wgmma<128>(q, k, v, dout, Lp, Dd, ld, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, s)
+                 : launch_bwd_wgmma<64>(q, k, v, dout, Lp, Dd, ld, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, s);
+    return (int)e;
+  }
   switch (D) {
-    case 16: e = launch_bwd<16>(q, k, v, dout, l, dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
-    case 32: e = launch_bwd<32>(q, k, v, dout, l, dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
-    case 64: e = launch_bwd<64>(q, k, v, dout, l, dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
-    default: e = launch_bwd<128>(q, k, v, dout, l, dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
+    case 16: e = launch_bwd<16>(q, k, v, dout, l, Dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
+    case 32: e = launch_bwd<32>(q, k, v, dout, l, Dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
+    case 64: e = launch_bwd<64>(q, k, v, dout, l, Dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
+    default: e = launch_bwd<128>(q, k, v, dout, l, Dd, dq, dk, dv, B, Sq, Skv, H, K, causal, window, q_offset, scale, dtype, s); break;
   }
   return (int)e;
 }

@@ -9,21 +9,31 @@ kernel written for the card too.  Source:
 ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``.
 
 What bounds it on this card: operations, 10·d per visible (query, key)
-pair (five products of 2·d; the kernels recompute the logits once more).
-At the training layer shape of starcoder2-7b (B 4, S 4,096, window 4,096,
-36 heads, d 128): 1.21e9 pairs, 1.55 TFLOP, 1.56 ms at 989 TFLOP/s.
+pair (five products of 2·d).  At the training layer shape of
+starcoder2-7b (B 4, S 4,096, window 4,096, 36 heads over 4, d 128):
+1.21e9 pairs, 1.55 TFLOP, 1.56 ms at 989 TFLOP/s.  The kernels issue
+14·d a pair (the dQ pass recomputes S and dP), so that no float atomics
+are needed and two launches give the same bits.
 
-What the design does about it, simple and right first (FA2's shape):
-three launches and no floating-point atomics, so two launches give the
-same bits.  (a) ``D = rowsum(dO·o)`` in float32; (b) one CTA per (batch,
-KV head, 64 keys) keeps dK and dV in registers, walks the G query heads
-of its group and only the query blocks whose rows the causal and window
-masks let see its keys, and recomputes ``P = exp(S·scale - lse)``;
-(c) one CTA per (batch, head, 64 query rows) keeps dQ in registers over
-the key blocks its rows see.  bf16 runs ``mma.sync`` m16n8k16 with
-float32 accumulators for every head dim the forward takes; float32 runs
-CUDA-core FMAs in full float32.  The route depends on the dtype alone
-and is counted in ``launches_by_route``.
+Three launches: (a) ``D = rowsum(dO·o)`` in float32; (b) one CTA per
+(batch, KV head, block of keys) keeps dK and dV in registers, walks the
+G query heads of its group and only the query blocks whose rows the
+causal and window masks let see its keys, and recomputes
+``P = exp(S·scale - lse)``; (c) one CTA per (batch, head, block of query
+rows) keeps dQ in registers over the key blocks its rows see.  The route
+depends on (dtype, head dim), as the forward's does, and is counted in
+``launches_by_route``:
+
+* ``bf16_wgmma`` (bf16, d 64 and 128; the training path): FA3's shape
+  for Hopper.  wgmma products from shared memory (S, dP) and from
+  registers (P and dS into dV, dK, dQ), TMA rings of Q/dO steps (dK/dV,
+  128 keys a CTA) and of K/V blocks (dQ, 128 rows a CTA) fed by a
+  warp-specialised producer, the mask only on edge blocks, the longest
+  CTAs first.  ``schedule.bwd_schedule`` gives its blocks and launch
+  order, ``schedule.tiled_bwd_ref`` follows them in plain PyTorch.
+* ``bf16_mma_sync`` (bf16, d 16 and 32): ``mma.sync`` m16n8k16 with
+  float32 accumulators (wgmma's swizzle wants rows of 64 bf16 or more).
+* ``f32`` (float32): CUDA-core FMAs in full float32.
 
 On a CPU tensor the wrapper runs the plain version (``ref.mha_bwd_ref``);
 on a CUDA tensor it launches the kernels or raises.
@@ -41,7 +51,7 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
 
 #: the C entry point's route codes (``BwdRoute`` in the source)
-ROUTES = ("f32", "bf16_mma_sync")
+ROUTES = ("f32", "bf16_mma_sync", "bf16_wgmma")
 
 
 def flash_attention_bwd_cuda(
@@ -88,11 +98,13 @@ def flash_attention_bwd_cuda(
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dd = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    scratch = torch.empty(lib.flash_attention_bwd_scratch(B, H, Sq),
+                          dtype=torch.float32, device=q.device)
     route = ctypes.c_int(-1)
-    code = _build.library().flash_attention_bwd(
+    code = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, K, d, int(causal),
         int(window), int(q_offset), 1.0 / math.sqrt(d),
         DTYPE_CODES[q.dtype], ctypes.byref(route),

@@ -13,10 +13,19 @@ unrounded ``p``, and the output ``acc / max(l, 1e-30)`` in q's type.  It
 shows on the CPU that skipping the mask on the mask-free blocks, and the
 blocks outside the range, changes nothing; the tests hold it against the
 reference's Pallas kernel and ``mha_ref``.
+
+``bwd_schedule`` does the same for the backward's wgmma route
+(``csrc/flash_attention_bwd.cu``): for each block of ``kvb`` keys, the
+query blocks of ``qs`` rows that the dK/dV kernel visits and the
+sub-range that needs no mask; for each block of ``qr`` query rows, the
+dQ kernel's key blocks of ``ks`` keys and their mask-free sub-range; and
+both grids' launch order, the longest CTAs first.  ``tiled_bwd_ref``
+follows it in plain PyTorch with the kernels' rounding points.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -112,3 +121,151 @@ def tiled_ref(
             m = m_new
         out[:, i0:i1] = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
     return out
+
+
+class BwdSchedule(NamedTuple):
+    """The backward kernels' blocks (``bwd_schedule``)."""
+
+    #: (ceil(Skv / kvb), 4) rows ``(qb_lo, qb_hi, qf_lo, qf_hi)``: the
+    #: query blocks a dK/dV CTA visits in each head, and the mask-free ones
+    dkdv: np.ndarray
+    #: (ceil(Sq / qr), 4) rows ``(jb_lo, jb_hi, jf_lo, jf_hi)`` of a dQ CTA
+    dq: np.ndarray
+    #: key blocks in launch order (the slowest grid index: first to last)
+    dkdv_order: np.ndarray
+    #: query blocks in launch order (last to first, as the forward's)
+    dq_order: np.ndarray
+
+
+def bwd_schedule(Sq: int, Skv: int, *, causal: bool, window: int,
+                 q_offset: int, kvb: int = 128, qs: int = 64, qr: int = 128,
+                 ks: int = 64) -> BwdSchedule:
+    """The formulas of ``bwd_dkdv_bf16_wgmma`` and ``bwd_dq_bf16_wgmma``.
+
+    A block is mask-free when every (row, key) pair in it is visible, its
+    rows all below Sq and its keys all below Skv: rows past Sq and keys
+    past Skv always take the mask.  A block whose rows see no key of the
+    other side is not visited; an empty range leaves zeros."""
+    dkdv = []
+    for n0 in range(0, Skv, kvb):
+        n1 = min(n0 + kvb, Skv)
+        i_lo, i_hi = 0, Sq
+        if causal:
+            i_lo = max(0, n0 - q_offset)
+            if window > 0:
+                i_hi = min(Sq, n1 - 1 - q_offset + window)
+        qb_lo = i_lo // qs
+        qb_hi = -(-i_hi // qs) if i_hi > i_lo else qb_lo
+        # every row at or after the last key's causal limit and before the
+        # first key's window end, whole blocks of rows and keys
+        qf_lo = -(-max(0, n0 + kvb - 1 - q_offset) // qs) if causal else 0
+        qf_hi = (max(0, min(Sq, n0 - q_offset + window))
+                 if causal and window > 0 else Sq) // qs
+        if n0 + kvb > Skv:
+            qf_hi = qf_lo
+        qf_lo = min(max(qf_lo, qb_lo), qb_hi)
+        qf_hi = max(min(qf_hi, qb_hi), qf_lo)
+        dkdv.append((qb_lo, qb_hi, qf_lo, qf_hi))
+    dq = block_schedule(Sq, Skv, causal=causal, window=window,
+                        q_offset=q_offset, bm=qr, bn=ks)
+    for qb in range(len(dq)):  # a ragged last query block takes the mask
+        if (qb + 1) * qr > Sq:
+            dq[qb, 3] = dq[qb, 2]
+    nkb = len(dkdv)
+    return BwdSchedule(np.asarray(dkdv, dtype=np.int64).reshape(-1, 4), dq,
+                       np.arange(nkb), np.arange(len(dq))[::-1].copy())
+
+
+def tiled_bwd_ref(
+    q: torch.Tensor,  # (B, Sq, H, d)
+    k: torch.Tensor,  # (B, Skv, K, d), K divides H
+    v: torch.Tensor,  # (B, Skv, K, d)
+    o: torch.Tensor,  # (B, Sq, H, d), the forward's output
+    lse: torch.Tensor,  # (B, H, Sq) float32, the forward's log-sum-exp
+    do: torch.Tensor,  # (B, Sq, H, d)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    kvb: int = 128,
+    qs: int = 64,
+    qr: int = 128,
+    ks: int = 64,
+):
+    """(dq, dk, dv) in the inputs' types, as the wgmma route computes
+    them: the blocks of :func:`bwd_schedule` (the mask on edge blocks
+    only; rows and keys zero-padded to whole blocks, as TMA fills them,
+    with lse and D 0 there), float32 products of the inputs' values, P and
+    dS rounded to q's type before the products they feed (P only in dV,
+    as dQ's S is recomputed unrounded), dK and dV summed over the G heads
+    of a group and each head's query blocks in order, dQ over key blocks
+    in order, dK and dQ scaled at the end."""
+    B, Sq, H, d = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(d)
+    sch = bwd_schedule(Sq, Skv, causal=causal, window=window,
+                       q_offset=q_offset, kvb=kvb, qs=qs, qr=qr, ks=ks)
+
+    def rnd(x):
+        return x.to(q.dtype).float()
+
+    def pad_rows(x, n, dim):
+        shape = list(x.shape)
+        shape[dim] = n - shape[dim]
+        return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+    sqp = max(-(-Sq // m) * m for m in (qs, qr))
+    skp = max(-(-Skv // m) * m for m in (kvb, ks))
+    dd = (do.float() * o.float()).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    qf, dof = (pad_rows(t.float(), sqp, 1) for t in (q, do))
+    lp, dp_ = (pad_rows(t.float(), sqp, 2) for t in (lse, dd))
+    kf, vf = (pad_rows(t.float(), skp, 1) for t in (k, v))
+
+    def mask(rows, keys):
+        return _visible(rows + q_offset, keys, Skv, causal=causal,
+                        window=window) & (rows < Sq)[:, None]
+
+    dk = torch.zeros(B, skp, K, d)
+    dv = torch.zeros(B, skp, K, d)
+    for kb, (qb_lo, qb_hi, qf_lo, qf_hi) in enumerate(sch.dkdv):
+        n0 = kb * kvb
+        kt, vt = kf[:, n0:n0 + kvb], vf[:, n0:n0 + kvb]
+        keys = torch.arange(n0, n0 + kvb)
+        for gg in range(G):
+            hs = torch.arange(K) * G + gg  # head gg of each group
+            for qb in range(int(qb_lo), int(qb_hi)):
+                m0 = qb * qs
+                qt, ot = qf[:, m0:m0 + qs, hs], dof[:, m0:m0 + qs, hs]
+                lt, dt = lp[:, hs, m0:m0 + qs], dp_[:, hs, m0:m0 + qs]
+                st = torch.einsum("bjkd,bikd->bkji", kt, qt) * scale
+                p = torch.exp(st - lt[:, :, None, :])
+                if not qf_lo <= qb < qf_hi:
+                    ok = mask(torch.arange(m0, m0 + qs), keys).T
+                    p = torch.where(ok, p, torch.zeros(()))
+                dpt = torch.einsum("bjkd,bikd->bkji", vt, ot)
+                ds = p * (dpt - dt[:, :, None, :])
+                dv[:, n0:n0 + kvb] += torch.einsum("bkji,bikd->bjkd",
+                                                   rnd(p), ot)
+                dk[:, n0:n0 + kvb] += torch.einsum("bkji,bikd->bjkd",
+                                                   rnd(ds), qt)
+    kg, vg = (t.repeat_interleave(G, dim=2) for t in (kf, vf))
+    dq = torch.zeros(B, sqp, H, d)
+    for qb, (jb_lo, jb_hi, jf_lo, jf_hi) in enumerate(sch.dq):
+        m0 = qb * qr
+        qt, ot = qf[:, m0:m0 + qr], dof[:, m0:m0 + qr]
+        lt, dt = lp[:, :, m0:m0 + qr], dp_[:, :, m0:m0 + qr]
+        rows = torch.arange(m0, m0 + qr)
+        for j in range(int(jb_lo), int(jb_hi)):
+            n0 = j * ks
+            kt, vt = kg[:, n0:n0 + ks], vg[:, n0:n0 + ks]
+            s = torch.einsum("bihd,bjhd->bhij", qt, kt) * scale
+            p = torch.exp(s - lt[..., None])
+            if not jf_lo <= j < jf_hi:
+                ok = mask(rows, torch.arange(n0, n0 + ks))
+                p = torch.where(ok, p, torch.zeros(()))
+            dp = torch.einsum("bihd,bjhd->bhij", ot, vt)
+            ds = p * (dp - dt[..., None])
+            dq[:, m0:m0 + qr] += torch.einsum("bhij,bjhd->bihd", rnd(ds), kt)
+    return ((dq[:, :Sq] * scale).to(q.dtype),
+            (dk[:, :Skv] * scale).to(k.dtype), dv[:, :Skv].to(v.dtype))

@@ -700,9 +700,14 @@ def grad_limit(ref, tol):
 
 
 BWD_CASES = [
-    # (B, S, H, K, d, window, dtype)
+    # (B, S, H, K, d, window, dtype); bf16 at d 64 and 128 takes the wgmma
+    # route, bf16 at d 16 and 32 the mma.sync one, float32 the CUDA cores
     (1, 300, 36, 4, 128, 128, torch.bfloat16),  # G = 9, the training d
     (2, 100, 8, 2, 64, 0, torch.bfloat16),
+    (1, 1000, 36, 4, 128, 256, torch.bfloat16),  # G = 9, a window that bites
+    (2, 333, 8, 2, 64, 100, torch.bfloat16),  # ragged, windowed
+    (1, 77, 9, 1, 128, 0, torch.bfloat16),  # one ragged block, G = 9
+    (3, 130, 4, 4, 64, 64, torch.bfloat16),  # G = 1, two query steps a key
     (1, 77, 4, 2, 32, 20, torch.bfloat16),  # S not a multiple of a block
     (2, 50, 4, 1, 16, 0, torch.bfloat16),
     (1, 129, 4, 2, 128, 50, torch.float32),
@@ -712,13 +717,21 @@ BWD_CASES = [
 ]
 
 
-def _bwd_inputs(cuda, B, S, H, K, d, dt, seed):
+def _bwd_inputs(cuda, B, S, H, K, d, dt, seed, Skv=None):
     g = torch.Generator(device=cuda).manual_seed(seed)
     q, do = (torch.randn(B, S, H, d, generator=g, device=cuda).to(dt)
              for _ in range(2))
-    k, v = (torch.randn(B, S, K, d, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, Skv or S, K, d, generator=g, device=cuda).to(dt)
             for _ in range(2))
     return q, k, v, do
+
+
+def _bwd_route(dt, d):
+    """The backward's route by (dtype, head dim): ``bwd_route`` in
+    flash_attention_bwd.cu."""
+    if dt == torch.float32:
+        return "f32"
+    return "bf16_wgmma" if d in (64, 128) else "bf16_mma_sync"
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
@@ -745,7 +758,7 @@ def test_flash_lse_and_backward_match_plain(cuda, case):
     before = dict(flash_attention_bwd_cuda.launches_by_route)
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-    route = "bf16_mma_sync" if dt == torch.bfloat16 else "f32"
+    route = _bwd_route(dt, d)
     assert flash_attention_bwd_cuda.launches_by_route[route] == \
         before[route] + 2
     want = mha_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
@@ -768,7 +781,10 @@ def test_flash_backward_controls_fail_the_limit(cuda):
 
     q, k, v, do = _bwd_inputs(cuda, 1, 300, 36, 4, 128, torch.bfloat16, 1)
     o, lse = flash_attention_cuda(q, k, v, window=64, return_lse=True)
+    before = flash_attention_bwd_cuda.launches_by_route["bf16_wgmma"]
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=64)
+    assert flash_attention_bwd_cuda.launches_by_route["bf16_wgmma"] == \
+        before + 1
     f = [t.float() for t in (q, k, v, o, lse, do)]
     no_window = mha_bwd_ref(*f, window=0)
     no_d = mha_bwd_ref(*f[:3], torch.zeros_like(f[3]), f[4], f[5],
@@ -777,6 +793,88 @@ def test_flash_backward_controls_fail_the_limit(cuda):
         assert any(bool(((a.float() - c).abs()
                          > grad_limit(c, 2e-2)).any())
                    for a, c in zip(got, wrong))
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, K, d, causal, window, q_offset), bf16: the wgmma route
+    (2, 150, 330, 4, 1, 128, True, 200, 180),  # window > 128, q_offset > 0
+    (1, 257, 390, 36, 4, 128, True, 0, 133),  # causal only, continued
+    (2, 129, 255, 8, 2, 64, False, 0, 0),  # no mask but the ragged tails
+    (1, 40, 1000, 9, 1, 128, True, 700, 960),  # one ragged query block
+    (1, 64, 300, 4, 2, 64, True, 10, 400),  # rows that see no key
+])
+def test_flash_backward_wgmma_continued_matches_plain(cuda, case):
+    """Sq != Skv with a q_offset (a continued sequence), the mask off, and
+    rows that see no key (lse -inf: their P must be 0, not NaN)."""
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+
+    B, Sq, Skv, H, K, d, causal, window, qoff = case
+    dt = torch.bfloat16
+    q, k, v, do = _bwd_inputs(cuda, B, Sq, H, K, d, dt, Sq + Skv, Skv=Skv)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    before = flash_attention_bwd_cuda.launches_by_route["bf16_wgmma"]
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    assert flash_attention_bwd_cuda.launches_by_route["bf16_wgmma"] == \
+        before + 1
+    want = mha_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                       do.float(), **kw)
+    for a, c in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        err = (a.float() - c).abs()
+        assert bool((err <= grad_limit(c, ATTN_TOL[dt])).all()), float(
+            err.max())
+
+
+def test_flash_backward_routes_by_dtype_and_head_dim(cuda):
+    """bf16 with d in {64, 128} takes the wgmma kernels, bf16 with d in
+    {16, 32} the mma.sync ones, float32 the CUDA-core ones; one call
+    counts one launch on one route."""
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+
+    for dt, d in ((torch.bfloat16, 128), (torch.bfloat16, 64),
+                  (torch.bfloat16, 32), (torch.bfloat16, 16),
+                  (torch.float32, 128), (torch.float32, 64)):
+        q, k, v, do = _bwd_inputs(cuda, 1, 70, 4, 2, d, dt, d)
+        o, lse = flash_attention_cuda(q, k, v, window=30, return_lse=True)
+        before = dict(flash_attention_bwd_cuda.launches_by_route)
+        flash_attention_bwd_cuda(q, k, v, o, lse, do, window=30)
+        after = flash_attention_bwd_cuda.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == _bwd_route(dt, d)) for r in after}
+
+
+def test_flash_backward_graph_replay_is_bitwise(cuda):
+    """The wgmma backward captured in a CUDA graph (its tensor maps are
+    kernel arguments, captured by value) gives the eager call's bits, as
+    does a second eager call: no atomics, a fixed order of sums."""
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+
+    q, k, v, do = _bwd_inputs(cuda, 2, 300, 36, 4, 128, torch.bfloat16, 11)
+    o, lse = flash_attention_cuda(q, k, v, window=128, return_lse=True)
+    eager = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=128)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=128)
+    assert all(torch.equal(a, b) for a, b in zip(eager, again))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [flash_attention_bwd_cuda(q, k, v, o, lse, do, window=128)
+                for _ in range(2)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
 def test_flash_backward_rejects_what_it_does_not_take(cuda):

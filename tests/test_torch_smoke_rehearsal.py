@@ -58,3 +58,32 @@ def test_gofs_session_cluster_and_mesh_phases_on_the_cpu(smoke, monkeypatch):
     mesh = recs["mesh"]
     assert mesh["cut"] == {"in_memory_instances": pack}
     assert mesh["control_failed"]
+
+
+def test_flash_backward_sweep_on_the_cpu(smoke, monkeypatch):
+    """The smoke's backward sweep (``bwd_sweep``) at tiny sizes on the CPU,
+    one case a route and the wrong controls on the windowed case, where the
+    wrappers run their plain versions; and the smoke's own cases cover the
+    backward's three routes, the training layer's shape on the wgmma one."""
+    from repro_torch.kernels.flash_attention.bwd import ROUTES
+
+    cases = list(smoke.BWD_CASES)
+    assert {smoke.bwd_route(c[-1], c[4]) for c in cases} == set(ROUTES)
+    assert smoke.bwd_route(cases[0][-1], cases[0][4]) == \
+        smoke.TRAIN_BWD_ROUTE == "bf16_wgmma"
+    monkeypatch.setattr(smoke, "BWD_CASES", [
+        (1, 40, 4, 2, 64, 0, "bfloat16"),
+        (1, 70, 9, 1, 128, 16, "bfloat16"),
+        (2, 33, 4, 4, 32, 0, "bfloat16"),
+        (1, 30, 4, 1, 16, 8, "float32"),
+    ])
+    monkeypatch.setattr(smoke, "BWD_CONTROL_CASE", 1)
+    log = []
+    sweep = smoke.bwd_sweep(torch.Generator().manual_seed(3), "cpu",
+                            log=log.append)
+    assert [r["route"] for r in sweep] == [
+        "bf16_wgmma", "bf16_wgmma", "bf16_mma_sync", "f32"]
+    assert all(r["repeat_bitwise"] and r["limit_used"] <= 1.0
+               for r in sweep)
+    assert min(sweep[1]["controls_limit_used"].values()) > 1.0
+    assert len(log) == 4
