@@ -99,9 +99,10 @@ Phases (any failure exits non-zero before the result lines):
 6d. the mesh (``mesh_phase``) on the same deployment: rank processes on
    the one card (:func:`mesh_worker`, ``--mesh-worker``), each with its
    own CUDA context, the in-memory runs of (b) and (c) over the first
-   time pack (MESH_MEMORY_PACKS, a depth cut on the ``mesh path cuts``
-   line) and every run from the store over all instances: (a) a (1, 1)
-   mesh with ``backend="nccl"`` — the
+   time pack (MESH_MEMORY_PACKS) and their runs from the store over the
+   first time pack too (MESH_STORE_PACKS; both depth cuts on the ``mesh
+   path cuts`` line): (a) a (1, 1)
+   mesh with ``backend="nccl"``, over every instance — the
    only place the NCCL code runs, since NCCL refuses two ranks on one
    device — SSSP through ``GopherSession(store, mesh=...)``, streamed
    from the deployment, bitwise phase 5's; (b) ``model = 2`` under gloo,
@@ -173,6 +174,30 @@ Phases (any failure exits non-zero before the result lines):
    ``torch.profiler`` breakdown of one prefill and four decode steps;
 9. teacher forcing at S = 8,192: prefill S + 1 against prefill S then
    decode 1, logits within 5e-2;
+8b. the MoE family serving (``moe_serve``), after starcoder2-7b is
+   freed: dbrx-132b cut to 4 of its 40 layers and llama4-maverick-400b-a17b
+   to one group (a dense and a MoE layer), both at full width with random
+   weights, one model on the card at a time (MOE_CUTS, printed on the
+   ``moe path cuts`` line).  Each: ``BatchedServer`` with starcoder2's
+   traffic (4 prompts of 8,192 tokens, 32 new, batch 4); its parameter
+   count against ``param_count()`` of the cut config (plus the padded
+   vocabulary rows and LayerNorm biases it leaves out); every prefill
+   launch of kernel 3 on the bf16 wgmma route and every decode launch of
+   kernel 4 on the bf16 ring route, layers x prefills and layers x decode
+   steps; finite logits; a second serve giving the same tokens; each MoE
+   layer's share of (token, expert) entries dropped for capacity in the
+   prefill; kernels 3 and 4 at the serve's layer-0 shapes (G = 6 and 5,
+   no window) against their plain versions within :func:`attn_limit`,
+   with wrong controls that need no window (the causal edge one key off,
+   the newest key lost, the oldest 32 keys dropped, query heads on the
+   wrong KV heads); a ``torch.profiler`` breakdown of one prefill and four decode
+   steps; teacher forcing at S = 1,024 on a copy of the config that
+   drops nothing (capacity factor 64), within 5e-2; and the layer check:
+   ``moe_apply_local`` on the first MoE layer, 256 tokens, against a
+   token-by-token plain version whose kept set is recomputed on the host,
+   within :func:`attn_limit` per token, at the config's capacity and at
+   one that drops (asserted), with two wrong controls that must fail
+   (gates not renormalised; dropped entries written by assignment);
 10. each attention kernel at the serving run's layer-0 shapes and at the
    ``prefill_32k`` / ``decode_32k`` shapes: held against the plain
    version, with controls (the plain version with the window edge or the
@@ -183,8 +208,8 @@ Phases (any failure exits non-zero before the result lines):
    sweep (1, 2, 4, 8, 16 splits and the schedule's own count).  The
    decode times are taken with K/V out of L2 (``cold_ms``), as a decode
    step finds them, and also back to back (``warm_ms``); then the
-   ``kernels`` JSON line for all four kernels (the attention kernels'
-   with their launches by route);
+   ``kernels`` JSON line for all five kernels (the attention kernels'
+   with their launches by route, and phase 8b's by model);
 11. LM training (``train_path``): starcoder2-7b at full width (d_model
    4,608, 36 heads over 4, d_ff 18,432, vocab 49,152, window 4,096) cut
    to 4 layers (1,321,288,704 parameters), ``train_loop`` for 4 steps of
@@ -211,7 +236,7 @@ Phases (any failure exits non-zero before the result lines):
     {...}}``.
 
 Each main path (graph, query, GoFS graph, the session within it, the
-stream phase, serving, training) runs with every kernel's launch count
+stream phase, serving, MoE serving, training) runs with every kernel's launch count
 set to 0
 just before it
 and read just after; a kernel of the path that was not launched fails
@@ -933,6 +958,14 @@ MESH_COMMS = ("dense", "ring", "ring-rs")
 # session run and 6c's other-mode rerun restored; over all 48 the
 # in-memory runs took about 75 of 6d's 194 s
 MESH_MEMORY_PACKS = 1
+# time packs of the runs from the store of phase 6d's (b) and (c) (a
+# ``time_range`` prefix of the deployment): a depth cut taken when a
+# smoke ran 1,227.7 s on one H100 whose host phases ran a third slower
+# than before; over all 48 instances these two runs took 14-18 s each.
+# (a), the NCCL run through the session, streams all 48 (14.0 s over
+# all, 13.5 s over the first pack), so the mesh still streams across
+# time-pack boundaries
+MESH_STORE_PACKS = 1
 
 
 def _mesh_inputs(cfg):
@@ -1068,8 +1101,11 @@ def mesh_worker(spec) -> int:
         def store_run(name, **knobs):
             """An SSSP through ``GopherSession(store, mesh=...)`` on phase
             6's deployment, its fills counted on the session's graph."""
-            sess = GopherSession(GoFSStore(spec["store"]), mesh=mesh,
-                                 device=dev)
+            window = spec["store_window"]
+            sess = GopherSession(GoFSStore(spec["store"], time_range=None
+                                           if window is None
+                                           else tuple(window)),
+                                 mesh=mesh, device=dev)
             plan = sess.plan("sssp", source=0, **knobs)
             with counted_fills(sess.bg) as seen:
                 keep(name, timed(name, lambda: sess.run(plan)).engine)
@@ -1247,12 +1283,13 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
     deployment ``root`` of the same collection.
 
     The in-memory runs of (b) and (c) take the first MESH_MEMORY_PACKS
-    time packs and are held against the first instances of phases 5 and
-    5b; the runs from the store take all instances.
+    time packs and their runs from the store the first MESH_STORE_PACKS
+    (a ``time_range`` prefix of the deployment); each is held against the
+    first instances of phases 5 and 5b.  (a) streams every instance.
 
     (a) NCCL at world size 1: a (1, 1) ``backend="nccl"`` mesh, SSSP
     through ``GopherSession(store, mesh=...)`` (the planner's streamed
-    route) over all instances, bitwise phase 5's; (b) ``model = 2``
+    route), bitwise phase 5's; (b) ``model = 2``
     under gloo (NCCL refuses two ranks on one device), each rank on the
     card with 4 of the 8 partitions: sequential SSSP in spmv and fused
     mode and SSSP with phase 5b's 32 sources, bitwise phases 5 and 5b,
@@ -1287,14 +1324,19 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
     bg = keep["bg"]
     I = mem["lat"].shape[0]
     n_mem, _ = first_packs(root, MESH_MEMORY_PACKS)
+    n_store, window = first_packs(root, MESH_STORE_PACKS)
     on["instances"] = n_mem
+    on["store_window"] = None if n_store == I else list(window)
     full_bytes = I * bg.n_parts * (bg.t_max + bg.tb_max) \
         * bg.block_size ** 2 * 4
     mem_bytes = full_bytes // I * n_mem
     if device == "cuda":
         torch.cuda.empty_cache()
     out = tempfile.mkdtemp(prefix="mesh_smoke_")
-    recs = {"cut": {} if n_mem == I else {"in_memory_instances": n_mem}}
+    recs = {"cut": {k: n for k, n in (("in_memory_instances", n_mem),
+                                      ("model_data_store_instances",
+                                       n_store))
+                    if n < I}}
 
     def same(got, want, what):
         same_bits(torch.as_tensor(np.asarray(got)),
@@ -1332,10 +1374,11 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
                  f"mesh {name}: {k}")
 
     try:
-        # (a) NCCL at world size 1, from the store
+        # (a) NCCL at world size 1, from the store, every instance (the
+        # one mesh run that streams across time-pack boundaries)
         on["store"] = root
         nccl, a = _spawn_mesh("nccl", 1, 1, "nccl" if cuda else "gloo",
-                              out, on, log)
+                              out, dict(on, store_window=None), log)
         same_run(a, "sssp", r_sp)
         shard_fills(nccl, "sssp", I, bg.n_parts)
         log("mesh nccl plan:\n" + nccl[0]["explain"])
@@ -1350,8 +1393,8 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
         srcs = keep["query"]["sources"]
         model, b = _spawn_mesh("model", 1, 2, "gloo", out,
                                dict(on, sources=srcs), log)
-        same_run(b, "store_sssp", r_sp)
-        shard_fills(model, "store_sssp", I, bg.n_parts // 2)
+        same_run(b, "store_sssp", r_sp, n_store)
+        shard_fills(model, "store_sssp", n_store, bg.n_parts // 2)
         per_superstep = {}
         for c in MESH_COMMS:
             for m in ("spmv", "fused"):
@@ -1395,8 +1438,10 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
                        "mesh pagerank_temporal: merged")
         same_run(c_, "sssp_independent_ring", mem["sssp_eventually"],
                  n_mem)
-        same_run(c_, "store_sssp_independent", mem["sssp_eventually"])
-        shard_fills(data, "store_sssp_independent", I // 2, bg.n_parts)
+        same_run(c_, "store_sssp_independent", mem["sssp_eventually"],
+                 n_store)
+        shard_fills(data, "store_sssp_independent", n_store // 2,
+                    bg.n_parts)
         for r in data:
             sizes = {(i, p) for i, p, _ in r["fills"]}
             need(sizes == {(n_mem // 2, bg.n_parts)},
@@ -1435,7 +1480,7 @@ def mesh_phase(cfg, keep, card, root, device="cuda", log=print):
         control_failed=control_failed, control_launches=control_launches,
         card=card)
     log(f"mesh path cuts: {json.dumps(recs['cut'])} ({cfg.name}: {I} "
-        f"instances; the runs from the store take all of them)")
+        f"instances)")
     log(f"mesh path launches: {json.dumps(launches)} (the control's, "
         f"not among them: {json.dumps(control_launches)})")
     log(f"mesh path launches by call shape: {json.dumps(by_shape)}")
@@ -3333,7 +3378,8 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (B, Sq, Skv, H, K, d, causal, window, q_offset, dtype): FLASH_SWEEP of
 # tests/test_kernels.py:127-136, then ragged Sq/Skv tails, G = 9 with
 # starcoder2's d, windows longer than the sequence, one query row, a
-# prefill continuing a cache (q_offset > 0)
+# prefill continuing a cache (q_offset > 0), then the MoE family's groups
+# with no window: G = 6 (dbrx-132b) and G = 5 (llama4-maverick)
 FLASH_CASES = [
     (2, 64, 64, 4, 2, 32, True, 0, 0, "float32"),
     (1, 128, 128, 8, 8, 64, True, 0, 0, "float32"),
@@ -3350,10 +3396,13 @@ FLASH_CASES = [
     (1, 77, 130, 8, 2, 64, False, 0, 0, "bfloat16"),
     (3, 1, 33, 4, 1, 16, True, 8, 32, "bfloat16"),
     (1, 200, 200, 16, 1, 128, True, 5000, 0, "bfloat16"),
+    (2, 300, 300, 48, 8, 128, True, 0, 0, "bfloat16"),
+    (1, 257, 257, 40, 8, 128, True, 0, 0, "bfloat16"),
 ]
 # (B, S, H, K, d, window, dtype): DECODE_SWEEP of tests/test_kernels.py:
-# 178-183, then G = 9, G = 16, windows longer than the cache, and caches
-# long enough for many splits; every case has a sequence of length 1
+# 178-183, then G = 9, G = 16, windows longer than the cache, caches
+# long enough for many splits, and the MoE family's G = 6 and G = 5 with
+# no window; every case has a sequence of length 1
 DECODE_CASES = [
     (2, 128, 4, 2, 32, 0, "float32"),
     (1, 256, 8, 1, 64, 0, "float32"),
@@ -3366,6 +3415,8 @@ DECODE_CASES = [
     (1, 4096, 36, 4, 128, 0, "bfloat16"),
     (4, 5000, 36, 4, 128, 4096, "bfloat16"),
     (2, 3000, 36, 4, 128, 0, "float32"),
+    (4, 3000, 48, 8, 128, 0, "bfloat16"),
+    (4, 2100, 40, 8, 128, 0, "bfloat16"),
 ]
 # the serving run: starcoder2-7b at full width and depth
 SERVE_ARCH, SERVE_REQUESTS, SERVE_BATCH = "starcoder2-7b", 4, 4
@@ -3620,12 +3671,16 @@ def profile_window(name, fn, log=print, top=12, phase="serve_profile"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    def sync():  # a CPU rehearsal runs the window with no card
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         wall = time.perf_counter() - t0
     # device-side entries only (kernels, copies): the host ops that
     # launched them carry the same time again
@@ -3646,7 +3701,8 @@ def profile_window(name, fn, log=print, top=12, phase="serve_profile"):
     return rec
 
 
-def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
+def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12,
+                  phase="serve_profile"):
     """Where the serving time goes: ``torch.profiler`` over one prefill of
     the SERVE_BATCH prompts and over ``n_decode`` decode steps.  Prints,
     for each window, the host wall time, the device time the profiler saw
@@ -3667,7 +3723,7 @@ def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
     out = {}
 
     def window(name, fn):
-        out[name] = profile_window(name, fn, log, top)
+        out[name] = profile_window(name, fn, log, top, phase)
 
     def run_prefill():
         nonlocal cache
@@ -3683,21 +3739,22 @@ def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12):
     window("prefill", run_prefill)
     window(f"decode x{n_decode}", run_decode)
     del cache
-    torch.cuda.empty_cache()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
-def teacher_forcing(lm, device="cuda", log=print):
+def parity_run(model, cfg, S, device="cuda"):
     """Prefilling S + 1 tokens and prefilling S then decoding one must give
     the same last-token logits (tests/test_arch_smoke.py:67-109): the
-    flash kernel against the decode kernel over all layers."""
+    flash kernel against the decode kernel over all layers, within
+    PARITY_TOL, and the same top-1 where the top-2 margin exceeds
+    PARITY_MARGIN.  Returns the record."""
     import numpy as np
-    import torch
 
     from repro_torch.models import decode_step, init_serve_cache, prefill
 
-    cfg, model = lm["cfg"], lm["model"]
-    S, V = PARITY_S, cfg.vocab_size
+    V = cfg.vocab_size
     toks = np.random.default_rng(1).integers(0, V, (1, S + 1)).astype(
         np.int32)
     t0 = time.perf_counter()
@@ -3712,18 +3769,492 @@ def teacher_forcing(lm, device="cuda", log=print):
     va = la[:, -1, :V].float().cpu().numpy()
     vb = lb[:, -1, :V].float().cpu().numpy()
     need(np.isfinite(va).all() and np.isfinite(vb).all(),
-         "teacher forcing: non-finite logits")
+         f"teacher forcing {cfg.name}: non-finite logits")
     err = float(np.abs(va - vb).max())
     need(np.allclose(va, vb, rtol=PARITY_TOL, atol=PARITY_TOL),
-         f"teacher forcing: logits differ by {err} beyond {PARITY_TOL}")
+         f"teacher forcing {cfg.name}: logits differ by {err} beyond "
+         f"{PARITY_TOL}")
     top2 = np.sort(va[0])[-2:]
     margin = float(top2[1] - top2[0])
     if margin > PARITY_MARGIN:
-        need(va[0].argmax() == vb[0].argmax(), "teacher forcing: top-1 "
-                                               "differs")
-    log(f"phase teacher_forcing: {json.dumps({'seconds': time.perf_counter() - t0, 'S': S, 'max_abs_err': err, 'logit_std': float(va.std()), 'top2_margin': margin, 'top1_equal': bool(va[0].argmax() == vb[0].argmax())})}")
+        need(va[0].argmax() == vb[0].argmax(),
+             f"teacher forcing {cfg.name}: top-1 differs")
+    return {"seconds": time.perf_counter() - t0, "S": S,
+            "max_abs_err": err, "logit_std": float(va.std()),
+            "top2_margin": margin,
+            "top1_equal": bool(va[0].argmax() == vb[0].argmax())}
+
+
+def teacher_forcing(lm, device="cuda", log=print):
+    """:func:`parity_run` of the serving model at PARITY_S."""
+    import torch
+
+    rec = parity_run(lm["model"], lm["cfg"], PARITY_S, device)
+    log(f"phase teacher_forcing: {json.dumps(rec)}")
     torch.cuda.empty_cache()
-    return err
+    return rec["max_abs_err"]
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the MoE family serving (dbrx-132b, llama4-maverick-400b-a17b)
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept of its published depth): full width, random weights,
+# cut in depth only.  dbrx: 4 of 40 MoE layers (16 experts, top 4;
+# 14.27B parameters); llama4: 1 group of 24, one dense and one MoE layer
+# (128 experts, top 1, the shared expert; 16.48B body parameters)
+MOE_CUTS = (("dbrx-132b", 4), ("llama4-maverick-400b-a17b", 2))
+# teacher forcing on a copy of the config that drops nothing (the
+# reference's own test, tests/test_arch_smoke.py:74-80): capacity drops
+# depend on the batch, a lone decode token never drops.  Prompt length:
+# dbrx's capacity at factor 64 is 16 T slots an expert (T = S + 1)
+MOE_NODROP_CF, MOE_PARITY_S = 64.0, 1024
+# the dispatch check: tokens through one MoE layer, a capacity factor
+# that drops (C = 8, the floor), and the dropping run's input: this many
+# distinct tokens, each repeated, so that every expert chosen gets more
+# entries than C whatever the routing
+MOE_CHECK_T, MOE_DROP_CF, MOE_DROP_DISTINCT = 256, 0.05, 16
+
+
+def moe_cut_configs():
+    """The MoE configs the phase serves, cut in depth (MOE_CUTS)."""
+    from repro_torch.configs import get_config
+
+    return [get_config(a).with_overrides(num_layers=n) for a, n in MOE_CUTS]
+
+
+def schema_params(cfg) -> int:
+    """Parameters of ``cfg``'s schema: ``param_count()`` plus what it
+    leaves out, the padded vocabulary rows of embed and head and the
+    LayerNorm biases."""
+    n = cfg.param_count()
+    n += ((cfg.vocab_padded - cfg.vocab_size) * cfg.d_model
+          * (1 if cfg.tie_embeddings else 2))
+    if cfg.norm == "layernorm":
+        n += (2 * cfg.num_layers + 1) * cfg.d_model
+    return n
+
+
+@contextlib.contextmanager
+def moe_patched(name, fn):
+    """One function of the MoE module replaced while the block runs
+    (``moe_apply_local`` looks its stages up in the module at each call)."""
+    from repro_torch.models import moe
+
+    orig = getattr(moe, name)
+    setattr(moe, name, fn)
+    try:
+        yield
+    finally:
+        setattr(moe, name, orig)
+
+
+@contextlib.contextmanager
+def moe_dispatches():
+    """While a MoE path runs, record every dispatch: (tokens, the (T, k)
+    keep mask)."""
+    from repro_torch.models import moe
+
+    got = []
+
+    def rec(x, top_g, top_i, num_experts, capacity):
+        out = orig(x, top_g, top_i, num_experts, capacity)
+        got.append((x.shape[0], out[2]))
+        return out
+
+    orig = moe._dispatch
+    with moe_patched("_dispatch", rec):
+        yield got
+
+
+def route_no_renorm(p, x, cfg):
+    """Wrong control: the top-k gates left as softmax probabilities."""
+    import torch
+
+    gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    top_g, top_i = torch.sort(gates, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    return top_g[:, :k], top_i[:, :k].to(torch.int32), gates
+
+
+def dispatch_by_assignment(x, top_g, top_i, num_experts, capacity):
+    """Wrong control: the entries written by assignment in flattened
+    order, a dropped one as ``x * 0`` at slot C - 1, so that it overwrites
+    the token kept there (the reference adds it).  Every dropped entry of
+    an expert comes after the one kept at C - 1, so the kept entries are
+    written first and the dropped ones over them."""
+    import torch
+    import torch.nn.functional as F
+
+    T, k = top_i.shape
+    E, C = num_experts, capacity
+    flat_e = top_i.reshape(-1).long()
+    onehot = F.one_hot(flat_e, E)
+    slot = (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    kept = slot < C
+    slot = slot.clamp_max(C - 1)
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    buf = x.new_zeros((E, C, x.shape[-1]))
+    buf[flat_e[kept], slot[kept]] = x[tok[kept]]
+    buf[flat_e[~kept], slot[~kept]] = 0
+    return (buf, slot.reshape(T, k), kept.to(x.dtype).reshape(T, k), tok)
+
+
+def moe_token_loop(p, x, cfg):
+    """The plain version of one MoE layer, token by token: for each token,
+    the sum over its kept choices of gate times that expert's MLP, plus
+    the shared expert.  Gates from the float32 softmax of the router; the
+    top k by a stable sort on the host; each gate renormalised by its
+    row's sum; the kept set by the first-come rule recomputed on the host
+    (an entry is kept while fewer than C earlier entries, in (token,
+    choice) order, chose its expert).  Products in x's type, the sum in
+    float32; the experts' MLPs SwiGLU, as in both MoE configs.  Returns
+    (output (T, d), the number of dropped entries)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    need(cfg.mlp_activation == "swiglu", f"moe {cfg.name}: the token loop "
+                                         f"computes SwiGLU experts")
+    T, d = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    gates = torch.softmax(x.float() @ p["router"].float(), -1).cpu().numpy()
+    order = np.argsort(-gates, axis=1, kind="stable")[:, :k]
+    g = np.take_along_axis(gates, order, 1)
+    g = g / np.maximum(g.sum(1, keepdims=True), 1e-9)
+    c = int(T * k * cfg.moe.capacity_factor / E)
+    C = max(8, -(-c // 8) * 8)
+    count = np.zeros(E, np.int64)
+    kept = np.zeros((T, k), bool)
+    for t in range(T):
+        for j in range(k):
+            kept[t, j] = count[order[t, j]] < C
+            count[order[t, j]] += 1
+
+    def mlp(wi, wo, xt):
+        a, u = (xt @ wi).chunk(2, dim=-1)
+        return (F.silu(a) * u) @ wo
+
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        for j in range(k):
+            if kept[t, j]:
+                e = int(order[t, j])
+                out[t] += float(g[t, j]) * mlp(p["wi"][e], p["wo"][e],
+                                               x[t:t + 1])[0].float()
+    if cfg.moe.shared_expert:
+        out += mlp(p["shared_wi"], p["shared_wo"], x).float()
+    return out.to(x.dtype), int((~kept).sum())
+
+
+def moe_limit_used(got, plain, tol) -> float:
+    """The largest share of :func:`attn_limit` (per token row) that any
+    entry of ``got`` uses against ``plain``.  A token whose every choice
+    was dropped (no shared expert) has a zero row and a zero limit: there
+    any difference counts as infinitely over."""
+    import torch
+
+    g, p = got.float(), plain.float()
+    err = (g - p).abs()
+    lim = attn_limit(p, tol)
+    share = torch.where(lim > 0, err / lim.clamp_min(1e-30),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(share.max())
+
+
+def moe_layer_check(model, cfg, gen, device="cuda", log=print):
+    """``moe_apply_local`` on the model's first MoE layer at full width
+    against :func:`moe_token_loop`, within :func:`attn_limit` (per token
+    row, the bf16 tolerance): MOE_CHECK_T random tokens at the config's
+    capacity, then at MOE_DROP_CF on MOE_DROP_DISTINCT tokens each
+    repeated, where entries must drop.  Two wrong controls must exceed
+    the limit: the gates not renormalised, and dropped entries written by
+    assignment (at the dropping capacity).  Returns the records."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+
+    p = model.stacked_layers("moe")[0].moe
+    dt = getattr(torch, cfg.dtype)
+    tol = ATTN_TOL[cfg.dtype]
+    x = torch.randn((MOE_CHECK_T, cfg.d_model), generator=gen,
+                    device=device).to(dt)
+    reps = MOE_CHECK_T // MOE_DROP_DISTINCT
+    drop_cfg = cfg.with_overrides(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_DROP_CF))
+    out = {}
+    for name, c, xs in (("nominal", cfg, x),
+                        ("dropping", drop_cfg,
+                         x[:MOE_DROP_DISTINCT].repeat_interleave(reps, 0))):
+        with moe_dispatches() as calls:
+            got, _ = moe.moe_apply_local(p, xs[None], c)
+        plain, dropped = moe_token_loop(p, xs, c)
+        keep = calls[0][1]
+        n_drop = int((keep == 0).sum())
+        need(n_drop == dropped, f"moe {cfg.name} {name}: {n_drop} entries "
+                                f"dropped, the host's rule drops {dropped}")
+        need(got.shape == (1,) + plain.shape, f"moe {cfg.name} {name}: "
+                                              f"shape {tuple(got.shape)}")
+        need(bool(torch.isfinite(got).all()),
+             f"moe {cfg.name} {name}: non-finite output")
+        used = moe_limit_used(got[0], plain, tol)
+        need(used <= 1.0, f"moe {cfg.name} {name}: {used:.3g}x the limit "
+                          f"of attn_limit (tol {tol}) against the token loop")
+        if name == "dropping":
+            need(n_drop > 0, f"moe {cfg.name}: nothing dropped at capacity "
+                             f"factor {MOE_DROP_CF}")
+            control = ("dropped_by_assignment", "_dispatch",
+                       dispatch_by_assignment)
+        else:
+            control = ("no_renormalisation", "_route", route_no_renorm)
+        with moe_patched(*control[1:]):
+            bad, _ = moe.moe_apply_local(p, xs[None], c)
+        bad_used = moe_limit_used(bad[0], plain, tol)
+        need(bad_used > 1.0, f"moe {cfg.name} {name}: the control "
+                             f"'{control[0]}' stays within the limit "
+                             f"({bad_used:.3g}x)")
+        out[name] = {
+            "tokens": xs.shape[0], "capacity": moe._capacity(xs.shape[0], c),
+            "dropped": n_drop, "dropped_share": n_drop / keep.numel(),
+            "max_abs_err": float((got[0].float() - plain.float()).abs().max()),
+            "limit_used": used, "mean_abs_plain": float(plain.float().abs()
+                                                        .mean()),
+            "controls_limit_used": {control[0]: bad_used}}
+    return out
+
+
+def moe_teacher_forcing(model, cfg, device="cuda"):
+    """:func:`parity_run` at MOE_PARITY_S on a no-drop copy of the config
+    (capacity factor MOE_NODROP_CF), the model's own weights; no entry may
+    drop.  Returns the record."""
+    import dataclasses
+
+    nodrop = cfg.with_overrides(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_NODROP_CF))
+    model.cfg = nodrop
+    try:
+        with moe_dispatches() as calls:
+            rec = parity_run(model, nodrop, MOE_PARITY_S, device)
+    finally:
+        model.cfg = cfg
+    dropped = sum(int((keep == 0).sum()) for _, keep in calls)
+    need(dropped == 0, f"moe {cfg.name} teacher forcing: {dropped} entries "
+                       f"dropped at capacity factor {MOE_NODROP_CF}")
+    rec.update(capacity_factor=MOE_NODROP_CF, dispatches=len(calls))
+    return rec
+
+
+def wrong_kv_heads(fn, q, k, *args, **kw):
+    """Wrong control: ``fn`` (a plain attention) with query head h reading
+    KV head h % K in place of h // G, the grouping a kernel that mixed up
+    its query groups would compute.  Differs from the right grouping only
+    where G > 1 and K > 1."""
+    H, d, K = q.shape[-2], q.shape[-1], k.shape[2]
+    G, lead = H // K, q.shape[:-2]
+    qq = q.reshape(*lead, G, K, d).transpose(-3, -2).reshape(*lead, H, d)
+    out = fn(qq, k, *args, **kw)
+    return out.reshape(*lead, K, G, d).transpose(-3, -2).reshape(*lead, H, d)
+
+
+def moe_attention_check(shapes, cfg, log=print):
+    """Kernels 3 and 4 at one MoE model's serving shapes, layer 0 of the
+    prefill and of the first decode step as :func:`capture_layer0`
+    recorded them (query groups of G = H / K; no window in either MoE
+    config), against ``mha_ref`` and ``decode_ref`` within
+    :func:`attn_limit` at the bf16 tolerance, on the same card tensors.
+    Wrong controls that need no window must exceed the limit: the causal
+    edge one key off (flash), the newest key lost and the oldest 32 keys
+    dropped (decode), and, for both, the query heads read by the wrong KV
+    heads (:func:`wrong_kv_heads`).  Returns {kernel: record}."""
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    flash_k, decode_k = attn_counters()
+    tol = ATTN_TOL["bfloat16"]
+    out = {}
+
+    def check(kernel, name, q, k, kfn, pfn, controls):
+        H, K = q.shape[-2], k.shape[2]
+        if H // K > 1 and K > 1:
+            controls["query heads on the wrong KV heads"] = \
+                lambda: wrong_kv_heads(pfn, q, k)
+        kout, pout = kfn(q, k), pfn(q, k)
+        err, used, mean_p, max_p = attn_compare(kout, pout, tol, name)
+        ctl = attn_controls(pout, controls, tol, name)
+        out[kernel] = {"call": name, "q": list(q.shape), "kv": list(k.shape),
+                       "group": H // K, "max_abs_err": err,
+                       "limit_used": used, "mean_abs_plain": mean_p,
+                       "max_abs_plain": max_p, "controls_limit_used": ctl}
+
+    q, k, v, window, q_offset = shapes["flash"]
+    need(not window, f"moe {cfg.name}: the prefill ran with window {window}")
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    check("flash_attention_cuda", f"{cfg.name} serve prefill, layer 0", q, k,
+          lambda q, k: flash_k(q, k, v, **kw),
+          lambda q, k: mha_ref(q, k, v, **kw),
+          {"causal edge one key off": lambda: mha_ref(
+              q, k, v, causal=True, window=window, q_offset=q_offset - 1)})
+    q, k, v, lengths, window = shapes["decode"]
+    need(not window, f"moe {cfg.name}: decode ran with window {window}")
+    lmin = int(lengths.min())
+    drop = min(32, lmin // 2)
+    need(drop > 0, f"moe {cfg.name}: decode lengths {lengths.tolist()}")
+    check("decode_attention_cuda", f"{cfg.name} serve decode step 1, layer 0",
+          q, k, lambda q, k: decode_k(q, k, v, lengths, window=window),
+          lambda q, k: decode_ref(q, k, v, lengths, window=window),
+          {"newest key lost": lambda: decode_ref(
+              q, k, v, (lengths - 1).clamp(min=1), window=window),
+           f"oldest {drop} keys dropped": lambda: decode_ref(
+               q, k, v, lengths, window=lmin - drop)})
+    out["decode_attention_cuda"]["lengths"] = lengths.tolist()
+    return out
+
+
+def moe_serve_one(cfg, card, device="cuda", log=print):
+    """One MoE model at full width cut in depth: random weights from a
+    seeded generator, ``BatchedServer`` answering SERVE_REQUESTS prompts
+    of SERVE_PROMPT tokens with SERVE_NEW new tokens each at batch
+    SERVE_BATCH, launches counted by route (every prefill launch of
+    kernel 3 on SERVE_FLASH_ROUTE, every decode launch of kernel 4 on
+    SERVE_DECODE_ROUTE, layers x prefills and layers x decode steps), a
+    second serve giving the same tokens, the share of entries each MoE
+    layer drops in the prefill, a profile of one prefill and four decode
+    steps; kernels 3 and 4 at the serve's layer-0 shapes against their
+    plain versions (:func:`moe_attention_check`); then teacher forcing and
+    the dispatch check.  The model is freed before it returns."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import init_model_params, moe
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = init_model_params(cfg, gen, device)
+    if on_card:
+        torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    outside = (model.embed.numel() + sum(p.numel() for p in
+                                         model.ln_f.values())
+               + (0 if cfg.tie_embeddings else model.head.numel()))
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "kinds": [layer.kind for layer in model.layers],
+           "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+           "top_k": cfg.moe.top_k, "shared_expert": cfg.moe.shared_expert,
+           "params": n_params, "body_params": n_params - outside,
+           "param_count": cfg.param_count(), "init_s":
+           time.perf_counter() - t0, "card": card}
+    if on_card:
+        rec["weights_GB"] = torch.cuda.memory_allocated() / 1e9
+    need(n_params == schema_params(cfg),
+         f"moe {cfg.name}: {n_params} parameters, param_count() and the "
+         f"padding and biases it leaves out give {schema_params(cfg)}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    flash, decode = attn_counters()
+
+    def run():
+        srv = BatchedServer(model, batch_size=SERVE_BATCH,
+                            max_len=SERVE_PROMPT + SERVE_NEW + 8)
+        done = srv.serve([Request(rid=i, tokens=p, max_new=SERVE_NEW)
+                          for i, p in enumerate(prompts)])
+        return srv, [r.out for r in done]
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_attn_launches()
+    with moe_dispatches() as calls, capture_layer0() as shapes:
+        srv, outs = run()
+    launches = {"flash_attention_cuda": flash.launches,
+                "decode_attention_cuda": decode.launches}
+    routes = {"flash_attention_cuda": dict(flash.launches_by_route),
+              "decode_attention_cuda": dict(decode.launches_by_route)}
+    st = srv.stats
+    n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
+    prefill_T = SERVE_BATCH * SERVE_PROMPT
+    drops = [float((keep == 0).float().mean()) for T, keep in calls
+             if T == prefill_T]
+    n_moe = sum(layer.kind == "moe" for layer in model.layers)
+    need(len(drops) == n_moe * n_batches,
+         f"moe {cfg.name}: {len(drops)} prefill dispatches, not "
+         f"{n_moe * n_batches}")
+    rec.update({
+        "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+        "tokens": st["tokens"],
+        "tokens_per_s": st["tokens"] / (st["prefill_s"] + st["decode_s"]),
+        "decode_tokens_per_s": SERVE_REQUESTS * (SERVE_NEW - 1)
+        / st["decode_s"],
+        "prompt_tokens_per_s": SERVE_REQUESTS * SERVE_PROMPT
+        / st["prefill_s"],
+        "prefill_capacity": moe._capacity(prefill_T, cfg),
+        "prefill_dropped_share_by_moe_layer": drops,
+        "launches": launches, "launches_by_route": routes})
+    if on_card:
+        rec["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    need(len(outs) == SERVE_REQUESTS, f"moe {cfg.name}: requests lost")
+    need(all(len(o) == SERVE_NEW for o in outs),
+         f"moe {cfg.name}: token counts")
+    need(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+         f"moe {cfg.name}: a padded vocab entry won")
+    need(st["finite"], f"moe {cfg.name}: non-finite logits")
+    if on_card:
+        n_flash = cfg.num_layers * n_batches
+        n_decode = cfg.num_layers * (SERVE_NEW - 1) * n_batches
+        fr = routes["flash_attention_cuda"]
+        dr = routes["decode_attention_cuda"]
+        need(fr.get(SERVE_FLASH_ROUTE) == launches["flash_attention_cuda"]
+             == n_flash, f"moe {cfg.name}: the prefill's flash launches "
+                         f"took the routes {fr}, not all {n_flash} "
+                         f"{SERVE_FLASH_ROUTE}")
+        need(dr.get(SERVE_DECODE_ROUTE) == launches["decode_attention_cuda"]
+             == n_decode, f"moe {cfg.name}: the decode launches took the "
+                          f"routes {dr}, not all {n_decode} "
+                          f"{SERVE_DECODE_ROUTE}")
+    rec["attention_check"] = moe_attention_check(shapes, cfg, log)
+    log(f"phase moe_attention_check_{cfg.name}: "
+        f"{json.dumps(rec['attention_check'])}")
+    shapes.clear()
+    srv2, outs2 = run()
+    need(outs2 == outs, f"moe {cfg.name}: a second serve gave other tokens")
+    rec["repeat"] = {"prefill_s": srv2.stats["prefill_s"],
+                     "decode_s": srv2.stats["decode_s"],
+                     "identical_tokens": True}
+    rec["first_tokens"] = [o[:8] for o in outs]
+    log(f"phase moe_serve_{cfg.name}: {json.dumps(rec)}")
+    # where the serving time goes: one prefill of the batch, four decode
+    # steps, under the profiler
+    serve_profile({"cfg": cfg, "model": model, "prompts": prompts,
+                   "outs": outs}, device, log,
+                  phase=f"moe_serve_profile_{cfg.name}")
+    rec["teacher_forcing"] = moe_teacher_forcing(model, cfg, device)
+    log(f"phase moe_teacher_forcing_{cfg.name}: "
+        f"{json.dumps(rec['teacher_forcing'])}")
+    t1 = time.perf_counter()
+    rec["layer_check"] = moe_layer_check(model, cfg, gen, device, log)
+    rec["layer_check"]["seconds"] = time.perf_counter() - t1
+    log(f"phase moe_layer_check_{cfg.name}: "
+        f"{json.dumps(rec['layer_check'])}")
+    del model, srv, srv2, calls
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def moe_serve(cfgs, card, device="cuda", log=print):
+    """Phase 8b: each MoE config of ``cfgs`` through
+    :func:`moe_serve_one`, one model on the card at a time.  Returns
+    {arch: record}."""
+    log(f"moe path cuts: {json.dumps({c.name: {'layers': c.num_layers, 'groups': c.num_layers // c.moe.moe_every, 'moe_every': c.moe.moe_every} for c in cfgs})} (full width; dbrx-132b has 40 layers, "
+        f"llama4-maverick-400b-a17b 48)")
+    return {c.name: moe_serve_one(c, card, device, log) for c in cfgs}
 
 
 def split_sweep(decode_k, args, log=print, counts=(1, 2, 4, 8, 16)):
@@ -4722,7 +5253,23 @@ def main() -> int:
     routes = lm.pop("routes")
     lm.clear()
     torch.cuda.empty_cache()
+    # 8b. the MoE family serving, launches counted (inside moe_serve_one)
+    t0 = time.perf_counter()
+    moe_recs = moe_serve(moe_cut_configs(), card, "cuda")
+    print(f"phase moe_serve: {json.dumps({'seconds': time.perf_counter() - t0, 'card': card})}")
     report += attention_report(shapes, launches, routes, card, rate)
+    for rec in report:  # the MoE phase's launches, by model
+        if rec["name"] in ("flash_attention_cuda", "decode_attention_cuda"):
+            rec["moe_launches"] = {
+                a: {"launches": r["launches"][rec["name"]],
+                    "by_route": r["launches_by_route"][rec["name"]]}
+                for a, r in moe_recs.items()}
+            rec["moe_calls"] = {a: r["attention_check"][rec["name"]]
+                                for a, r in moe_recs.items()}
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                c["max_abs_err"] for c in rec["moe_calls"].values()])
+            rec["limit_used"] = max([rec["limit_used"]] + [
+                c["limit_used"] for c in rec["moe_calls"].values()])
     # 11. LM training, launches counted (inside train_path), then the
     # backward kernel against its plain version and timed
     t0 = time.perf_counter()

@@ -1,4 +1,5 @@
-"""Config registry: graph collections and the dense LM architectures."""
+"""Config registry: graph collections and the LM architectures of the
+families the port has a model for (dense, moe)."""
 from __future__ import annotations
 
 import importlib
@@ -23,11 +24,11 @@ _ARCH_MODULES = {
     "glm4-9b": "glm4_9b",
     "minitron-4b": "minitron_4b",
     "starcoder2-7b": "starcoder2_7b",
+    "dbrx-132b": "dbrx_132b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 # the reference's other architectures, by family, not ported yet
 _NOT_PORTED = {
-    "dbrx-132b": "moe",
-    "llama4-maverick-400b-a17b": "moe",
     "paligemma-3b": "vlm",
     "whisper-medium": "audio",
     "hymba-1.5b": "hybrid",

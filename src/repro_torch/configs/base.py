@@ -3,8 +3,8 @@
 
 One ``ArchConfig`` covers every family of the reference (dense / moe / vlm
 / audio / hybrid / ssm), so that the port's configs compare field by field
-with the reference's; only the dense family has a model in the port so
-far.  Family-specific knobs default to inert values.
+with the reference's; the dense and MoE families have a model in the
+port so far.  Family-specific knobs default to inert values.
 
 Shapes are global: ``prefill_*`` is the prefill half of serving,
 ``decode_*`` / ``long_*`` the one-new-token decode step against a KV cache

@@ -1,15 +1,19 @@
 """Serving driver: batched prefill + decode over a request queue
 (counterpart of ``repro.launch.serve``).
 
-On the card, at full width::
+Serves the dense and MoE families.  On the card, at full width::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
       --requests 4 --prompt-len 8192 --max-new 32 --batch 4
 
 On the CPU, with a reduced config::
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \\
       --reduced --device cpu
+
+A MoE config at full width does not fit one card at its published
+depth (dbrx-132b 132B parameters, llama4-maverick 400B); ``chip_smoke.py``
+serves both cut in depth (``cfg.with_overrides(num_layers=...)``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
-"""Dense LM stack (counterpart of ``repro.models``, dense family):
+"""LM stack (counterpart of ``repro.models``, dense and MoE families):
 ``layers`` (norms, MLPs, RoPE), ``attention`` (GQA through the flash and
 decode kernels, with a KV cache for serving and without one, with a
-gradient, for training), ``transformer`` (the layer stack, its remat
-policies) and ``model`` (parameters, the training forward, cache, prefill,
-decode)."""
+gradient, for training), ``moe`` (the MoE layer's local path: float32
+routing, first-come dispatch, the experts' batched matmuls, combine, the
+shared expert, the aux loss), ``transformer`` (the layer stack, grouped
+as the reference's for the MoE family, its remat policies) and ``model``
+(parameters, the training forward, cache, prefill, decode)."""
 from repro_torch.models.model import (
     decode_step,
     forward_train,

@@ -1,5 +1,5 @@
-"""Dense LM: parameters, the training forward, cache, prefill and decode
-(counterpart of ``repro.models.model``, dense family).
+"""Decoder LM: parameters, the training forward, cache, prefill and
+decode (counterpart of ``repro.models.model``, dense and MoE families).
 
 Public surface:
   model_schema(cfg)                        -> the reference's param schema
@@ -19,14 +19,16 @@ Public surface:
 The reference keeps float32 parameters and casts each matmul weight to
 ``cfg.dtype`` at every use (``x @ p["wq"].astype(dt)``).  For serving the
 port casts them once, when the model is built, which gives the same
-values; embed, head and norm parameters stay float32, and the head is
-applied in float32 as the reference's ``_masked_logits`` does.  A
-trainable model keeps every parameter a float32 master and casts at
-every use, as the reference does.  The mesh and the other families are
-not ported (ROADMAP.md queue 1).
+values; embed, head, norm parameters and the MoE router stay float32
+(routing runs in float32), and the head is applied in float32 as the
+reference's ``_masked_logits`` does.  A trainable model keeps every
+parameter a float32 master and casts at every use, as the reference
+does.  The mesh and the other families are not ported (ROADMAP.md queue
+1).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
@@ -35,16 +37,19 @@ import torch
 from repro_torch.core.superstep import resolve_device
 from repro_torch.dist.sharding import (embed_lookup, lm_head_logits,
                                        lm_head_loss)
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.layers import ParamDef, apply_norm, init_leaf
 from repro_torch.models.transformer import DecoderLM
 
-# layer parameters that are matmul weights (held in cfg.dtype)
-_MATMUL = ("attn", "mlp")
+# layer parameter groups that hold matmul weights (held in cfg.dtype),
+# all but the MoE router, which stays float32
+_MATMUL = ("attn", "mlp", "moe")
+_FLOAT32 = (("moe", "router"),)
+_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md queue 1, item 9: other LM families)")
@@ -55,24 +60,38 @@ def model_schema(cfg) -> Any:
     return transformer.decoder_schema(cfg)
 
 
-def _build(cfg, leaf: Callable[[Tuple[str, ...], ParamDef], torch.Tensor],
+def _build(cfg, leaf: Callable[[Tuple, ParamDef], torch.Tensor],
            trainable: bool = False) -> DecoderLM:
     """DecoderLM from ``leaf(path, ParamDef)`` -> float32 tensor, one leaf
-    at a time (for serving, each matmul weight is cast before the next is
-    made, so the float32 tree never exists whole; a trainable model keeps
-    the float32 masters)."""
+    at a time.  A path is the leaf's keys in the reference's tree, then
+    its stacked indices (:func:`transformer.layer_slots`); an expert stack
+    is made one expert at a time (the path ends in the expert's index,
+    the ParamDef is one expert's), so that a float32 stack never exists
+    whole.  For serving, each matmul weight is cast before the next is
+    made; a trainable model keeps the float32 masters."""
     sch = model_schema(cfg)
     dt = torch.float32 if trainable else getattr(torch, cfg.dtype)
     embed = leaf(("embed",), sch["embed"])
-    layer_sch = transformer.layer_schema(cfg)
     layers = []
-    for i in range(cfg.num_layers):
-        layers.append({
-            grp: {name: (leaf(("groups", "dense", grp, name, i), pd).to(dt)
-                         if grp in _MATMUL
-                         else leaf(("groups", "dense", grp, name, i), pd))
-                  for name, pd in defs.items()}
-            for grp, defs in layer_sch.items()})
+    for kind, idx in transformer.layer_slots(cfg):
+        layer = {}
+        for grp, defs in transformer.layer_schema(cfg, kind=kind).items():
+            layer[grp] = {}
+            for name, pd in defs.items():
+                path = ("groups", kind, grp, name) + idx
+                want = (dt if grp in _MATMUL and (grp, name) not in _FLOAT32
+                        else torch.float32)
+                if grp == "moe" and name in moe.EXPERT_STACKS:
+                    t = torch.empty(pd.shape, dtype=want,
+                                    device=embed.device)
+                    one = dataclasses.replace(pd, shape=pd.shape[1:],
+                                              axes=pd.axes[1:])
+                    for e in range(pd.shape[0]):
+                        t[e] = leaf(path + (e,), one)
+                else:
+                    t = leaf(path, pd).to(want)
+                layer[grp][name] = t
+        layers.append(layer)
     ln_f = {n: leaf(("ln_f", n), pd) for n, pd in sch["ln_f"].items()}
     head = None if cfg.tie_embeddings else leaf(("head",), sch["head"])
     return DecoderLM(cfg, embed, layers, ln_f, head, trainable=trainable)
@@ -97,18 +116,21 @@ def init_model_params(cfg, generator: torch.Generator = None,
 def params_from_numpy(tree: Dict, cfg, device="cuda",
                       trainable: bool = False) -> DecoderLM:
     """DecoderLM from the reference's parameter tree as numpy arrays:
-    ``embed``, ``groups.dense.{ln1, attn.{wq, wk, wv, wo}, ln2,
-    mlp.{wi, wo}}`` (stacked over the layers), ``ln_f`` and ``head``.
-    ``trainable`` builds float32 masters that require gradients."""
+    ``embed``, ``groups`` (dense family: ``groups.dense.{ln1, attn.{wq, wk,
+    wv, wo}, ln2, mlp.{wi, wo}}`` stacked over the layers; MoE family:
+    ``groups.moe.{ln1, attn, ln2, moe.{router, wi, wo[, shared_wi,
+    shared_wo]}}`` stacked over the groups and ``groups.dense`` over
+    (groups, moe_every - 1)), ``ln_f`` and ``head``.  ``trainable``
+    builds float32 masters that require gradients."""
     dev = resolve_device(device)
     sch = model_schema(cfg)
 
     def leaf(path, pd):
         node, stacked_shape = tree, sch
-        layer = None
+        idx = []
         for key in path:
             if isinstance(key, int):
-                layer = key
+                idx.append(key)
             else:
                 node, stacked_shape = node[key], stacked_shape[key]
         arr = np.asarray(node, dtype=np.float32)
@@ -116,25 +138,40 @@ def params_from_numpy(tree: Dict, cfg, device="cuda",
             raise ValueError(f"{'.'.join(p for p in path if isinstance(p, str))}"
                              f": shape {arr.shape}, schema "
                              f"{stacked_shape.shape}")
-        return torch.tensor(arr if layer is None else arr[layer], device=dev)
+        return torch.tensor(arr[tuple(idx)], device=dev)
 
     return _build(cfg, leaf, trainable)
+
+
+def stack_dims(cfg, name: str) -> Tuple[int, ...]:
+    """The stacked (leading) dims of the leaf ``name`` (keys joined by
+    ``/``) of the reference's tree: ``(layers,)`` for the dense family's
+    ``groups/dense``, ``(groups,)`` for ``groups/moe`` and ``(groups,
+    moe_every - 1)`` for the MoE family's ``groups/dense``; ``()`` for a
+    leaf outside ``groups``."""
+    if not name.startswith("groups/"):
+        return ()
+    n_groups, n_dense, has_moe = transformer._group_structure(cfg)
+    if has_moe and name.startswith("groups/dense/"):
+        return (n_groups, n_dense)
+    return (n_groups,)
 
 
 def train_leaves(model: DecoderLM) -> List[Tuple[str, List[torch.Tensor]]]:
     """The parameters by leaf of the reference's tree, in the order its
     checkpoints flatten it (keys sorted): ``(name, tensors)`` with the
-    name's keys joined by ``/`` and one tensor per layer for a leaf
-    stacked under ``groups/dense``, else one.  The optimizer state's lists
-    follow the concatenated order."""
+    name's keys joined by ``/`` and, for a leaf stacked under ``groups``,
+    one tensor per layer in the row-major order of its stacked dims
+    (:func:`stack_dims`), else one.  The optimizer state's lists follow
+    the concatenated order."""
     out = []
 
     def walk(node, path):
         if isinstance(node, ParamDef):
             name = "/".join(path)
             if path[0] == "groups":
-                out.append((name, [getattr(model.layers[i], path[2])[path[3]]
-                                   for i in range(len(model.layers))]))
+                out.append((name, [getattr(layer, path[2])[path[3]]
+                                   for layer in model.stacked_layers(path[1])]))
             elif path[0] == "ln_f":
                 out.append((name, [model.ln_f[path[1]]]))
             else:
@@ -180,11 +217,11 @@ def _stacked_to_numpy(model: DecoderLM, lists: List[torch.Tensor]) -> Dict:
     for name, ts in train_leaves(model):
         part = lists[i:i + len(ts)]
         i += len(ts)
-        stacked = name.startswith("groups/")
-        arr = np.empty(((len(part),) if stacked else ())
-                       + tuple(part[0].shape), np.float32)
+        inner = tuple(part[0].shape)
+        arr = np.empty(stack_dims(model.cfg, name) + inner, np.float32)
+        flat = arr.reshape((-1,) + inner)
         for j, t in enumerate(part):
-            torch.from_numpy(arr[j] if stacked else arr).copy_(t.detach())
+            torch.from_numpy(flat[j]).copy_(t.detach())
         _set_leaf(tree, name, arr)
     return tree
 
@@ -216,13 +253,13 @@ def opt_state_from_numpy(tree: Dict, model: DecoderLM, oc) -> Dict[str, Any]:
         out = []
         for name, ts in train_leaves(model):
             arr = np.asarray(_get_leaf(sub, name))
-            parts = list(arr) if name.startswith("groups/") else [arr]
-            if len(parts) != len(ts) or any(
-                    p.shape != tuple(t.shape) for p, t in zip(parts, ts)):
+            inner = tuple(ts[0].shape)
+            if arr.shape != stack_dims(model.cfg, name) + inner:
                 raise ValueError(f"opt state {name}: shape {arr.shape} "
                                  f"does not fit the model")
             out += [torch.tensor(np.asarray(p, dtype=np.float32),
-                                 device=model.device).to(dt) for p in parts]
+                                 device=model.device).to(dt)
+                    for p in arr.reshape((-1,) + inner)]
         return out
 
     return {"mu": moments(tree["mu"]), "nu": moments(tree["nu"]),
@@ -231,9 +268,10 @@ def opt_state_from_numpy(tree: Dict, model: DecoderLM, oc) -> Dict[str, Any]:
 
 def forward_train(model: DecoderLM, batch: Dict[str, Any]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The training forward of the dense family: mean next-token
-    cross-entropy of ``batch["labels"]`` given ``batch["tokens"]`` (both
-    (B, S) ints), every layer under ``cfg.remat``.  Returns (loss,
+    """The training forward: mean next-token cross-entropy of
+    ``batch["labels"]`` given ``batch["tokens"]`` (both (B, S) ints),
+    every layer under ``cfg.remat``, plus ``cfg.moe.aux_loss_weight``
+    times the MoE layers' summed load-balance loss.  Returns (loss,
     ``{"loss", "ce", "aux"}``); ``aux`` is 0 for the dense family."""
     cfg = model.cfg
     _check_family(cfg)
@@ -242,11 +280,10 @@ def forward_train(model: DecoderLM, batch: Dict[str, Any]
     labels = torch.as_tensor(batch["labels"], device=model.device)
     B, S = tokens.shape
     x = embed_lookup(model.embed, tokens).to(dt)
-    x, _ = transformer.apply_stack(model, x,
-                                   positions=_positions(B, S, model.device))
+    x, _, aux = transformer.apply_stack(
+        model, x, positions=_positions(B, S, model.device))
     x = apply_norm(model.ln_f, x, cfg)
     loss_ce = lm_head_loss(x, model.head, labels, valid_vocab=cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=model.device)
     loss = loss_ce + cfg.moe.aux_loss_weight * aux
     return loss, {"loss": loss, "ce": loss_ce, "aux": aux}
 
@@ -272,7 +309,8 @@ def prefill(model: DecoderLM, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict
     B, S = tokens.shape
     x = embed_lookup(model.embed, tokens).to(dt)
     pos = _positions(B, S, model.device)
-    x, cache = transformer.apply_stack(model, x, positions=pos, cache=cache)
+    x, cache, _ = transformer.apply_stack(model, x, positions=pos,
+                                          cache=cache)
     x_last = apply_norm(model.ln_f, x[:, -1:], cfg)
     logits = lm_head_logits(x_last, model.head, valid_vocab=cfg.vocab_size)
     return logits, cache
@@ -287,8 +325,8 @@ def decode_step(model: DecoderLM, batch: Dict[str, Any]) -> Tuple[torch.Tensor, 
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     pos = torch.as_tensor(batch["pos"], device=model.device)[:, None]
     x = embed_lookup(model.embed, tokens).to(dt)
-    x, cache = transformer.apply_stack(model, x, positions=pos,
-                                       cache=batch["cache"])
+    x, cache, _ = transformer.apply_stack(model, x, positions=pos,
+                                          cache=batch["cache"])
     x = apply_norm(model.ln_f, x, cfg)
     logits = lm_head_logits(x, model.head, valid_vocab=cfg.vocab_size)
     return logits, cache

@@ -1,11 +1,13 @@
-"""Decoder-only transformer stack, dense family (counterpart of
+"""Decoder-only transformer stack, dense and MoE families (counterpart of
 ``repro.models.transformer``).
 
-The reference stores the layers stacked and runs them under ``lax.scan``;
-here each layer is a module in an ``nn.ModuleList`` and the stack is a
-loop.  A layer keeps the reference's parameter names (``ln1``, ``attn``,
-``ln2``, ``mlp``) as ``nn.ParameterDict``s, so the layer functions take
-them as the reference's take its dicts.
+The reference stores the layers stacked and runs them under ``lax.scan``,
+the MoE family over groups of ``moe_every - 1`` dense layers and one MoE
+layer; here each layer is a module in an ``nn.ModuleList``, in the order
+they run (:func:`layer_slots`), and the stack is a loop.  A layer keeps
+the reference's parameter names (``ln1``, ``attn``, ``ln2``, ``mlp`` or
+``moe``) as ``nn.ParameterDict``s, so the layer functions take them as
+the reference's take its dicts.
 
 Two builds of :class:`DecoderLM`: for serving, matmul weights held in
 ``cfg.dtype`` with no gradient; trainable, every parameter a float32
@@ -18,7 +20,7 @@ Training runs each layer under the reference's remat policy
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,32 +28,79 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     ParamDef, apply_mlp, apply_norm, mlp_schema, norm_schema, stacked)
 
 
-def layer_schema(cfg) -> Dict:
-    return {
+def layer_schema(cfg, *, kind: str = "dense") -> Dict:
+    sch = {
         "ln1": norm_schema(cfg),
         "attn": attn.attn_schema(cfg),
         "ln2": norm_schema(cfg),
-        "mlp": mlp_schema(cfg),
     }
+    if kind == "moe":
+        sch["moe"] = moe_mod.moe_schema(cfg)
+    else:
+        sch["mlp"] = mlp_schema(cfg)
+    return sch
+
+
+def _group_structure(cfg) -> Tuple[int, int, bool]:
+    """(n_groups, dense layers per group, has_moe): the MoE family runs
+    groups of ``moe_every - 1`` dense layers and one MoE layer; the dense
+    family one layer a group."""
+    if cfg.is_moe:
+        ge = cfg.moe.moe_every
+        if cfg.num_layers % ge:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"groups of moe_every = {ge}")
+        return cfg.num_layers // ge, ge - 1, True
+    return cfg.num_layers, 1, False
+
+
+def group_schema(cfg) -> Dict:
+    _, n_dense, has_moe = _group_structure(cfg)
+    if not has_moe:
+        return {"dense": layer_schema(cfg, kind="dense")}
+    sch = {"moe": layer_schema(cfg, kind="moe")}
+    if n_dense:
+        sch["dense"] = stacked(layer_schema(cfg, kind="dense"), n_dense)
+    return sch
 
 
 def decoder_schema(cfg) -> Dict:
-    """The reference's parameter tree for a dense decoder: the layer
-    schema stacked under ``groups.dense``."""
+    """The reference's parameter tree for a decoder: the group schema
+    stacked over the groups under ``groups`` (dense family:
+    ``groups.dense`` stacked over the layers; MoE family: ``groups.moe``
+    over the groups and ``groups.dense`` over (groups, moe_every - 1))."""
+    n_groups, _, _ = _group_structure(cfg)
     sch = {
         "embed": ParamDef((cfg.vocab_padded, cfg.d_model), ("vocab", "embed"),
                           "embed"),
-        "groups": {"dense": stacked(layer_schema(cfg), cfg.num_layers)},
+        "groups": stacked(group_schema(cfg), n_groups),
         "ln_f": norm_schema(cfg),
     }
     if not cfg.tie_embeddings:
         sch["head"] = ParamDef((cfg.vocab_padded, cfg.d_model),
                                ("vocab", "embed"))
     return sch
+
+
+def layer_slots(cfg) -> List[Tuple[str, Tuple[int, ...]]]:
+    """The layers in the order they run, each as (kind, its index in the
+    reference's stacked tree ``groups.<kind>``): the dense family's layer
+    i is ``("dense", (i,))``; in the MoE family, group g runs its dense
+    layers ``("dense", (g, j))`` first and its MoE layer ``("moe", (g,))``
+    last, so llama4's layer 0 is dense and layer 1 MoE."""
+    n_groups, n_dense, has_moe = _group_structure(cfg)
+    if not has_moe:
+        return [("dense", (i,)) for i in range(n_groups)]
+    out = []
+    for g in range(n_groups):
+        out += [("dense", (g, j)) for j in range(n_dense)]
+        out.append(("moe", (g,)))
+    return out
 
 
 def _param_dict(tensors: Dict[str, torch.Tensor],
@@ -62,29 +111,36 @@ def _param_dict(tensors: Dict[str, torch.Tensor],
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm layer: ``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``."""
+    """One pre-norm layer: ``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``,
+    or ``+ moe(ln2(x))`` for a MoE layer (``kind``)."""
 
     def __init__(self, tensors: Dict[str, Dict[str, torch.Tensor]],
                  trainable: bool = False):
         super().__init__()
+        self.kind = "moe" if "moe" in tensors else "dense"
         self.ln1 = _param_dict(tensors["ln1"], trainable)
         self.attn = _param_dict(tensors["attn"], trainable)
         self.ln2 = _param_dict(tensors["ln2"], trainable)
-        self.mlp = _param_dict(tensors["mlp"], trainable)
+        if self.kind == "moe":
+            self.moe = _param_dict(tensors["moe"], trainable)
+        else:
+            self.mlp = _param_dict(tensors["mlp"], trainable)
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder LM: embedding, layers, final norm, LM head.  Built for
-    serving, matmul weights are held in ``cfg.dtype`` with no gradient;
-    embed, head and norms in float32, the values the reference computes
-    with.  Built ``trainable``, every parameter is a float32 master that
-    requires a gradient."""
+    """Decoder LM: embedding, layers (in the order they run,
+    :func:`layer_slots`), final norm, LM head.  Built for serving, matmul
+    weights are held in ``cfg.dtype`` with no gradient; embed, head, norms
+    and the MoE router in float32, the values the reference computes with.
+    Built ``trainable``, every parameter is a float32 master that requires
+    a gradient."""
 
     def __init__(self, cfg, embed: torch.Tensor, layers, ln_f, head,
                  trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.trainable = trainable
+        self.slots = layer_slots(cfg)
         self.embed = nn.Parameter(embed, requires_grad=trainable)
         self.layers = nn.ModuleList(DecoderLayer(t, trainable)
                                     for t in layers)
@@ -96,25 +152,38 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def stacked_layers(self, kind: str) -> List[DecoderLayer]:
+        """The layers of one kind in the row-major order of their stacked
+        leaves in the reference's tree (``groups.<kind>``)."""
+        return [layer for layer, (k, _) in zip(self.layers, self.slots)
+                if k == kind]
+
 
 def apply_layer(layer: DecoderLayer, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, window: Optional[int],
                 layer_cache: Optional[Dict[str, torch.Tensor]]):
-    """One transformer layer.  Returns (x, updated layer cache; None
-    without a cache)."""
+    """One transformer layer.  Returns (x, updated layer cache (None
+    without a cache), a MoE layer's aux loss (float32 scalar) in training;
+    None for a dense layer and under a cache, where serving would discard
+    it, so that neither adds a launch)."""
     h = apply_norm(layer.ln1, x, cfg)
     a, layer_cache = attn.apply_attention(
         layer.attn, h, cfg, positions=positions, window=window,
         layer_cache=layer_cache, rope=(cfg.pos_embed == "rope"))
     x = x + a
     h = apply_norm(layer.ln2, x, cfg)
-    x = x + apply_mlp(layer.mlp, h, cfg)
-    return x, layer_cache
+    if layer.kind == "moe":
+        m, aux = moe_mod.moe_apply(layer.moe, h, cfg,
+                                   with_aux=layer_cache is None)
+    else:
+        m, aux = apply_mlp(layer.mlp, h, cfg), None
+    return x + m, layer_cache, aux
 
 
 # the matmuls whose outputs ``remat="dots"`` keeps (the reference's
 # ``checkpoint_dots_with_no_batch_dims``: x @ W, not the attention's
-# batched products, which run inside the flash kernels)
+# batched products, which run inside the flash kernels, nor the MoE
+# experts' ``bmm``s, whose expert axis is a batch dimension)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -139,33 +208,49 @@ def _remat(fn, cfg):
 
 def apply_stack(model: DecoderLM, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[Dict] = None):
-    """Run the layers in order.  Serving: over a stacked cache
-    (``init_cache``), which is updated in place.  Training (no cache):
-    every layer under the config's remat policy (``_remat``).  Returns
-    (x, cache)."""
+    """Run the layers in order (:func:`layer_slots`).  Serving: over a
+    cache nested as the reference's (``init_cache``), updated in place.
+    Training (no cache): every layer under the config's remat policy
+    (``_remat``).  Returns (x, cache, the layers' summed aux loss); the
+    aux loss only in training (None with a cache: serving discards it)."""
     cfg = model.cfg
     window = cfg.sliding_window or None
     if cache is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
         def one(layer, xc):
-            return apply_layer(layer, xc, cfg, positions=positions,
-                               window=window, layer_cache=None)[0]
+            y, _, a = apply_layer(layer, xc, cfg, positions=positions,
+                                  window=window, layer_cache=None)
+            return y, a
 
         fn = _remat(one, cfg)
         for layer in model.layers:
-            x = fn(layer, x)
-        return x, None
-    c = cache["dense"]
-    for i, layer in enumerate(model.layers):
-        layer_cache = {n: t[i] for n, t in c.items()}
-        x, _ = apply_layer(layer, x, cfg, positions=positions, window=window,
-                           layer_cache=layer_cache)
-    return x, cache
+            x, a = fn(layer, x)
+            if a is not None:
+                aux = aux + a
+        return x, None, aux
+    for layer, (kind, idx) in zip(model.layers, model.slots):
+        layer_cache = {n: t[idx] for n, t in cache[kind].items()}
+        x, _, _ = apply_layer(layer, x, cfg, positions=positions,
+                              window=window, layer_cache=layer_cache)
+    return x, cache, None
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> Dict:
-    """KV cache stacked over the layers, nested as the reference's dense
-    cache (``{"dense": {k, v, pos, len}}``), on the card unless the caller
-    asks for the CPU."""
-    return {"dense": attn.init_kv_cache(cfg, batch, max_len, cfg.num_layers,
-                                        dtype, device)}
+    """KV cache nested as the reference's: ``{"dense": {k, v, pos, len}}``
+    stacked over the layers for the dense family; ``{"moe": (groups, ...),
+    "dense": (groups, moe_every - 1, ...)}`` for the MoE family.  On the
+    card unless the caller asks for the CPU."""
+    n_groups, n_dense, has_moe = _group_structure(cfg)
+    if not has_moe:
+        return {"dense": attn.init_kv_cache(cfg, batch, max_len, n_groups,
+                                            dtype, device)}
+    cache = {"moe": attn.init_kv_cache(cfg, batch, max_len, n_groups, dtype,
+                                       device)}
+    if n_dense:
+        c = attn.init_kv_cache(cfg, batch, max_len, n_groups * n_dense,
+                               dtype, device)
+        cache["dense"] = {n: t.view((n_groups, n_dense) + t.shape[1:])
+                          for n, t in c.items()}
+    return cache

@@ -1,5 +1,6 @@
 """Serving steps: prefill, single-token decode with greedy choice, and a
-generate loop (counterpart of ``repro.train.serve_step``).
+generate loop (counterpart of ``repro.train.serve_step``), for the dense
+and MoE families.
 
 The reference compiles each step with ``jax.jit`` around ``(params,
 batch)``; PyTorch runs eagerly, so a step here is a closure over the

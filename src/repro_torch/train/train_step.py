@@ -20,7 +20,8 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.models.model import flat_leaves, forward_train, train_leaves
+from repro_torch.models.model import (flat_leaves, forward_train, stack_dims,
+                                      train_leaves)
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
                                         global_norm, lr_at)
 
@@ -52,7 +53,8 @@ def _stack_groups(model, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     for name, ts in train_leaves(model):
         part = tensors[i:i + len(ts)]
         i += len(ts)
-        out.append(torch.stack(part) if name.startswith("groups/")
+        lead = stack_dims(model.cfg, name)
+        out.append(torch.stack(part).reshape(lead + part[0].shape) if lead
                    else part[0])
     return out
 
@@ -60,7 +62,8 @@ def _stack_groups(model, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
 def _unstack_groups(model, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
     out = []
     for (name, ts), leaf in zip(train_leaves(model), leaves):
-        out += list(leaf.unbind(0)) if name.startswith("groups/") else [leaf]
+        out += (list(leaf.reshape((-1,) + ts[0].shape).unbind(0))
+                if stack_dims(model.cfg, name) else [leaf])
     return out
 
 
@@ -133,7 +136,6 @@ def init_comp_state(model) -> List[torch.Tensor]:
     """A compressor's zero error-feedback state for ``model``: one float32
     residual per leaf of the reference's tree (layer leaves stacked), as
     the reference's ``compressor.init_state(params)`` makes it."""
-    return [torch.zeros(((len(ts),) if name.startswith("groups/") else ())
-                        + tuple(ts[0].shape), dtype=torch.float32,
-                        device=ts[0].device)
+    return [torch.zeros(stack_dims(model.cfg, name) + tuple(ts[0].shape),
+                        dtype=torch.float32, device=ts[0].device)
             for name, ts in train_leaves(model)]

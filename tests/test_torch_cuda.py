@@ -409,6 +409,8 @@ def _cache_slices(cuda, B, Skv, K, d, dt, seed, spare=37):
     (1, 257, 390, 36, 4, 128, True, 0, 133),  # causal only, continued
     (2, 129, 255, 8, 2, 64, False, 0, 0),  # no mask but the ragged tail
     (1, 40, 1000, 9, 1, 128, True, 700, 960),  # one ragged query block
+    (2, 300, 300, 48, 8, 128, True, 0, 0),  # G = 6 (dbrx-132b), no window
+    (1, 257, 257, 40, 8, 128, True, 0, 0),  # G = 5 (llama4-maverick)
 ])
 def test_flash_wgmma_matches_plain(cuda, case):
     from repro_torch.kernels.flash_attention.kernel import (
@@ -510,6 +512,8 @@ def test_decode_kernel_matches_plain(cuda, case):
     (1, 3000, 9, 1, 128, 0, [2999]),  # B*K = 1: 47 splits
     (1, 200, 16, 1, 64, 150, [77]),  # more splits than blocks
     (40, 200, 16, 4, 64, 0, None),  # B*K = 160 > SMs: one split
+    (4, 3000, 48, 8, 128, 0, [3000, 2999, 1, 1700]),  # G = 6, no window
+    (4, 2100, 40, 8, 128, 0, [2100, 65, 1, 2000]),  # G = 5, no window
 ])
 def test_decode_ring_matches_plain(cuda, case):
     from repro_torch.kernels.decode_attention.kernel import (

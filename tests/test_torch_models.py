@@ -5,7 +5,7 @@ functions and the port's, for starcoder2-7b, glm4-9b and minitron-4b at
 their reduced widths (``cfg.reduced()``: d_model 128, 4 heads, window 64
 where the config has one):
 
-* the configs field by field;
+* the configs field by field (the MoE family's too);
 * ``apply_norm``, ``apply_mlp`` (GELU-tanh, relu2, swiglu) and
   ``apply_rope`` (``rope_fraction`` 1 and 0.5);
 * ``prefill`` and ``decode_step`` from the same weights (the reference's
@@ -64,7 +64,8 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mistral-large-123b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mistral-large-123b", "dbrx-132b",
+                                  "llama4-maverick-400b-a17b"])
 def test_configs_match_reference(arch):
     ours, ref = configs.get_config(arch), j_configs.get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
@@ -79,14 +80,14 @@ def test_configs_match_reference(arch):
 
 def test_other_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="queue 1"):
-        configs.get_config("dbrx-132b")
+        configs.get_config("paligemma-3b")
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
-    moe = j_configs.get_config("dbrx-132b")
-    cfg = configs.get_config("glm4-9b").with_overrides(family="moe")
+    vlm = j_configs.get_config("paligemma-3b")
+    cfg = configs.get_config("glm4-9b").with_overrides(family="vlm")
     with pytest.raises(NotImplementedError, match="item 9: other LM families"):
         init_serve_cache(cfg, 1, 8, device="cpu")
-    assert moe.family == "moe"
+    assert vlm.family == "vlm"
 
 
 @pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])

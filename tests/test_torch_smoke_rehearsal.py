@@ -9,8 +9,9 @@ before a card run, the depth cuts included: the session's streamed
 sparse run over the first time pack held bitwise against the auto plan's
 first instances, each worker's SSSP rerun in the kernel modes its auto
 plans did not launch (both, on the CPU) held bitwise against its first
-SSSP's first instances, and the mesh's in-memory runs over the first
-time pack held against phases 5 and 5b's first instances.
+SSSP's first instances, and the mesh's in-memory runs and runs from the
+store over the first time pack held against phases 5 and 5b's first
+instances.
 """
 import importlib.util
 import pathlib
@@ -56,7 +57,13 @@ def test_gofs_session_cluster_and_mesh_phases_on_the_cpu(smoke, monkeypatch):
     assert cluster["rerun_instances"] == [pack] * 2
     assert cluster["snapshots_after_kill"] == [smoke.RESUME_CHUNK]
     mesh = recs["mesh"]
-    assert mesh["cut"] == {"in_memory_instances": pack}
+    assert mesh["cut"] == {"in_memory_instances": pack,
+                           "model_data_store_instances": pack}
+    # (a) streams every instance, across the time-pack boundaries
+    bg = keep["bg"]
+    whole = (keep["in_memory"]["lat"].shape[0] * bg.n_parts
+             * (bg.t_max + bg.tb_max) * bg.block_size ** 2 * 4)
+    assert mesh["stream_staged_bytes"]["nccl"][0]["sssp"] == whole
     assert mesh["control_failed"]
 
 
@@ -87,3 +94,61 @@ def test_flash_backward_sweep_on_the_cpu(smoke, monkeypatch):
                for r in sweep)
     assert min(sweep[1]["controls_limit_used"].values()) > 1.0
     assert len(log) == 4
+
+
+def test_moe_serve_phase_on_the_cpu(smoke, monkeypatch):
+    """The smoke's MoE phase (``moe_serve``) at the reduced configs, llama4
+    with its shared expert, on the CPU: the serve and its repeat, the drop
+    shares, teacher forcing on the no-drop copy, the layer check against
+    the token loop at both capacities and its two wrong controls, the
+    attention kernels at the serve's layer-0 shapes with their controls
+    (on the CPU the wrappers run their plain versions), the profile
+    windows; only the launch counts are skipped.  The card's cuts keep full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cut = smoke.moe_cut_configs()
+    assert [(c.name, c.num_layers) for c in cut] == list(smoke.MOE_CUTS)
+    for c in cut:
+        full = get_config(c.name)
+        assert dataclasses.replace(c, num_layers=full.num_layers) == full
+    assert smoke.MOE_CHECK_T // smoke.MOE_DROP_DISTINCT > 8
+    for name, value in (("SERVE_PROMPT", 24), ("SERVE_NEW", 3),
+                        ("MOE_PARITY_S", 20), ("MOE_CHECK_T", 64),
+                        ("MOE_DROP_DISTINCT", 8)):
+        monkeypatch.setattr(smoke, name, value)
+    cfgs = []
+    for arch, _ in smoke.MOE_CUTS:
+        full = get_config(arch)
+        c = full.reduced()
+        cfgs.append(c.with_overrides(moe=dataclasses.replace(
+            c.moe, shared_expert=full.moe.shared_expert)))
+    log = []
+    recs = smoke.moe_serve(cfgs, "cpu", device="cpu", log=log.append)
+    assert list(recs) == [c.name for c in cfgs]
+    for c in cfgs:
+        rec = recs[c.name]
+        assert rec["tokens"] == smoke.SERVE_REQUESTS * 3
+        assert rec["params"] == smoke.schema_params(c)
+        n_moe = c.num_layers // c.moe.moe_every
+        assert len(rec["prefill_dropped_share_by_moe_layer"]) == n_moe
+        assert rec["teacher_forcing"]["max_abs_err"] <= smoke.PARITY_TOL
+        check = rec["layer_check"]
+        assert check["dropping"]["dropped"] > 0
+        for run in ("nominal", "dropping"):
+            assert check[run]["limit_used"] <= 1.0
+            assert min(check[run]["controls_limit_used"].values()) > 1.0
+    assert recs["llama4-maverick-400b-a17b"]["kinds"] == ["dense", "moe"] * 2
+    for c in cfgs:
+        att = recs[c.name]["attention_check"]
+        assert [att[k]["group"] for k in att] == [
+            c.num_heads // c.num_kv_heads] * 2
+        for k in ("flash_attention_cuda", "decode_attention_cuda"):
+            assert att[k]["limit_used"] <= 1.0
+            assert len(att[k]["controls_limit_used"]) == (
+                2 if k == "flash_attention_cuda" else 3)
+            assert min(att[k]["controls_limit_used"].values()) > 1.0
+    # serve, the attention check, two profile windows, teacher forcing,
+    # layer check
+    assert sum(ln.startswith("phase moe_") for ln in log) == 6 * len(cfgs)
