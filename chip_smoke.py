@@ -232,11 +232,34 @@ Phases (any failure exits non-zero before the result lines):
    and dQ, also apart): SDPA on the flash backend with
    ``is_causal`` where the window does not cut, and with the mask on the
    memory-efficient backend;
+11b. MoE training (``moe_train_path``), one model on the card at a time,
+   each at full width, TRAIN_4K's 4,096 tokens, bf16 compute over
+   float32 masters and bfloat16 moments, through ``train_loop`` with two
+   micro-batches a step (MOE_TRAIN_CUTS, on the ``moe_train cuts``
+   line): dbrx-132b with 1 of 40 layers and 8 of 16 experts (top 4,
+   capacity factor 1.25), 4 x 4,096 tokens a step, ``remat="full"``, 4
+   steps; llama4-maverick-400b-a17b with one group (a dense layer, then
+   a MoE layer with 8 of 128 experts and the shared expert), 2 x 4,096
+   tokens, ``remat="dots"``, 3 steps.  Each: its parameter count; every
+   step's loss, ce and aux finite, aux > 0, none skipped; each dispatch
+   over one micro-batch, the recompute dropping the forward's entries;
+   kernel 3 and the backward launched as the policy implies, all on the
+   bf16 wgmma route; one more step under ``torch.profiler`` with peak
+   memory; both kernels at layer 0's training shapes (G = 6 and 5,
+   causal, no window) against their plain versions, kernel 3 relaunched
+   giving the training forward's bits, with two wrong controls each (the
+   causal edge one key off, the wrong KV heads); the MoE layer's
+   gradients (x, router, experts, shared expert) against the token loop
+   within :func:`grad_limit`, at the config's capacity and at one that
+   drops, with two wrong controls; and the policy's recompute by op
+   count against ``remat="none"`` (under ``dots`` the experts' ``bmm``s
+   and kernel 3 again, no ``mm``);
 12. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
 Each main path (graph, query, GoFS graph, the session within it, the
-stream phase, serving, MoE serving, training) runs with every kernel's launch count
+stream phase, serving, MoE serving, training, MoE training) runs with
+every kernel's launch count
 set to 0
 just before it
 and read just after; a kernel of the path that was not launched fails
@@ -3666,7 +3689,8 @@ def profile_window(name, fn, log=print, top=12, phase="serve_profile"):
     """``torch.profiler`` over one call of ``fn``: the host wall time, the
     device time the profiler saw (the sum of the kernels' own times), the
     device's idle share of the wall time, the kernels that took the most
-    device time, and every attention kernel of the port."""
+    device time, every attention kernel of the port, and the peak device
+    memory allocated since the caller last reset it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3695,6 +3719,8 @@ def profile_window(name, fn, log=print, top=12, phase="serve_profile"):
                    for ms, n, k in rows[:top]],
            "attention": [{"ms": ms, "calls": n, "name": k[:90]}
                          for ms, n, k in rows if "attn_" in k]}
+    if torch.cuda.is_initialized():
+        rec["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"phase {phase} {name}: {json.dumps(rec)}")
     if not busy:
         log("  the profiler saw no device time")
@@ -3907,9 +3933,12 @@ def moe_token_loop(p, x, cfg):
     top k by a stable sort on the host; each gate renormalised by its
     row's sum; the kept set by the first-come rule recomputed on the host
     (an entry is kept while fewer than C earlier entries, in (token,
-    choice) order, chose its expert).  Products in x's type, the sum in
-    float32; the experts' MLPs SwiGLU, as in both MoE configs.  Returns
-    (output (T, d), the number of dropped entries)."""
+    choice) order, chose its expert).  The weights cast to x's type (the
+    layer casts its masters so), the products in x's type, the sum in
+    float32 (float64 for float64 x); the experts' MLPs SwiGLU, as
+    in both MoE configs.  Differentiable in x and every weight (the host
+    decides only which entries count).  Returns (output (T, d) in x's
+    type, the number of dropped entries)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3918,10 +3947,11 @@ def moe_token_loop(p, x, cfg):
                                          f"computes SwiGLU experts")
     T, d = x.shape
     E, k = cfg.moe.num_experts, cfg.moe.top_k
-    gates = torch.softmax(x.float() @ p["router"].float(), -1).cpu().numpy()
-    order = np.argsort(-gates, axis=1, kind="stable")[:, :k]
-    g = np.take_along_axis(gates, order, 1)
-    g = g / np.maximum(g.sum(1, keepdims=True), 1e-9)
+    gates = torch.softmax(x.float() @ p["router"].float(), -1)
+    order = np.argsort(-gates.detach().cpu().numpy(), axis=1,
+                       kind="stable")[:, :k]
+    g = gates.gather(1, torch.as_tensor(order, device=x.device))
+    g = g / g.sum(1, keepdim=True).clamp_min(1e-9)
     c = int(T * k * cfg.moe.capacity_factor / E)
     C = max(8, -(-c // 8) * 8)
     count = np.zeros(E, np.int64)
@@ -3931,19 +3961,30 @@ def moe_token_loop(p, x, cfg):
             kept[t, j] = count[order[t, j]] < C
             count[order[t, j]] += 1
 
+    experts = {}
+
+    def expert(e):
+        if e not in experts:
+            experts[e] = (p["wi"][e].to(x.dtype), p["wo"][e].to(x.dtype))
+        return experts[e]
+
     def mlp(wi, wo, xt):
         a, u = (xt @ wi).chunk(2, dim=-1)
         return (F.silu(a) * u) @ wo
 
-    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    st = torch.promote_types(torch.float32, x.dtype)
+    rows = []
     for t in range(T):
+        acc = torch.zeros(d, dtype=st, device=x.device)
         for j in range(k):
             if kept[t, j]:
-                e = int(order[t, j])
-                out[t] += float(g[t, j]) * mlp(p["wi"][e], p["wo"][e],
-                                               x[t:t + 1])[0].float()
+                acc = acc + g[t, j] * mlp(*expert(int(order[t, j])),
+                                          x[t:t + 1])[0].to(st)
+        rows.append(acc)
+    out = torch.stack(rows)
     if cfg.moe.shared_expert:
-        out += mlp(p["shared_wi"], p["shared_wo"], x).float()
+        out = out + mlp(p["shared_wi"].to(x.dtype),
+                        p["shared_wo"].to(x.dtype), x).to(st)
     return out.to(x.dtype), int((~kept).sum())
 
 
@@ -5029,6 +5070,591 @@ def train_kernel_report(train, card, rate, device="cuda", log=print):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 11b: MoE training (dbrx-132b, llama4-maverick at full width)
+# ---------------------------------------------------------------------------
+
+# each run at full width (d_model, heads, head dim, d_ff kept), TRAIN_4K's
+# 4,096-token sequence, bf16 compute over float32 masters and bfloat16
+# moments (the reference's setting for these models,
+# src/repro/launch/dryrun.py:106); cut in depth, experts (8 of 16 and 8 of
+# 128: one card's share under 2-way expert parallelism; top k and the
+# capacity factor kept), batch and steps (each cut on the ``moe_train
+# cuts`` line).  dbrx: one MoE layer, 4 x 4,096 tokens a step in two
+# micro-batches (C = 5,120), the config's full remat; llama4: one group, a
+# dense layer then a MoE layer with the shared expert, 2 x 4,096 tokens in
+# two micro-batches (C = 640), the dots policy
+MOE_TRAIN_CUTS = (
+    {"arch": "dbrx-132b", "layers": 1, "experts": 8, "global_batch": 4,
+     "accum_steps": 2, "remat": "full", "steps": 4},
+    {"arch": "llama4-maverick-400b-a17b", "layers": 2, "experts": 8,
+     "global_batch": 2, "accum_steps": 2, "remat": "dots", "steps": 3},
+)
+MOE_TRAIN_STATE = "bfloat16"
+# the remat op count: forward and backward over one sequence this long
+MOE_REMAT_S = 256
+# the MoE layer's gradients: these parameters where the layer has them
+MOE_GRAD_NAMES = ("router", "wi", "wo", "shared_wi", "shared_wo")
+
+
+def moe_train_configs():
+    """(config, run) for each run of MOE_TRAIN_CUTS: the published config
+    cut in depth and experts, under the run's remat policy; full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    out = []
+    for run in MOE_TRAIN_CUTS:
+        full = get_config(run["arch"])
+        cfg = full.with_overrides(
+            num_layers=run["layers"], remat=run["remat"],
+            moe=dataclasses.replace(full.moe, num_experts=run["experts"]))
+        need(all(getattr(cfg, a) == getattr(full, a) for a in (
+            "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
+            "vocab_size")), f"moe train {cfg.name}: not at full width")
+        out.append((cfg, run))
+    return out
+
+
+def moe_train_launches(cfg, run):
+    """(kernel 3's, the backward's) launches a run implies: per layer, per
+    micro-batch and per step, the backward once and kernel 3 once in the
+    forward and, under ``full`` and ``dots``, once more in the backward's
+    recompute (the flash Function's output is no matmul that ``dots``
+    keeps, and its kernel is no aten op the policy could cache)."""
+    n = cfg.num_layers * run["accum_steps"] * run["steps"]
+    return (1 if cfg.remat == "none" else 2) * n, n
+
+
+@contextlib.contextmanager
+def counted_attention():
+    """While a path runs, count the calls of the attention wrappers made
+    through ``models.attention`` (on the card each launches its kernel
+    once; on the CPU they run the plain versions and launch nothing):
+    ``{"flash_attention_cuda": n, "flash_attention_bwd_cuda": n}``."""
+    from repro_torch.models import attention
+
+    n = dict.fromkeys(("flash_attention_cuda", "flash_attention_bwd_cuda"),
+                      0)
+    orig = {k: getattr(attention, k) for k in n}
+
+    def counting(name):
+        def call(*a, **kw):
+            n[name] += 1
+            return orig[name](*a, **kw)
+        return call
+
+    for k in n:
+        setattr(attention, k, counting(k))
+    try:
+        yield n
+    finally:
+        for k, fn in orig.items():
+            setattr(attention, k, fn)
+
+
+@contextlib.contextmanager
+def capture_train_layer0(n_layers):
+    """While a training run goes, record (copies of) what the flash
+    backward is given at layer 0 of the first micro-batch: its
+    ``n_layers``-th call, since the backward runs the layers last to
+    first.  ``got["bwd"]`` is (q, k, v, o, lse, dO, window, q_offset)."""
+    from repro_torch.models import attention
+
+    got, calls = {}, [0]
+    bwd = attention.flash_attention_bwd_cuda
+
+    def rec(q, k, v, o, lse, do, **kw):
+        calls[0] += 1
+        if calls[0] == n_layers:
+            got["bwd"] = tuple(t.clone() for t in (q, k, v, o, lse, do)) + (
+                kw["window"], kw["q_offset"])
+        return bwd(q, k, v, o, lse, do, **kw)
+
+    attention.flash_attention_bwd_cuda = rec
+    try:
+        yield got
+    finally:
+        attention.flash_attention_bwd_cuda = bwd
+
+
+def wrong_kv_heads_bwd(q, k, v, o, lse, do, **kw):
+    """Wrong control: the plain backward with query head h reading KV head
+    h % K in place of h // G (:func:`wrong_kv_heads`), so that dK and dV
+    sum over the wrong query heads."""
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+
+    B, S, H, d = q.shape
+    K = k.shape[2]
+    G = H // K
+
+    def regroup(t, axis):  # head g * K + j -> j * G + g
+        shape = t.shape[:axis] + (G, K) + t.shape[axis + 1:]
+        return t.reshape(shape).transpose(axis, axis + 1).reshape(t.shape)
+
+    def back(t):  # the inverse, on dq
+        shape = t.shape[:2] + (K, G) + t.shape[3:]
+        return t.reshape(shape).transpose(2, 3).reshape(t.shape)
+
+    dq, dk, dv = mha_bwd_ref(regroup(q, 2), k, v, regroup(o, 2),
+                             regroup(lse, 1), regroup(do, 2), **kw)
+    return back(dq), dk, dv
+
+
+def moe_train_attention_check(shapes, cfg, log=print):
+    """Kernel 3 with ``lse`` and the flash backward at one MoE model's
+    training shapes: layer 0's q, k, v, o, lse and dO of the first
+    micro-batch as :func:`capture_train_layer0` recorded them (query
+    groups of G = H / K, causal, no window).  Kernel 3 relaunched on q, k,
+    v gives the training forward's o and lse bit for bit, its output is
+    within :func:`attn_limit` of ``mha_ref``'s and its lse within 1e-5 of
+    the plain log-sum-exp; the backward is within :func:`grad_limit` of
+    ``mha_bwd_ref`` in float32 on the same inputs, at the bf16 tolerance.
+    Wrong controls must exceed each limit: the causal edge one key off,
+    and the query heads read by the wrong KV heads (for the backward, dK
+    and dV summed over the wrong query heads).  Returns {kernel:
+    record}."""
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    q, k, v, o, lse, do, window, q_offset = shapes["bwd"]
+    need(not window and not q_offset, f"moe train {cfg.name}: layer 0 ran "
+                                      f"with window {window}, q_offset "
+                                      f"{q_offset}")
+    H, K = q.shape[2], k.shape[2]
+    tol = ATTN_TOL["bfloat16"]
+    kw = dict(causal=True, window=0)
+    name = f"{cfg.name} train layer 0"
+    o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    need(same_tensors(o2, o) and same_tensors(lse2, lse),
+         f"{name}: kernel 3 relaunched differs from the training forward")
+    pout, plse = mha_ref(q, k, v, return_lse=True, **kw)
+    err, used, mean_p, max_p = attn_compare(o2, pout, tol, name)
+    lse_err = float((lse2 - plse).abs().max())
+    need(lse_err <= 1e-5 * max(1.0, float(plse.abs().max())),
+         f"{name}: lse off by {lse_err}")
+    ctl = attn_controls(pout, {
+        "causal edge one key off": lambda: mha_ref(
+            q, k, v, causal=True, window=0, q_offset=-1),
+        "query heads on the wrong KV heads": lambda: wrong_kv_heads(
+            lambda q, k: mha_ref(q, k, v, **kw), q, k)}, tol, name)
+    out = {"flash_attention_cuda": {
+        "call": name + ", with lse", "q": list(q.shape), "kv": list(k.shape),
+        "group": H // K, "max_abs_err": err, "limit_used": used,
+        "lse_err": lse_err, "mean_abs_plain": mean_p, "max_abs_plain": max_p,
+        "controls_limit_used": ctl, "training_bits": True}}
+    del o2, lse2, pout, plse
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    f = [t.float() for t in (q, k, v, o)] + [lse, do.float()]
+    err, used = grad_compare(got, mha_bwd_ref(*f, **kw), tol,
+                             f"{name} backward")
+    controls = {
+        "causal edge one key off": lambda: mha_bwd_ref(
+            *f, causal=True, window=0, q_offset=-1),
+        "dK/dV over the wrong query heads": lambda: wrong_kv_heads_bwd(
+            *f, **kw)}
+    ctl = {}
+    for cname, fn in controls.items():
+        ctl[cname] = max(float(((a.float() - c).abs()
+                                / grad_limit(c, tol)).max())
+                         for a, c in zip(got, fn()))
+        need(ctl[cname] > 1.0, f"{name} backward: the control '{cname}' "
+                               f"stays within the limit ({ctl[cname]:.3g}x)")
+    out["flash_attention_bwd_cuda"] = {
+        "call": name, "q": list(q.shape), "kv": list(k.shape),
+        "group": H // K, "max_abs_err": err, "limit_used": used,
+        "controls_limit_used": ctl}
+    return out
+
+
+def moe_layer_grads(fn, p, x, cot, names):
+    """(output, {"x" and each of ``names``: the gradient}) of
+    ``sum(fn(x) * cot)``, the weights ``p[name]``."""
+    import torch
+
+    xs = x.detach().requires_grad_(True)
+    out = fn(xs)
+    grads = torch.autograd.grad((out.to(cot.dtype) * cot).sum(),
+                                [xs] + [p[n] for n in names])
+    return out.detach(), dict(zip(("x",) + names, grads))
+
+
+def grads_limit_used(got, want, tol, what):
+    """The largest share of :func:`grad_limit` (per row of each
+    gradient's last dim) that any entry of each gradient in ``got`` uses
+    against ``want``.  Returns {name: share}."""
+    import torch
+
+    out = {}
+    for n, w in want.items():
+        a = got[n]
+        need(a.shape == w.shape, f"{what} d{n}: shape {tuple(a.shape)}")
+        need(bool(torch.isfinite(a).all()), f"{what} d{n}: non-finite")
+        out[n] = float(((a.float() - w.float()).abs()
+                        / grad_limit(w.float(), tol)).max())
+    return out
+
+
+def moe_grad_check(model, cfg, gen, device="cuda", log=print):
+    """The MoE layer's gradient at full width: ``moe_apply_local`` on the
+    model's first MoE layer (its float32 masters), differentiated with
+    respect to x, the router, the expert stacks and the shared expert's
+    weights, the loss the sum of its output times a fixed random
+    cotangent, against the same gradients of :func:`moe_token_loop`,
+    within :func:`grad_limit` at the float32 tolerance: MOE_CHECK_T random
+    tokens at the config's capacity, then MOE_DROP_DISTINCT tokens each
+    repeated at MOE_DROP_CF, where entries must drop.  Both take x in
+    float64, so that the experts compute in float64 (routing stays
+    float32, as the layer's) and a difference is one of formulation, not
+    of rounding: in bf16 the layer's rounded intermediates put its weight
+    gradients about the bf16 tolerance from a float32 loop's, and in
+    float32 the sums over d_model and d_ff reach the float32 limit where
+    one token makes a whole row of a weight's gradient.  Two wrong
+    controls must exceed the limit: the gates not renormalised, and
+    dropped entries written by assignment (at the dropping capacity).
+    The router's gradient is compared under top k > 1 only.  Returns the
+    records."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+
+    p = model.stacked_layers("moe")[0].moe
+    # top 1: the renormalised gate is 1, so the output's gradient with
+    # respect to the router is 0 but for rounding (the router learns
+    # through the aux loss alone); it is compared under top k > 1
+    names = tuple(n for n in MOE_GRAD_NAMES if n in p and (
+        n != "router" or cfg.moe.top_k > 1))
+    tol = ATTN_TOL["float32"]
+    x = torch.randn((MOE_CHECK_T, cfg.d_model), generator=gen,
+                    device=device).double()
+    reps = MOE_CHECK_T // MOE_DROP_DISTINCT
+    drop_cfg = cfg.with_overrides(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_DROP_CF))
+    out = {}
+    for name, c, xs in (("nominal", cfg, x),
+                        ("dropping", drop_cfg,
+                         x[:MOE_DROP_DISTINCT].repeat_interleave(reps, 0))):
+        what = f"moe train {cfg.name} {name}"
+        cot = torch.randn(xs.shape, generator=gen, device=device).double()
+
+        def layer(x):
+            return moe.moe_apply_local(p, x[None], c)[0][0]
+
+        loop = {}
+
+        def token_loop(x):
+            y, loop["dropped"] = moe_token_loop(p, x, c)
+            return y
+
+        with moe_dispatches() as calls:
+            _, got = moe_layer_grads(layer, p, xs, cot, names)
+        _, want = moe_layer_grads(token_loop, p, xs, cot, names)
+        n_drop = int((calls[0][1] == 0).sum())
+        need(n_drop == loop["dropped"], f"{what}: {n_drop} entries dropped, "
+                                        f"the host's rule drops "
+                                        f"{loop['dropped']}")
+        used = grads_limit_used(got, want, tol, what)
+        need(max(used.values()) <= 1.0, f"{what}: gradients use {used} of "
+                                        f"grad_limit (tol {tol}) against "
+                                        f"the token loop")
+        if name == "dropping":
+            need(n_drop > 0, f"{what}: nothing dropped")
+            control = ("dropped_by_assignment", "_dispatch",
+                       dispatch_by_assignment)
+        else:
+            control = ("no_renormalisation", "_route", route_no_renorm)
+        err = {n: float((got[n] - want[n]).abs().max()) for n in want}
+        del got
+        with moe_patched(*control[1:]):
+            _, bad = moe_layer_grads(layer, p, xs, cot, names)
+        bad_used = max(grads_limit_used(bad, want, tol, what).values())
+        need(bad_used > 1.0, f"{what}: the control '{control[0]}' stays "
+                             f"within the limit ({bad_used:.3g}x)")
+        out[name] = {
+            "tokens": xs.shape[0], "capacity": moe._capacity(xs.shape[0], c),
+            "dropped": n_drop, "limit_used": used, "max_abs_err": err,
+            "mean_abs_plain": {n: float(w.float().abs().mean())
+                               for n, w in want.items()},
+            "controls_limit_used": {control[0]: bad_used}}
+        del want, bad
+    return out
+
+
+def remat_op_counts(model, cfg, S, device="cuda"):
+    """What a layer's remat policy recomputes, by op count: ``forward_train``
+    over one sequence of S tokens and its backward, under the config's
+    policy and under ``none``, counting the experts' ``bmm``s (the
+    forward's two shapes, (E, C, d) x (E, d, 2f) and (E, C, f) x (E, f,
+    d)), the ``mm``s (and ``addmm``s) and the calls of kernel 3's wrapper,
+    each in the forward and in the backward.  What the backward runs
+    beyond ``none``'s is what the policy recomputed: the reference's
+    ``checkpoint_dots_with_no_batch_dims`` keeps the products without a
+    batch dimension, so under ``dots`` the experts' ``bmm``s (their expert
+    axis a batch dimension) and kernel 3 run again and no ``mm`` does;
+    under ``full`` everything in the layers runs again.  Returns
+    {"forward", "backward": {policy: counts}, "recomputed": counts}."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import forward_train, moe
+    from repro_torch.models.model import flat_leaves
+
+    aten = torch.ops.aten
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    C = moe._capacity(S, cfg)
+    expert = {((E, C, d), (E, d, 2 * f)), ((E, C, f), (E, f, d))}
+
+    class Count(TorchDispatchMode):
+        def __init__(self, n):
+            super().__init__()
+            self.n = n
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is aten.bmm.default and (
+                    tuple(args[0].shape), tuple(args[1].shape)) in expert:
+                self.n["expert_bmm"] += 1
+            elif func in (aten.mm.default, aten.addmm.default):
+                self.n["mm"] += 1
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                           device=device)
+    batch = {"tokens": toks, "labels": toks}
+    params = flat_leaves(model)[0]
+    counts = {"forward": {}, "backward": {}}
+    for r in dict.fromkeys(("none", cfg.remat)):
+        model.cfg = cfg.with_overrides(remat=r)
+        fwd, bwd = collections.Counter(), collections.Counter()
+        try:
+            with counted_attention() as attn:
+                with Count(fwd):
+                    loss, _ = forward_train(model, batch)
+                fwd["flash"] = attn["flash_attention_cuda"]
+                with Count(bwd):
+                    grads = torch.autograd.grad(loss, params)
+                bwd["flash"] = attn["flash_attention_cuda"] - fwd["flash"]
+        finally:
+            model.cfg = cfg
+        del loss, grads
+        counts["forward"][r], counts["backward"][r] = dict(fwd), dict(bwd)
+    n_moe = sum(layer.kind == "moe" for layer in model.layers)
+    keys = ("expert_bmm", "mm", "flash")
+    b = counts["backward"]
+    counts["recomputed"] = {k: b[cfg.remat].get(k, 0) - b["none"].get(k, 0)
+                            for k in keys}
+    rec = counts["recomputed"]
+    what = f"moe train {cfg.name} remat {cfg.remat!r}"
+    need(all(counts["forward"][r].get("expert_bmm") == 2 * n_moe
+             for r in counts["forward"]),
+         f"{what}: the forward ran {counts['forward']} expert bmms, not "
+         f"{2 * n_moe}")
+    need(not b["none"].get("expert_bmm"), f"{what}: an expert product of "
+                                          f"the forward's shape ran in "
+                                          f"the backward under none")
+    if cfg.remat in ("dots", "full"):
+        need(rec["expert_bmm"] == 2 * n_moe and rec["flash"]
+             == cfg.num_layers, f"{what}: recomputed {rec}, not the "
+                                f"{2 * n_moe} expert bmms and "
+                                f"{cfg.num_layers} kernel 3 calls")
+    if cfg.remat == "dots":
+        need(rec["mm"] == 0, f"{what}: {rec['mm']} mms recomputed")
+    if cfg.remat == "full":
+        need(rec["mm"] > 0, f"{what}: no mm recomputed")
+    return counts
+
+
+def moe_train_one(cfg, run, card, device="cuda", log=print, seq_len=None):
+    """One MoE model trained at full width, cut as ``run`` says:
+    ``train_loop`` for ``run["steps"]`` steps of ``run["global_batch"]``
+    sequences of ``seq_len`` (TRAIN_4K's 4,096 unless given) tokens in
+    ``run["accum_steps"]`` micro-batches, bf16 compute over float32
+    masters and MOE_TRAIN_STATE moments, weights from seed 0.  Every
+    step's loss, ce and aux finite, aux > 0, no step skipped; each
+    dispatch over one micro-batch's tokens, and the recompute's drops the
+    forward's; kernel 3's and the backward's launches by route, as many as
+    the policy implies (:func:`moe_train_launches`), each on its
+    training route (TRAIN_FLASH_ROUTE, TRAIN_BWD_ROUTE).
+    Then one more step under ``torch.profiler`` (with the run's peak
+    memory), the
+    attention kernels at layer 0's training shapes
+    (:func:`moe_train_attention_check`), the MoE layer's gradient against
+    the token loop (:func:`moe_grad_check`), and the policy's recompute by
+    op count (:func:`remat_op_counts`).  The model is freed before it
+    returns."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda as bwd)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda as flash)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import moe
+    from repro_torch.models.model import flat_leaves
+    from repro_torch.train.data import SyntheticLMDataset
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    S = seq_len or TRAIN_4K.seq_len
+    B, accum, steps = run["global_batch"], run["accum_steps"], run["steps"]
+    need(cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+         and cfg.remat == run["remat"], f"moe train {cfg.name}: not bf16 "
+                                        f"over float32 masters under "
+                                        f"{run['remat']!r}")
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps,
+                   state_dtype=MOE_TRAIN_STATE)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_attn_launches()
+    t0 = time.perf_counter()
+    with counted_attention() as calls, moe_dispatches() as dispatches, \
+            capture_train_layer0(cfg.num_layers) as shapes:
+        out = train_loop(cfg, steps=steps, global_batch=B, seq_len=S,
+                         device=device, oc=oc, accum_steps=accum,
+                         log_every=1, seed=0)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_cuda": flash.launches,
+                "flash_attention_bwd_cuda": bwd.launches}
+    routes = {"flash_attention_cuda": dict(flash.launches_by_route),
+              "flash_attention_bwd_cuda": dict(bwd.launches_by_route)}
+    model, opt_state = out["params"], out["opt_state"]
+    n_params = sum(p.numel() for p in flat_leaves(model)[0])
+    T = B // accum * S
+    n_moe = sum(layer.kind == "moe" for layer in model.layers)
+    hist, prev = [], 0.0
+    for h in out["history"]:
+        hist.append({k: h[k] for k in ("step", "loss", "ce", "aux",
+                                       "grad_norm", "lr", "skipped")})
+        hist[-1]["seconds"] = h["seconds"] - prev
+        hist[-1]["tokens_per_s"] = B * S / hist[-1]["seconds"]
+        prev = h["seconds"]
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "kinds": [layer.kind for layer in model.layers],
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "d_ff": cfg.d_ff, "experts": cfg.moe.num_experts,
+           "top_k": cfg.moe.top_k, "capacity_factor":
+           cfg.moe.capacity_factor, "shared_expert": cfg.moe.shared_expert,
+           "params": n_params, "param_count": cfg.param_count(),
+           "remat": cfg.remat, "state_dtype": MOE_TRAIN_STATE,
+           "tokens_a_step": B * S, "accum_steps": accum,
+           "capacity": moe._capacity(T, cfg), "seconds": wall,
+           "steps": hist, "launches": launches, "launches_by_route": routes,
+           "wrapper_calls": dict(calls),
+           "drop_share_by_dispatch": [
+               float((keep == 0).float().mean()) for _, keep in dispatches],
+           "card": card}
+    if on_card:
+        rec["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase moe_train_{cfg.name}: {json.dumps(rec)}")
+    what = f"moe train {cfg.name}"
+    need(n_params == schema_params(cfg), f"{what}: {n_params} parameters, "
+                                         f"not {schema_params(cfg)}")
+    need(len(hist) == steps, f"{what}: steps lost")
+    need(all(np.isfinite([h[k] for k in ("loss", "ce", "aux", "grad_norm")])
+             .all() and h["aux"] > 0 for h in hist),
+         f"{what}: a non-finite loss, ce, aux or gradient norm, or aux 0")
+    need(not any(h["skipped"] for h in hist), f"{what}: a step was skipped")
+    # each micro-batch's dispatches: the forward's, layer by layer, then
+    # the recompute's, last layer first, dropping the same entries
+    per = n_moe * (1 if cfg.remat == "none" else 2)
+    need(len(dispatches) == per * accum * steps
+         and all(n == T for n, _ in dispatches),
+         f"{what}: {len(dispatches)} dispatches over "
+         f"{sorted({n for n, _ in dispatches})} tokens, not "
+         f"{per * accum * steps} over {T}")
+    if cfg.remat != "none":
+        for i in range(0, len(dispatches), per):
+            fwd, again = dispatches[i:i + n_moe], dispatches[i + n_moe:
+                                                             i + per][::-1]
+            need(all(torch.equal(a[1], b[1]) for a, b in zip(fwd, again)),
+                 f"{what}: the recompute dropped other entries")
+    n_fwd, n_bwd = moe_train_launches(cfg, run)
+    need(calls == {"flash_attention_cuda": n_fwd,
+                   "flash_attention_bwd_cuda": n_bwd},
+         f"{what}: attention calls {calls}, not {n_fwd} and {n_bwd}")
+    if on_card:
+        for k, n, route in zip(launches, (n_fwd, n_bwd),
+                               (TRAIN_FLASH_ROUTE, TRAIN_BWD_ROUTE)):
+            need(routes[k].get(route) == launches[k] == n,
+                 f"{what}: {k} took the routes {routes[k]}, not {n} "
+                 f"{route}")
+    del dispatches
+
+    # where a step's time goes: one more step under the profiler
+    data = SyntheticLMDataset(cfg.vocab_size, S, B)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in data.batch_at(steps).items()}
+    step_fn = make_train_step(cfg, oc, accum_steps=accum)
+    prof = profile_window("step", lambda: step_fn(model, opt_state, batch),
+                          log, phase=f"moe_train_profile_{cfg.name}")
+    rec["profile"] = {k: prof.get(k) for k in ("wall_ms", "device_ms",
+                                               "idle_share", "peak_GB")}
+    del batch
+
+    t1 = time.perf_counter()
+    rec["attention_check"] = moe_train_attention_check(shapes, cfg, log)
+    shapes.clear()
+    log(f"phase moe_train_attention_check_{cfg.name}: "
+        f"{json.dumps(rec['attention_check'])}")
+    gen = torch.Generator(device=device).manual_seed(5)
+    rec["grad_check"] = moe_grad_check(model, cfg, gen, device, log)
+    log(f"phase moe_train_grad_check_{cfg.name}: "
+        f"{json.dumps(rec['grad_check'])}")
+    rec["remat_ops"] = remat_op_counts(model, cfg, MOE_REMAT_S, device)
+    log(f"phase moe_train_remat_ops_{cfg.name}: "
+        f"{json.dumps(rec['remat_ops'])}")
+    rec["checks_seconds"] = time.perf_counter() - t1
+    del model, opt_state, out
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def moe_train_path(runs, card, device="cuda", log=print, seq_len=None):
+    """Phase 11b: each (config, run) of ``runs`` through
+    :func:`moe_train_one`, one model on the card at a time, after the
+    ``moe_train cuts`` line.  Returns {arch: record}."""
+    from repro_torch.configs import TRAIN_4K, get_config
+
+    cuts = {}
+    for cfg, run in runs:
+        full = get_config(cfg.name)
+        cuts[cfg.name] = {
+            "layers": [full.num_layers, cfg.num_layers],
+            "experts": [full.moe.num_experts, cfg.moe.num_experts],
+            "top_k": cfg.moe.top_k,
+            "capacity_factor": cfg.moe.capacity_factor,
+            "global_batch": [TRAIN_4K.global_batch, run["global_batch"]],
+            "accum_steps": run["accum_steps"], "steps": run["steps"],
+            "seq_len": seq_len or TRAIN_4K.seq_len, "remat": cfg.remat,
+            "state_dtype": MOE_TRAIN_STATE,
+            "width": {a: getattr(cfg, a) for a in (
+                "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
+                "vocab_size")}}
+    log(f"moe_train cuts: {json.dumps(cuts)}")
+    return {cfg.name: moe_train_one(cfg, run, card, device, log, seq_len)
+            for cfg, run in runs}
+
+
 def main() -> int:
     try:
         import torch
@@ -5280,6 +5906,22 @@ def main() -> int:
         if rec["name"] == "flash_attention_cuda":
             rec.update(flash_train)
     report.append(bwd_row)
+    # 11b. MoE training, launches counted (inside moe_train_one)
+    t0 = time.perf_counter()
+    moe_train = moe_train_path(moe_train_configs(), card, "cuda")
+    print(f"phase moe_train: {json.dumps({'seconds': time.perf_counter() - t0, 'card': card})}")
+    for rec in report:  # the MoE training launches, by model
+        if rec["name"] in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
+            rec["moe_train_launches"] = {
+                a: {"launches": r["launches"][rec["name"]],
+                    "by_route": r["launches_by_route"][rec["name"]]}
+                for a, r in moe_train.items()}
+            rec["moe_train_calls"] = {a: r["attention_check"][rec["name"]]
+                                      for a, r in moe_train.items()}
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                c["max_abs_err"] for c in rec["moe_train_calls"].values()])
+            rec["limit_used"] = max([rec["limit_used"]] + [
+                c["limit_used"] for c in rec["moe_train_calls"].values()])
     for rec in report:  # the examples phase's launches of each kernel
         rec.setdefault("mesh_launches", 0)  # attention: not on the mesh
         rec["examples_launches"] = {

@@ -28,7 +28,8 @@ from repro_torch.core.superstep import resolve_device
 from repro_torch.dist.compression import Int8Compressor, TopKCompressor
 from repro_torch.models.model import (
     _set_leaf, flat_leaves, init_model_params, opt_state_from_numpy,
-    opt_state_to_numpy, params_from_numpy, params_to_numpy, train_leaves)
+    opt_state_to_numpy, params_from_numpy, params_to_numpy, stack_dims,
+    train_leaves)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticLMDataset
 from repro_torch.train.optimizer import (OptConfig, PartialUpdateError,
@@ -59,12 +60,12 @@ def make_compressor(compress, *, topk_frac: float = 0.01):
 
 def _like(model) -> Dict[str, Any]:
     """The checkpoint tree's structure, shapes and dtypes, without data
-    (``restore`` reads only those from ``like``)."""
+    (``restore`` reads only those from ``like``): each layer leaf stacked
+    as the reference's (``stack_dims``: the MoE family's dense layers over
+    (groups, moe_every - 1))."""
     tree: Dict[str, Any] = {}
     for name, ts in train_leaves(model):
-        shape = tuple(ts[0].shape)
-        if name.startswith("groups/"):
-            shape = (len(ts),) + shape
+        shape = stack_dims(model.cfg, name) + tuple(ts[0].shape)
         _set_leaf(tree, name, np.broadcast_to(np.float32(0), shape))
     return {"params": tree,
             "opt": {"mu": tree, "nu": tree, "step": np.int32(0)}}

@@ -129,6 +129,17 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
     return next(leaves)
 
 
+def _bfloat16_widened(arr: np.ndarray, dtype: str) -> np.ndarray:
+    """A leaf the manifest calls ``bfloat16`` (the reference's moments
+    under ``state_dtype="bfloat16"``, saved from an ``ml_dtypes`` array)
+    as float32, exactly, from its bits: numpy alone loads such a file as
+    raw 2-byte records, which no cast reads.  Other leaves as they are."""
+    if dtype == "bfloat16" and arr.dtype.itemsize == 2 and \
+            arr.dtype.kind == "V":
+        return (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return arr
+
+
 def restore(
     ckpt_dir: str,
     like: Dict[str, Any],
@@ -151,7 +162,9 @@ def restore(
         raise KeyError(f"checkpoint missing leaves: {missing[:5]}...")
     arrays = []
     for name, leaf in named:
-        arr = np.load(os.path.join(d, manifest["leaves"][name]["file"]))
+        meta = manifest["leaves"][name]
+        arr = _bfloat16_widened(np.load(os.path.join(d, meta["file"])),
+                                meta["dtype"])
         want_shape = tuple(np.shape(leaf))
         if tuple(arr.shape) != want_shape:
             raise ValueError(

@@ -14,6 +14,7 @@ store over the first time pack held against phases 5 and 5b's first
 instances.
 """
 import importlib.util
+import json
 import pathlib
 
 import pytest
@@ -152,3 +153,87 @@ def test_moe_serve_phase_on_the_cpu(smoke, monkeypatch):
     # serve, the attention check, two profile windows, teacher forcing,
     # layer check
     assert sum(ln.startswith("phase moe_") for ln in log) == 6 * len(cfgs)
+
+
+def test_moe_train_phase_on_the_cpu(smoke, monkeypatch):
+    """The smoke's MoE training phase (``moe_train_path``) at the reduced
+    configs cut as MOE_TRAIN_CUTS cuts depth, llama4 with its shared
+    expert, 32-token sequences, on the CPU: the cut record, every step
+    finite with aux > 0 and none skipped, the dispatches per micro-batch
+    and their recompute, the attention wrappers called as the remat
+    policy implies (on the CPU they run their plain versions and launch
+    nothing), the attention checks at layer 0's training shapes and the
+    MoE layer's gradient check with every control over its limit, and the
+    remat op counts (``dots``: the experts' bmms and kernel 3 again, no
+    mm; ``full``: mms too).  The card's runs keep full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    runs = smoke.moe_train_configs()
+    assert [(c.name, c.num_layers, c.moe.num_experts, c.remat)
+            for c, _ in runs] == [
+        (r["arch"], r["layers"], r["experts"], r["remat"])
+        for r in smoke.MOE_TRAIN_CUTS]
+    for c, run in runs:
+        full = get_config(c.name)
+        assert dataclasses.replace(
+            c, num_layers=full.num_layers, remat=full.remat,
+            moe=dataclasses.replace(c.moe, num_experts=full.moe.num_experts)
+        ) == full
+        assert smoke.moe_train_launches(c, run) == (
+            2 * c.num_layers * run["accum_steps"] * run["steps"],
+            c.num_layers * run["accum_steps"] * run["steps"])
+    # dbrx at C = 5,120, llama4 at C = 640 (tokens of one micro-batch)
+    from repro_torch.models import moe
+
+    assert [moe._capacity(r["global_batch"] // r["accum_steps"] * 4096, c)
+            for c, r in runs] == [5120, 640]
+    for name, value in (("MOE_CHECK_T", 64), ("MOE_DROP_DISTINCT", 8),
+                        ("MOE_REMAT_S", 48)):
+        monkeypatch.setattr(smoke, name, value)
+    small = []
+    for c, run in runs:
+        full = get_config(c.name)
+        r = full.reduced()
+        small.append((r.with_overrides(
+            num_layers=c.num_layers, remat=c.remat,
+            moe=dataclasses.replace(
+                r.moe, shared_expert=full.moe.shared_expert)), run))
+    log = []
+    recs = smoke.moe_train_path(small, "cpu", device="cpu", log=log.append,
+                                seq_len=32)
+    cuts = json.loads(log[0][len("moe_train cuts: "):])
+    assert list(cuts) == [c.name for c, _ in small]
+    assert cuts["dbrx-132b"]["experts"] == [16, 4]
+    assert cuts["dbrx-132b"]["state_dtype"] == "bfloat16"
+    for c, run in small:
+        rec = recs[c.name]
+        assert rec["params"] == smoke.schema_params(c)
+        assert len(rec["steps"]) == run["steps"]
+        assert all(h["aux"] > 0 and h["skipped"] == 0 for h in rec["steps"])
+        n_fwd, n_bwd = smoke.moe_train_launches(c, run)
+        assert rec["wrapper_calls"] == {"flash_attention_cuda": n_fwd,
+                                        "flash_attention_bwd_cuda": n_bwd}
+        n_moe = rec["kinds"].count("moe")
+        assert len(rec["drop_share_by_dispatch"]) == (
+            2 * n_moe * run["accum_steps"] * run["steps"])
+        for k, att in rec["attention_check"].items():
+            assert att["group"] == c.num_heads // c.num_kv_heads
+            assert att["limit_used"] <= 1.0
+            assert len(att["controls_limit_used"]) == 2
+            assert min(att["controls_limit_used"].values()) > 1.0
+        for case in ("nominal", "dropping"):
+            g = rec["grad_check"][case]
+            assert max(g["limit_used"].values()) <= 1.0
+            assert min(g["controls_limit_used"].values()) > 1.0
+            assert ("router" in g["limit_used"]) == (c.moe.top_k > 1)
+        assert rec["grad_check"]["dropping"]["dropped"] > 0
+        ops = rec["remat_ops"]["recomputed"]
+        assert ops["expert_bmm"] == 2 * n_moe
+        assert ops["flash"] == c.num_layers
+        assert (ops["mm"] == 0) == (c.remat == "dots")
+    # per model: the run, its profile, the attention check, the gradient
+    # check, the op count
+    assert sum(ln.startswith("phase moe_train_") for ln in log) == 5 * len(
+        small)
