@@ -198,6 +198,29 @@ Phases (any failure exits non-zero before the result lines):
    within :func:`attn_limit` per token, at the config's capacity and at
    one that drops (asserted), with two wrong controls that must fail
    (gates not renormalised; dropped entries written by assignment);
+8c. the audio family serving (``audio_serve``): whisper-medium at full
+   width and depth (24 encoder and 24 decoder layers, d_model 1,024, 16
+   heads, MHA, head dim 64), random weights and seeded random frames of
+   8 clips of 30 s (8 x 1,500 x 1,024), ``BatchedServer`` answering 8
+   prompts of 224 tokens with 64 new tokens each at batch 8 (AUDIO_*;
+   the ``audio path cuts`` line is empty).  Prefill seconds split into
+   the encoder and the decoder, decode seconds, tokens/s, peak memory,
+   finite logits; kernel 3 launched 72 times (24 encoder, 24
+   self-attention, 24 cross-attention), all on the bf16 wgmma route,
+   kernel 4 63 x 48 times (self and cross a layer a step), all on the
+   bf16 ring route; a second serve giving the same tokens; kernels 3 and
+   4 at layer 0 of the five calls (the encoder, non-causal over 1,500
+   frames; cross prefill, 224 over 1,500; self prefill; self decode;
+   cross decode with every length 1,500) against their plain versions
+   within :func:`attn_limit`, with wrong controls (a causal encoder, the
+   ragged last key block dropped, the causal edge one key off, the
+   newest key lost, the query heads on the wrong KV heads), and the
+   cross decode again with its last frame's key planted on each query,
+   where the last frame or the ragged last 64-key block lost must fail;
+   teacher forcing at S = 224 within 5e-2; a profile of one
+   prefill and four decode steps; then (``audio_timing``) each of the
+   five calls timed beside its plain version, SDPA's flash backend and
+   the bound;
 10. each attention kernel at the serving run's layer-0 shapes and at the
    ``prefill_32k`` / ``decode_32k`` shapes: held against the plain
    version, with controls (the plain version with the window edge or the
@@ -209,7 +232,8 @@ Phases (any failure exits non-zero before the result lines):
    decode times are taken with K/V out of L2 (``cold_ms``), as a decode
    step finds them, and also back to back (``warm_ms``); then the
    ``kernels`` JSON line for all five kernels (the attention kernels'
-   with their launches by route, and phase 8b's by model);
+   with their launches by route, phase 8b's by model, and phase 8c's
+   launches and calls under ``audio_launches`` and ``audio_calls``);
 11. LM training (``train_path``): starcoder2-7b at full width (d_model
    4,608, 36 heads over 4, d_ff 18,432, vocab 49,152, window 4,096) cut
    to 4 layers (1,321,288,704 parameters), ``train_loop`` for 4 steps of
@@ -258,7 +282,8 @@ Phases (any failure exits non-zero before the result lines):
     {...}}``.
 
 Each main path (graph, query, GoFS graph, the session within it, the
-stream phase, serving, MoE serving, training, MoE training) runs with
+stream phase, serving, MoE serving, audio serving, training, MoE
+training) runs with
 every kernel's launch count
 set to 0
 just before it
@@ -3402,7 +3427,10 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # tests/test_kernels.py:127-136, then ragged Sq/Skv tails, G = 9 with
 # starcoder2's d, windows longer than the sequence, one query row, a
 # prefill continuing a cache (q_offset > 0), then the MoE family's groups
-# with no window: G = 6 (dbrx-132b) and G = 5 (llama4-maverick)
+# with no window: G = 6 (dbrx-132b) and G = 5 (llama4-maverick), then
+# whisper-medium's non-causal MHA (G = 1, 16 heads, d 64) over 1,500
+# frames (a ragged last block of 92 keys): the encoder, the cross prefill
+# of a 224-token prompt and of whisper's 4-token start prompt
 FLASH_CASES = [
     (2, 64, 64, 4, 2, 32, True, 0, 0, "float32"),
     (1, 128, 128, 8, 8, 64, True, 0, 0, "float32"),
@@ -3421,11 +3449,15 @@ FLASH_CASES = [
     (1, 200, 200, 16, 1, 128, True, 5000, 0, "bfloat16"),
     (2, 300, 300, 48, 8, 128, True, 0, 0, "bfloat16"),
     (1, 257, 257, 40, 8, 128, True, 0, 0, "bfloat16"),
+    (2, 1500, 1500, 16, 16, 64, False, 0, 0, "bfloat16"),
+    (2, 224, 1500, 16, 16, 64, False, 0, 0, "bfloat16"),
+    (3, 4, 1500, 16, 16, 64, False, 0, 0, "bfloat16"),
 ]
 # (B, S, H, K, d, window, dtype): DECODE_SWEEP of tests/test_kernels.py:
 # 178-183, then G = 9, G = 16, windows longer than the cache, caches
-# long enough for many splits, and the MoE family's G = 6 and G = 5 with
-# no window; every case has a sequence of length 1
+# long enough for many splits, the MoE family's G = 6 and G = 5 with no
+# window, and whisper-medium's cross decode (G = 1, 16 heads, d 64, over
+# 1,500 frames); every case has a sequence of length 1
 DECODE_CASES = [
     (2, 128, 4, 2, 32, 0, "float32"),
     (1, 256, 8, 1, 64, 0, "float32"),
@@ -3440,6 +3472,7 @@ DECODE_CASES = [
     (2, 3000, 36, 4, 128, 0, "float32"),
     (4, 3000, 48, 8, 128, 0, "bfloat16"),
     (4, 2100, 40, 8, 128, 0, "bfloat16"),
+    (8, 1500, 16, 16, 64, 0, "bfloat16"),
 ]
 # the serving run: starcoder2-7b at full width and depth
 SERVE_ARCH, SERVE_REQUESTS, SERVE_BATCH = "starcoder2-7b", 4, 4
@@ -3770,12 +3803,13 @@ def serve_profile(lm, device="cuda", log=print, n_decode=4, top=12,
     return out
 
 
-def parity_run(model, cfg, S, device="cuda"):
+def parity_run(model, cfg, S, device="cuda", extra=None):
     """Prefilling S + 1 tokens and prefilling S then decoding one must give
     the same last-token logits (tests/test_arch_smoke.py:67-109): the
     flash kernel against the decode kernel over all layers, within
     PARITY_TOL, and the same top-1 where the top-2 margin exceeds
-    PARITY_MARGIN.  Returns the record."""
+    PARITY_MARGIN.  ``extra`` goes to both prefills (the audio family's
+    ``frames``).  Returns the record."""
     import numpy as np
 
     from repro_torch.models import decode_step, init_serve_cache, prefill
@@ -3784,10 +3818,12 @@ def parity_run(model, cfg, S, device="cuda"):
     toks = np.random.default_rng(1).integers(0, V, (1, S + 1)).astype(
         np.int32)
     t0 = time.perf_counter()
+    extra = extra or {}
     cache = init_serve_cache(cfg, 1, S + 9, device=device)
-    la, _ = prefill(model, {"tokens": toks, "cache": cache})
+    la, _ = prefill(model, {"tokens": toks, "cache": cache, **extra})
     cache = init_serve_cache(cfg, 1, S + 9, device=device)
-    _, cache = prefill(model, {"tokens": toks[:, :S], "cache": cache})
+    _, cache = prefill(model, {"tokens": toks[:, :S], "cache": cache,
+                               **extra})
     lb, _ = decode_step(model, {"tokens": toks[:, S:],
                                 "pos": np.array([S], np.int32),
                                 "cache": cache})
@@ -4090,10 +4126,13 @@ def moe_teacher_forcing(model, cfg, device="cuda"):
 def wrong_kv_heads(fn, q, k, *args, **kw):
     """Wrong control: ``fn`` (a plain attention) with query head h reading
     KV head h % K in place of h // G, the grouping a kernel that mixed up
-    its query groups would compute.  Differs from the right grouping only
-    where G > 1 and K > 1."""
+    its query groups would compute; under MHA (G = 1), where that is the
+    right head, KV head (h + 1) % K.  Differs from the right grouping
+    wherever K > 1."""
     H, d, K = q.shape[-2], q.shape[-1], k.shape[2]
     G, lead = H // K, q.shape[:-2]
+    if G == 1:
+        return fn(q.roll(1, dims=-2), k, *args, **kw).roll(-1, dims=-2)
     qq = q.reshape(*lead, G, K, d).transpose(-3, -2).reshape(*lead, H, d)
     out = fn(qq, k, *args, **kw)
     return out.reshape(*lead, K, G, d).transpose(-3, -2).reshape(*lead, H, d)
@@ -4296,6 +4335,438 @@ def moe_serve(cfgs, card, device="cuda", log=print):
     log(f"moe path cuts: {json.dumps({c.name: {'layers': c.num_layers, 'groups': c.num_layers // c.moe.moe_every, 'moe_every': c.moe.moe_every} for c in cfgs})} (full width; dbrx-132b has 40 layers, "
         f"llama4-maverick-400b-a17b 48)")
     return {c.name: moe_serve_one(c, card, device, log) for c in cfgs}
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the audio family serving (whisper-medium)
+# ---------------------------------------------------------------------------
+
+# whisper-medium at full width and depth (24 encoder and 24 decoder
+# layers): 8 clips of 30 s (1,500 frames after the stub frontend), each
+# with a 224-token prompt (whisper's long-form context, n_text_ctx // 2)
+# and 64 new tokens (288 of its 448 positions), at batch 8
+AUDIO_ARCH = "whisper-medium"
+AUDIO_REQUESTS, AUDIO_BATCH = 8, 8
+AUDIO_PROMPT, AUDIO_NEW = 224, 64
+# the kernel-3 calls of one prefill, in order: the encoder's layers, then
+# each decoder layer's self-attention and cross-attention; a decode step
+# calls kernel 4 for each decoder layer's self- and cross-attention
+AUDIO_CALLS = ("encoder", "self prefill", "cross prefill", "self decode",
+               "cross decode")
+# the score (q.k / sqrt(d)) of the key planted on each query for the
+# cross decode's last-frame controls: near-uniform attention over 1,500
+# frames gives one frame 1/1,500 of a row, below the bf16 limit, while a
+# key scored 8 takes about 0.6 of it
+AUDIO_PLANT_SCORE = 8.0
+
+
+@contextlib.contextmanager
+def timed_encoder():
+    """While the block runs, the device seconds of each ``encdec.encode``
+    call (synchronised before and after), in the list yielded."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    secs, orig = [], encdec.encode
+
+    def sync():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    def timed(model, frames):
+        sync()
+        t0 = time.perf_counter()
+        out = orig(model, frames)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    encdec.encode = timed
+    try:
+        yield secs
+    finally:
+        encdec.encode = orig
+
+
+@contextlib.contextmanager
+def capture_audio_calls(cfg):
+    """While the audio serving path runs, record what the attention
+    kernels are given at layer 0 of each kind of call (AUDIO_CALLS): the
+    first prefill's kernel-3 calls 0 (the encoder), E and E + 1 (the
+    decoder's self- and cross-attention, E encoder layers), and the first
+    decode step's kernel-4 calls 0 and 1 (lengths copied)."""
+    from repro_torch.models import attention
+
+    got, n = {}, {"flash": 0, "decode": 0}
+    flash, decode = attention.flash_attention_cuda, attention.decode_attention_cuda
+    at = {0: "encoder", cfg.encoder_layers: "self prefill",
+          cfg.encoder_layers + 1: "cross prefill"}
+
+    def flash_rec(q, k, v, **kw):
+        name = at.get(n["flash"])
+        if name and name not in got:
+            got[name] = (q, k, v, kw)
+        n["flash"] += 1
+        return flash(q, k, v, **kw)
+
+    def decode_rec(q, k, v, lengths, **kw):
+        name = {0: "self decode", 1: "cross decode"}.get(n["decode"])
+        if name and name not in got:
+            got[name] = (q, k, v, lengths.clone(), kw)
+        n["decode"] += 1
+        return decode(q, k, v, lengths, **kw)
+
+    attention.flash_attention_cuda = flash_rec
+    attention.decode_attention_cuda = decode_rec
+    try:
+        yield got
+    finally:
+        attention.flash_attention_cuda = flash
+        attention.decode_attention_cuda = decode
+
+
+def audio_calls(shapes, log=print):
+    """Kernels 3 and 4 at the audio serve's layer-0 calls (AUDIO_CALLS, as
+    :func:`capture_audio_calls` recorded them) against ``mha_ref`` and
+    ``decode_ref`` within :func:`attn_limit` at the bf16 tolerance, on
+    the same tensors.  Wrong controls must exceed the limit: the encoder
+    run causal; the cross prefill with the keys of the last, ragged
+    128-key block dropped; the self prefill's causal edge one key off;
+    the newest key lost in self decode; and in every call the query
+    heads on the wrong KV heads (:func:`wrong_kv_heads`).  Under the
+    near-uniform attention of random weights, the last frame or the 28
+    frames of the last, ragged 64-key block of 1,500 weigh less than the
+    limit (recorded under ``unplanted_controls_limit_used``), so the cross
+    decode is also held with the last frame's key planted on each query
+    (score AUDIO_PLANT_SCORE), where losing that frame (``lengths`` less
+    one) or that block must fail.  Returns {call: record}, each with the
+    call's arguments under ``args`` for :func:`audio_timing`."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    flash_k, decode_k = attn_counters()
+    tol = ATTN_TOL["bfloat16"]
+    out = {}
+
+    def check(what, q, k, kfn, pfn, controls):
+        H, K = q.shape[-2], k.shape[2]
+        controls["query heads on the wrong KV heads"] = \
+            lambda: wrong_kv_heads(pfn, q, k)
+        kout, pout = kfn(q, k), pfn(q, k)
+        err, used, mean_p, max_p = attn_compare(kout, pout, tol, what)
+        ctl = attn_controls(pout, controls, tol, what)
+        return {"call": what, "q": list(q.shape), "kv": list(k.shape),
+                "group": H // K, "max_abs_err": err, "limit_used": used,
+                "mean_abs_plain": mean_p, "max_abs_plain": max_p,
+                "controls_limit_used": ctl}
+
+    for name in AUDIO_CALLS:
+        need(name in shapes, f"audio: no {name} call was recorded")
+        if name.endswith("decode"):
+            q, k, v, lengths, kw = shapes[name]
+            need(not kw.get("window"), f"audio {name}: window {kw}")
+
+            def kfn(q, k, v=v, lengths=lengths):
+                return decode_k(q, k, v, lengths)
+
+            def pfn(q, k, v=v, lengths=lengths):
+                return decode_ref(q, k, v, lengths)
+
+            controls = ({"newest key lost": lambda q=q, k=k, v=v, s=(
+                lengths - 1).clamp(min=1): decode_ref(q, k, v, s)}
+                        if name == "self decode" else {})
+        else:
+            q, k, v, kw = shapes[name]
+            causal, qoff = kw.get("causal", True), kw.get("q_offset", 0)
+            need(causal == (name == "self prefill") and not kw.get("window"),
+                 f"audio {name}: called with {kw}")
+
+            def kfn(q, k, v=v, kw=kw):
+                return flash_k(q, k, v, **kw)
+
+            def pfn(q, k, v=v, kw=kw):
+                return mha_ref(q, k, v, **kw)
+
+            Skv = k.shape[1]
+            if name == "encoder":
+                controls = {"a causal encoder": lambda q=q, k=k, v=v: mha_ref(
+                    q, k, v, causal=True)}
+            elif name == "cross prefill":
+                keep = Skv - (Skv % 128 or 128)
+                need(keep > 0, f"audio: {Skv} frames leave no whole block")
+                controls = {f"keys past {keep} dropped": lambda q=q, k=k,
+                            v=v, n=keep: mha_ref(q, k[:, :n], v[:, :n],
+                                                 causal=False)}
+            else:
+                controls = {"causal edge one key off": lambda q=q, k=k, v=v,
+                            o=qoff: mha_ref(q, k, v, causal=True,
+                                            q_offset=o - 1)}
+        out[name] = check(f"{name}, layer 0", q, k, kfn, pfn, controls)
+        out[name]["args"] = shapes[name]
+        if name.endswith("decode"):
+            out[name]["lengths"] = lengths.tolist()
+        if name == "cross decode":
+            ragged = lengths - torch.where(lengths % 64 > 0, lengths % 64, 64)
+            need(bool((ragged > 0).all()), f"audio: lengths "
+                 f"{lengths.tolist()} leave no whole 64-key block")
+            last = (lengths.long() - 1).clamp(min=0)
+            rows = torch.arange(q.shape[0], device=q.device)
+            kp = k.clone()  # the key of each sequence's last frame, per head
+            qf = q.float()
+            kp[rows, last] = (qf * (AUDIO_PLANT_SCORE * q.shape[-1] ** 0.5
+                                    / qf.square().sum(-1, keepdim=True))
+                              ).to(k.dtype)
+            lost = {"last frame lost (lengths - 1)": (lengths - 1).clamp(
+                min=1), "frames of the ragged last block lost": ragged}
+            out[name]["planted"] = check(
+                f"{name}, layer 0, last frame planted", q, kp, kfn, pfn,
+                {c: lambda q=q, kp=kp, v=v, n=n: decode_ref(q, kp, v, n)
+                 for c, n in lost.items()})
+            # the same two defects on the served inputs, recorded only
+            plain = pfn(q, k).float()
+            lim = attn_limit(plain, tol)
+            out[name]["unplanted_controls_limit_used"] = {
+                c: float(((decode_ref(q, k, v, n).float() - plain).abs()
+                          / lim).max()) for c, n in lost.items()}
+            del kp, plain, lim
+    return out
+
+
+def audio_timing(calls, rate, log=print):
+    """Each audio call (:func:`audio_calls`) timed on the card: the kernel
+    (device ms, CUDA-graph replay; kernel 4 with K/V out of L2,
+    :func:`cold_ms`, as a decode step finds them), the plain version,
+    and SDPA computing the same function (the flash backend, which takes
+    MHA at d 64 without a mask: the prefill calls, and the decode calls
+    over their one valid length), beside the bound: the larger of the
+    bytes (q and the output, each key's K and V once) over ``rate`` and
+    4·d operations a visible (query, key) pair a head over BF16_RATE.
+    Adds the numbers to each record and drops its ``args``."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    flash_k, decode_k = attn_counters()
+
+    def sdpa(q, k, v, causal):  # (B, S, H, d) in and out
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal).transpose(1, 2)
+
+    for name, rec in calls.items():
+        args = rec.pop("args")
+        if name.endswith("decode"):
+            q, k, v, lengths, _ = args
+            B, H, d = q.shape
+            lens = lengths.long().clamp(0, k.shape[1])
+            n = int(lens.max())
+            need(bool((lens == n).all()), f"audio {name}: lengths "
+                                          f"{lengths.tolist()} differ")
+            pairs, keys = int(lens.sum()), int(lens.sum())
+
+            def kfn():
+                return decode_k(q, k, v, lengths)
+
+            def pfn():
+                return decode_ref(q, k, v, lengths)
+
+            def lfn():
+                return sdpa(q[:, None], k[:, :n], v[:, :n], False)[:, 0]
+            timer = cold_ms
+        else:
+            q, k, v, kw = args
+            B, Sq, H, d = q.shape
+            Skv = k.shape[1]
+            causal = kw.get("causal", True)
+            need(not causal or (Sq == Skv and not kw.get("q_offset")),
+                 f"audio {name}: SDPA's causal mask needs Sq = Skv")
+            pairs = B * (visible_pairs(Sq, Skv, 0, 0) if causal
+                         else Sq * Skv)
+            keys = B * Skv
+
+            def kfn():
+                return flash_k(q, k, v, **kw)
+
+            def pfn():
+                return mha_ref(q, k, v, **kw)
+
+            def lfn():
+                return sdpa(q, k, v, causal)
+            timer = cuda_ms
+        K = k.shape[2]
+        moved = (2 * q.numel() * q.element_size()
+                 + 2 * keys * K * d * k.element_size())
+        ops = 4 * d * H * pairs
+        attn_compare(lfn(), pfn(), ATTN_TOL["bfloat16"],
+                     f"audio {name} library call")
+        t_bytes, t_ops = moved / rate, ops / BF16_RATE
+        rec.update({"ms": timer(kfn), "plain_ms": timer(pfn),
+                    "library_ms": timer(lfn), "library": "SDPA flash",
+                    "bound_ms": max(t_bytes, t_ops) * 1e3,
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations", "bytes": moved, "flop": ops})
+        if timer is cold_ms:
+            rec.update(timing="K/V out of L2", warm_ms=cuda_ms(kfn))
+        log(f"  audio {name}: " + json.dumps(rec))
+        del args
+        torch.cuda.empty_cache()
+    return calls
+
+
+def audio_serve(cfg, card, device="cuda", log=print):
+    """Phase 8c: the audio family (whisper) serving at ``cfg``'s width and
+    depth, random weights and seeded random frames (AUDIO_BATCH clips of
+    ``cfg.encoder_seq_len`` frames) from a seeded generator on the card,
+    ``BatchedServer`` answering AUDIO_REQUESTS prompts of AUDIO_PROMPT
+    tokens with AUDIO_NEW new tokens each at batch AUDIO_BATCH, the
+    frames in ``extra_inputs``.  Records prefill seconds split into the
+    encoder (:func:`timed_encoder`) and the decoder, decode seconds,
+    tokens/s, peak memory, finite logits and the launches of kernels 3
+    and 4 by route (on the card: every launch on SERVE_FLASH_ROUTE and
+    SERVE_DECODE_ROUTE, E + 2L kernel-3 launches a prefill and 2L kernel-4
+    launches a decode step); a second serve must give the same tokens;
+    kernels 3 and 4 at the five layer-0 calls against their plain
+    versions with wrong controls (:func:`audio_calls`); teacher forcing
+    within PARITY_TOL; a profile of one prefill and four decode steps.
+    Returns the record, with the calls' arguments for
+    :func:`audio_timing`; the model is freed."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import (
+        decode_step, init_model_params, init_serve_cache, model_schema,
+        prefill)
+    from repro_torch.models.layers import ParamDef
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = init_model_params(cfg, gen, device)
+    frames = torch.randn((AUDIO_BATCH, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+
+    def leaves(node):
+        if isinstance(node, ParamDef):
+            return int(np.prod(node.shape))
+        return sum(leaves(v) for v in node.values())
+
+    n_params = sum(p.numel() for p in model.parameters())
+    rec = {"arch": cfg.name, "encoder_layers": cfg.encoder_layers,
+           "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+           "frames": list(frames.shape), "params": n_params,
+           "param_count": cfg.param_count(), "init_s":
+           time.perf_counter() - t0, "card": card}
+    if on_card:
+        rec["weights_GB"] = torch.cuda.memory_allocated() / 1e9
+    need(n_params == leaves(model_schema(cfg)),
+         f"audio {cfg.name}: {n_params} parameters, its schema has "
+         f"{leaves(model_schema(cfg))}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, AUDIO_PROMPT).astype(np.int32)
+               for _ in range(AUDIO_REQUESTS)]
+    flash, decode = attn_counters()
+
+    def run():
+        srv = BatchedServer(model, batch_size=AUDIO_BATCH,
+                            max_len=AUDIO_PROMPT + AUDIO_NEW + 8)
+        srv.extra_inputs["frames"] = frames
+        done = srv.serve([Request(rid=i, tokens=p, max_new=AUDIO_NEW)
+                          for i, p in enumerate(prompts)])
+        return srv, [r.out for r in done]
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_attn_launches()
+    with timed_encoder() as enc_s, capture_audio_calls(cfg) as shapes:
+        srv, outs = run()
+    launches = {"flash_attention_cuda": flash.launches,
+                "decode_attention_cuda": decode.launches}
+    routes = {"flash_attention_cuda": dict(flash.launches_by_route),
+              "decode_attention_cuda": dict(decode.launches_by_route)}
+    st = srv.stats
+    n_batches = -(-AUDIO_REQUESTS // AUDIO_BATCH)
+    rec.update({
+        "prefill_s": st["prefill_s"], "encoder_s": sum(enc_s),
+        "decoder_prefill_s": st["prefill_s"] - sum(enc_s),
+        "decode_s": st["decode_s"], "tokens": st["tokens"],
+        "tokens_per_s": st["tokens"] / (st["prefill_s"] + st["decode_s"]),
+        "decode_tokens_per_s": AUDIO_REQUESTS * (AUDIO_NEW - 1)
+        / st["decode_s"], "finite": st["finite"],
+        "launches": launches, "launches_by_route": routes})
+    if on_card:
+        rec["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    need(len(enc_s) == n_batches, f"audio: {len(enc_s)} encoder runs")
+    need(len(outs) == AUDIO_REQUESTS, "audio: requests lost")
+    need(all(len(o) == AUDIO_NEW for o in outs), "audio: token counts")
+    need(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+         "audio: a padded vocab entry won")
+    need(st["finite"], "audio: non-finite logits")
+    if on_card:
+        n_flash = (cfg.encoder_layers + 2 * cfg.num_layers) * n_batches
+        n_decode = 2 * cfg.num_layers * (AUDIO_NEW - 1) * n_batches
+        fr = routes["flash_attention_cuda"]
+        dr = routes["decode_attention_cuda"]
+        need(fr.get(SERVE_FLASH_ROUTE) == launches["flash_attention_cuda"]
+             == n_flash, f"audio: the prefill's kernel-3 launches took the "
+                         f"routes {fr}, not all {n_flash} "
+                         f"{SERVE_FLASH_ROUTE}")
+        need(dr.get(SERVE_DECODE_ROUTE) == launches["decode_attention_cuda"]
+             == n_decode, f"audio: the decode launches took the routes "
+                          f"{dr}, not all {n_decode} {SERVE_DECODE_ROUTE}")
+    log(f"phase audio_serve: {json.dumps(rec)}")
+    rec["calls"] = audio_calls(shapes, log)
+    log("phase audio_attention_check: " + json.dumps(
+        {k: {kk: vv for kk, vv in c.items() if kk != "args"}
+         for k, c in rec["calls"].items()}))
+    shapes.clear()
+    srv2, outs2 = run()
+    need(outs2 == outs, "audio: a second serve gave other tokens")
+    rec["repeat"] = {"prefill_s": srv2.stats["prefill_s"],
+                     "decode_s": srv2.stats["decode_s"],
+                     "identical_tokens": True}
+    log(f"  first tokens: {[o[:8] for o in outs]}")
+    parity = parity_run(model, cfg, AUDIO_PROMPT, device,
+                        extra={"frames": frames[:1]})
+    rec["teacher_forcing"] = parity
+    log(f"phase audio_teacher_forcing: {json.dumps(parity)}")
+    # where the serving time goes: one prefill of the batch, four decode
+    # steps, under the profiler
+    B, S = AUDIO_BATCH, AUDIO_PROMPT
+    toks = np.stack(prompts[:B])
+    nxt = np.array([[o[0]] for o in outs[:B]], np.int32)
+    cache = init_serve_cache(cfg, B, S + 12, device=device)
+    rec["profile"] = {}
+
+    def run_prefill():
+        prefill(model, {"tokens": toks, "cache": cache, "frames": frames})
+
+    def run_decode():
+        for i in range(4):
+            decode_step(model, {"tokens": nxt, "cache": cache,
+                                "pos": np.full(B, S + i, np.int32)})
+
+    for name, fn in (("prefill", run_prefill), ("decode x4", run_decode)):
+        rec["profile"][name] = profile_window(name, fn, log,
+                                              phase="audio_serve_profile")
+    del model, srv, srv2, cache, frames
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 
 def split_sweep(decode_k, args, log=print, counts=(1, 2, 4, 8, 16)):
@@ -5883,7 +6354,32 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_recs = moe_serve(moe_cut_configs(), card, "cuda")
     print(f"phase moe_serve: {json.dumps({'seconds': time.perf_counter() - t0, 'card': card})}")
+    # 8c. the audio family serving, launches counted (inside audio_serve),
+    # then its five layer-0 calls timed
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    audio_cfg = get_config(AUDIO_ARCH)
+    print(f"audio path cuts: {{}} ({audio_cfg.name} at full width and "
+          f"depth: {audio_cfg.encoder_layers} encoder and "
+          f"{audio_cfg.num_layers} decoder layers)")
+    audio = audio_serve(audio_cfg, card, "cuda")
+    audio_timing(audio["calls"], rate)
+    print(f"phase audio: {json.dumps({'seconds': time.perf_counter() - t0, 'card': card})}")
     report += attention_report(shapes, launches, routes, card, rate)
+    audio_rows = {"flash_attention_cuda": AUDIO_CALLS[:3],
+                  "decode_attention_cuda": AUDIO_CALLS[3:]}
+    for rec in report:  # the audio phase's launches and calls
+        calls = audio_rows.get(rec["name"])
+        if calls:
+            rec["audio_launches"] = {
+                "launches": audio["launches"][rec["name"]],
+                "by_route": audio["launches_by_route"][rec["name"]]}
+            rec["audio_calls"] = {c: audio["calls"][c] for c in calls}
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                audio["calls"][c]["max_abs_err"] for c in calls])
+            rec["limit_used"] = max([rec["limit_used"]] + [
+                audio["calls"][c]["limit_used"] for c in calls])
     for rec in report:  # the MoE phase's launches, by model
         if rec["name"] in ("flash_attention_cuda", "decode_attention_cuda"):
             rec["moe_launches"] = {

@@ -1,5 +1,5 @@
 """Config registry: graph collections and the LM architectures of the
-families the port has a model for (dense, moe)."""
+families the port has a model for (dense, moe, audio)."""
 from __future__ import annotations
 
 import importlib
@@ -26,11 +26,11 @@ _ARCH_MODULES = {
     "starcoder2-7b": "starcoder2_7b",
     "dbrx-132b": "dbrx_132b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "whisper-medium": "whisper_medium",
 }
 # the reference's other architectures, by family, not ported yet
 _NOT_PORTED = {
     "paligemma-3b": "vlm",
-    "whisper-medium": "audio",
     "hymba-1.5b": "hybrid",
     "xlstm-1.3b": "ssm",
 }

@@ -2,8 +2,12 @@
 ``repro.kernels.decode_attention.ref``): one query token per sequence
 against a cache, the G = H/K queries of a KV head grouped, slots
 ``pos < lengths[b]`` valid and, with a window, ``pos > lengths[b] - 1 -
-window``; float32 logits, masked to -1e30, a full softmax, ``p`` cast to
-``v``'s type before ``p.v``."""
+window``; float32 logits, masked to -1e30, a full softmax.  Where ``v``
+is narrower than float32, ``p`` is rounded to ``v``'s type before ``p.v``
+as the kernel and the reference's ``chunked_attention`` round it:
+unnormalised, ``exp(s - max s)``, the row sum divided out after the
+product (the reference's ``decode_ref`` rounds the normalised ``p``, which
+differs by rounding only)."""
 from __future__ import annotations
 
 import math
@@ -33,6 +37,7 @@ def decode_ref(
     if window:
         ok &= pos > (lens - 1 - window)
     logits = logits.masked_fill(~ok[:, None, None, :], NEG_INF)
-    p = torch.softmax(logits, dim=-1).to(v.dtype).float()
-    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bkgs,bskd->bkgd", e.to(v.dtype).float(), v.float())
+    out = out / e.sum(dim=-1)[..., None]
     return out.reshape(B, H, d).to(q.dtype)

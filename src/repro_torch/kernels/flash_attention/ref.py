@@ -3,12 +3,17 @@
 
 ``mha_ref`` computes what the reference's ``mha_ref`` computes: float32
 logits ``q.k / sqrt(d)``, the causal and window masks from absolute
-positions set to -1e30, a full softmax, ``p`` cast to ``v``'s type before
-``p.v``.  Two differences of form, none of value: k/v may keep fewer heads
-than q (query head h reads KV head h // G, where the reference expands
-them first), and the queries go in chunks whose keys are restricted to
-those the mask lets any row of the chunk see, so that the logits of a
-long prompt never exist all at once.
+positions set to -1e30, a full softmax.  Two differences of form, none of
+value: k/v may keep fewer heads than q (query head h reads KV head h // G,
+where the reference expands them first), and the queries go in chunks
+whose keys are restricted to those the mask lets any row of the chunk
+see, so that the logits of a long prompt never exist all at once.  Where
+``v`` is narrower than float32, ``p`` is rounded to ``v``'s type before
+``p.v`` as the kernels and the reference's model path
+(``chunked_attention``) round it: unnormalised, ``exp(s - max s)``, the
+row sum taken in float32 and divided out after the product.  (The
+reference's ``mha_ref`` rounds the normalised ``p``; the two differ by
+rounding only, and in float32 not at all beyond it.)
 
 ``mha_bwd_ref`` is the plain version of the backward kernel
 (``bwd.py``): the explicit gradient formula in float32, recomputing the
@@ -69,8 +74,10 @@ def mha_ref(
             if causal:
                 lc = lc.masked_fill(~ok.any(dim=-1), float("-inf"))
             lse[..., i0:i1] = lc
-        p = torch.softmax(logits, dim=-1).to(v.dtype).float()
-        o = torch.einsum("bkgqs,bskd->bqkgd", p, vc.float())
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        o = torch.einsum("bkgqs,bskd->bqkgd", e.to(v.dtype).float(),
+                         vc.float())
+        o = o / e.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
         out[:, i0:i1] = o.reshape(B, i1 - i0, H, d).to(q.dtype)
     if return_lse:
         return out, lse.reshape(B, H, Sq)

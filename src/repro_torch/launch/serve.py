@@ -1,15 +1,22 @@
 """Serving driver: batched prefill + decode over a request queue
 (counterpart of ``repro.launch.serve``).
 
-Serves the dense and MoE families.  On the card, at full width::
+Serves the dense, MoE and audio families.  On the card, at full width::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
       --requests 4 --prompt-len 8192 --max-new 32 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --requests 8 --prompt-len 224 --max-new 64 --batch 8
 
 On the CPU, with a reduced config::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \\
       --reduced --device cpu
+
+The audio family (whisper) takes each batch's frame embeddings, the
+stub frontend's output (batch, encoder_seq_len, d_model), in
+``BatchedServer.extra_inputs["frames"]``; the CLI draws them from its
+seed on the device.
 
 A MoE config at full width does not fit one card at its published
 depth (dbrx-132b 132B parameters, llama4-maverick 400B); ``chip_smoke.py``
@@ -20,7 +27,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -50,7 +57,8 @@ class BatchedServer:
     first token's read-back) and ``decode_s`` on the host clock (each step
     ends in reading the new tokens, which waits for the device),
     ``tokens`` answered, and ``finite`` (every logit of every step
-    finite)."""
+    finite).  ``extra_inputs`` go to every prefill as they are (the audio
+    family's ``frames``, one row a slot)."""
 
     def __init__(self, model: DecoderLM, *, batch_size: int = 8,
                  max_len: int = 256):
@@ -62,6 +70,7 @@ class BatchedServer:
         self.decode = make_decode_step(model)
         self.stats: Dict[str, float] = {
             "prefill_s": 0.0, "decode_s": 0.0, "tokens": 0, "finite": True}
+        self.extra_inputs: Dict[str, Any] = {}
 
     def _pad_batch(self, reqs: List[Request]) -> torch.Tensor:
         S = max(len(r.tokens) for r in reqs)
@@ -85,7 +94,8 @@ class BatchedServer:
             B, S = toks.shape
             cache = init_serve_cache(self.cfg, B, self.max_len, device=dev)
             t0 = time.perf_counter()
-            logits, cache = self.prefill({"tokens": toks, "cache": cache})
+            logits, cache = self.prefill({"tokens": toks, "cache": cache,
+                                          **self.extra_inputs})
             finite = torch.isfinite(logits).all()
             nxt = greedy(logits)
             for r, t in zip(batch_reqs, nxt.tolist()):
@@ -135,6 +145,10 @@ def main() -> None:
     model = init_model_params(cfg, gen, device=dev)
     server = BatchedServer(model, batch_size=args.batch,
                            max_len=args.prompt_len + args.max_new + 8)
+    if cfg.family == "audio":  # the reference feeds zeros
+        server.extra_inputs["frames"] = torch.randn(
+            (args.batch, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+            device=dev)
     rng = np.random.default_rng(args.seed)
     reqs = [
         Request(rid=i,

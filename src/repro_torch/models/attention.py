@@ -1,6 +1,6 @@
 """GQA self-attention, with a KV cache (serving) or without (training),
-routed through the attention kernels (counterpart of
-``repro.models.attention``).
+and whisper's cross-attention, routed through the attention kernels
+(counterpart of ``repro.models.attention``).
 
 The reference computes attention with ``chunked_attention``, an
 online-softmax jnp path over KV chunks that its docstring calls
@@ -19,7 +19,16 @@ same function:
   its log-sum-exp, and its backward runs the flash backward kernel
   (``kernels/flash_attention/bwd.py``), the gradient the reference takes
   by differentiating ``chunked_attention``.  On CPU tensors both
-  directions run the plain versions.
+  directions run the plain versions;
+* non-causal, no cache (whisper's encoder, ``causal=False``): the flash
+  kernel over the layer's own K/V with no mask, no log-sum-exp and no
+  gradient (the audio family serves only; its training is ROADMAP.md
+  queue 1, item 9c);
+* cross-attention (``cross_kv``, whisper's decoder): q over the encoder's
+  K/V with no mask, MHA; the flash kernel for a prompt (``Sq > 1``), the
+  decode kernel for one token, with every ``lengths`` the encoder length
+  (its mask ``slot < length`` then keeps every slot).  The cross K/V come
+  from :func:`make_cross_kv` once a prompt and stay in the serving cache.
 
 The serving kernels take slot index as position, which holds in dense
 serving: slot i holds the token at position i, and the reference masks
@@ -219,14 +228,21 @@ def apply_attention(
     layer_cache: Optional[Dict[str, torch.Tensor]],
     window: Optional[int] = None,
     rope: bool = True,
+    causal: bool = True,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cross_len: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal self-attention through the attention kernels: over a KV cache
-    (serving), or without one over the layer's own tokens (training; the
-    caller passes positions ``arange(Sq)``, as ``models.model``'s
-    ``forward_train`` does).  Returns (output (B, Sq, d), the updated
-    layer cache, None without one).  Of the reference's options, only
-    those the dense family sets are ported: other families (logit
-    softcap, bidirectional prefix, cross-attention) and the
+    """Self- or cross-attention through the attention kernels.  Causal
+    self-attention over a KV cache (serving), or without one over the
+    layer's own tokens (training; the caller passes positions
+    ``arange(Sq)``, as ``models.model``'s ``forward_train`` does);
+    non-causal self-attention without a cache (``causal=False``, whisper's
+    encoder); cross-attention over ``cross_kv``, the encoder's (k, v),
+    each (B, Se, H, hd) (whisper's decoder; ``layer_cache`` is then None,
+    and ``cross_len``, the (B,) int32 encoder lengths for one-token
+    decode, is made here when not given).  Returns (output (B, Sq, d),
+    the updated layer cache, None without one).  Of the reference's
+    options, the logit softcap, the bidirectional prefix and the
     tensor-parallel decode wait in ROADMAP.md queue 1."""
     if cfg.attn_logit_softcap > 0.0:
         raise _not_ported("attention logit softcap", "9: other LM families")
@@ -235,13 +251,35 @@ def apply_attention(
     dt = x.dtype
 
     q = _split_heads(x @ p["wq"].to(dt), H, hd)
+    if rope:
+        q = apply_rope(q, positions, cfg)
+    if cross_kv is not None:
+        # the reference's chunked_attention(q, k, v, causal=False) over
+        # the stored cross K/V (bfloat16, whatever cfg.dtype is)
+        k, v = cross_kv
+        if Sq == 1:
+            if cross_len is None:
+                cross_len = torch.full((B,), k.shape[1], dtype=torch.int32,
+                                       device=q.device)
+            out = decode_attention_cuda(q[:, 0], k, v, cross_len)[:, None]
+        else:
+            out = flash_attention_cuda(q, k, v, causal=False)
+        y = out.reshape(B, Sq, H * hd) @ p["wo"].to(dt)
+        return y, None
     k = _split_heads(x @ p["wk"].to(dt), K, hd)
     v = _split_heads(x @ p["wv"].to(dt), K, hd)
     if rope:
-        q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
     win = int(window) if window is not None else 0
-    if layer_cache is None:
+    if not causal:
+        if layer_cache is not None or win:
+            raise ValueError("non-causal attention takes no cache and no "
+                             "window (whisper's encoder)")
+        if q.requires_grad:
+            raise _not_ported("the non-causal attention's gradient",
+                              "9c: the audio family's training")
+        out = flash_attention_cuda(q, k, v, causal=False)
+    elif layer_cache is None:
         out = FlashAttentionFn.apply(q, k, v, win)
     elif Sq == 1:
         layer_cache = cache_update(layer_cache, k, v, positions,
@@ -270,3 +308,15 @@ def apply_attention(
                                    window=win, q_offset=start)
     y = out.reshape(B, Sq, H * hd) @ p["wo"].to(dt)
     return y, layer_cache
+
+
+def make_cross_kv(p, enc_out: torch.Tensor, cfg
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's K/V for one decoder layer's cross-attention, computed
+    once a prompt (whisper): each (B, Se, H, hd) in ``enc_out``'s type,
+    MHA whatever ``cfg.num_kv_heads`` is (``attn_schema(cross=True)``)."""
+    H, hd = cfg.num_heads, cfg.head_dim
+    dt = enc_out.dtype
+    k = _split_heads(enc_out @ p["wk"].to(dt), H, hd)
+    v = _split_heads(enc_out @ p["wv"].to(dt), H, hd)
+    return k, v

@@ -1,5 +1,5 @@
-"""Parameter schemas and common layers: norms, MLPs, RoPE (counterpart of
-``repro.models.layers``).
+"""Parameter schemas and common layers: norms, MLPs, RoPE, sinusoidal
+positions (counterpart of ``repro.models.layers``).
 
 A schema is a nested dict of :class:`ParamDef`, the single source of truth
 for parameter shapes and init laws, as in the reference.  The reference
@@ -166,3 +166,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     y1 = (x1 * cos - x2 * sin).to(x.dtype)
     y2 = (x2 * cos + x1 * sin).to(x.dtype)
     return torch.cat([y1, y2, xp], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Sinusoidal positions (whisper)
+# --------------------------------------------------------------------------
+
+def sinusoidal_positions(max_len: int, d: int, device=None) -> torch.Tensor:
+    """(max_len, d) float32 table: ``sin(pos / 10000^(2i/d))`` in the even
+    columns, the cosines in the odd ones.  The cosines take
+    ``angle[:, :(d + 1) // 2]`` as the reference does, which fits the odd
+    columns only for an even ``d``."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10_000.0, dim / d)
+    pe = torch.zeros((max_len, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle[:, : (d + 1) // 2])
+    return pe

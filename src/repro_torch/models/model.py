@@ -1,19 +1,23 @@
-"""Decoder LM: parameters, the training forward, cache, prefill and
-decode (counterpart of ``repro.models.model``, dense and MoE families).
+"""Family dispatcher: parameters, the training forward, cache, prefill and
+decode (counterpart of ``repro.models.model``): the dense and MoE
+families (a :class:`DecoderLM`) serve and train, the audio family (an
+:class:`~repro_torch.models.encdec.EncDecLM`, whisper) serves.
 
 Public surface:
   model_schema(cfg)                        -> the reference's param schema
-  init_model_params(cfg, generator, device, trainable) -> DecoderLM,
+  init_model_params(cfg, generator, device, trainable) -> the model,
                                               random weights
-  params_from_numpy(tree, cfg, device, trainable) -> DecoderLM from the
+  params_from_numpy(tree, cfg, device, trainable) -> the model from the
                                               reference's parameter tree
   params_to_numpy(model)                   -> the reference's tree (numpy)
   train_leaves(model)                      -> the masters, by reference leaf
   opt_state_from_numpy / opt_state_to_numpy -> optimizer state <-> the
                                               reference's ``{mu, nu, step}``
   forward_train(model, batch)              -> (loss, metrics)
-  init_serve_cache(cfg, batch, max_len, dtype, device) -> KV cache
-  prefill(model, batch)                    -> (last-token logits, cache)
+  init_serve_cache(cfg, batch, max_len, dtype, device) -> KV cache (audio:
+                                              ``{"self", "cross"}``)
+  prefill(model, batch)                    -> (last-token logits, cache);
+                                              audio: ``batch["frames"]``
   decode_step(model, batch)                -> (logits, cache)
 
 The reference keeps float32 parameters and casts each matmul weight to
@@ -23,8 +27,8 @@ values; embed, head, norm parameters and the MoE router stay float32
 (routing runs in float32), and the head is applied in float32 as the
 reference's ``_masked_logits`` does.  A trainable model keeps every
 parameter a float32 master and casts at every use, as the reference
-does.  The mesh and the other families are not ported (ROADMAP.md queue
-1).
+does.  The mesh, the other families and the audio family's training are
+not ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -37,32 +41,51 @@ import torch
 from repro_torch.core.superstep import resolve_device
 from repro_torch.dist.sharding import (embed_lookup, lm_head_logits,
                                        lm_head_loss)
-from repro_torch.models import moe, transformer
+from repro_torch.models import encdec, moe, transformer
 from repro_torch.models.layers import ParamDef, apply_norm, init_leaf
 from repro_torch.models.transformer import DecoderLM
 
 # layer parameter groups that hold matmul weights (held in cfg.dtype),
 # all but the MoE router, which stays float32
-_MATMUL = ("attn", "mlp", "moe")
+_MATMUL = ("attn", "xattn", "mlp", "moe")
 _FLOAT32 = (("moe", "router"),)
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "audio")  # serving
+_TRAIN_FAMILIES = ("dense", "moe")
 
 
-def _check_family(cfg) -> None:
+def _check_family(cfg, train: bool = False) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md queue 1, item 9: other LM families)")
+    if train and cfg.family not in _TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's training is not ported "
+            f"yet (ROADMAP.md queue 1, item 9c: the audio family's "
+            f"training)")
 
 
 def model_schema(cfg) -> Any:
     _check_family(cfg)
+    if cfg.family == "audio":
+        return encdec.encdec_schema(cfg)
     return transformer.decoder_schema(cfg)
+
+
+def _stacks(cfg) -> List[Tuple[str, List[Tuple[str, Tuple[int, ...]]],
+                               bool]]:
+    """The layer stacks of the reference's tree: (key, the layers in the
+    order they run as (kind, stacked index) pairs, cross-attention)."""
+    if cfg.family == "audio":
+        return [("enc_groups", [("dense", (i,))
+                                for i in range(cfg.encoder_layers)], False),
+                ("dec_groups", transformer.layer_slots(cfg), True)]
+    return [("groups", transformer.layer_slots(cfg), False)]
 
 
 def _build(cfg, leaf: Callable[[Tuple, ParamDef], torch.Tensor],
            trainable: bool = False) -> DecoderLM:
-    """DecoderLM from ``leaf(path, ParamDef)`` -> float32 tensor, one leaf
+    """The model from ``leaf(path, ParamDef)`` -> float32 tensor, one leaf
     at a time.  A path is the leaf's keys in the reference's tree, then
     its stacked indices (:func:`transformer.layer_slots`); an expert stack
     is made one expert at a time (the path ends in the expert's index,
@@ -72,29 +95,40 @@ def _build(cfg, leaf: Callable[[Tuple, ParamDef], torch.Tensor],
     sch = model_schema(cfg)
     dt = torch.float32 if trainable else getattr(torch, cfg.dtype)
     embed = leaf(("embed",), sch["embed"])
-    layers = []
-    for kind, idx in transformer.layer_slots(cfg):
-        layer = {}
-        for grp, defs in transformer.layer_schema(cfg, kind=kind).items():
-            layer[grp] = {}
-            for name, pd in defs.items():
-                path = ("groups", kind, grp, name) + idx
-                want = (dt if grp in _MATMUL and (grp, name) not in _FLOAT32
-                        else torch.float32)
-                if grp == "moe" and name in moe.EXPERT_STACKS:
-                    t = torch.empty(pd.shape, dtype=want,
-                                    device=embed.device)
-                    one = dataclasses.replace(pd, shape=pd.shape[1:],
-                                              axes=pd.axes[1:])
-                    for e in range(pd.shape[0]):
-                        t[e] = leaf(path + (e,), one)
-                else:
-                    t = leaf(path, pd).to(want)
-                layer[grp][name] = t
-        layers.append(layer)
+    stacks = {key: [_build_layer(cfg, leaf, key, kind, idx, cross, dt,
+                                 embed.device) for kind, idx in slots]
+              for key, slots, cross in _stacks(cfg)}
     ln_f = {n: leaf(("ln_f", n), pd) for n, pd in sch["ln_f"].items()}
     head = None if cfg.tie_embeddings else leaf(("head",), sch["head"])
-    return DecoderLM(cfg, embed, layers, ln_f, head, trainable=trainable)
+    if cfg.family == "audio":
+        enc_ln_f = {n: leaf(("enc_ln_f", n), pd)
+                    for n, pd in sch["enc_ln_f"].items()}
+        return encdec.EncDecLM(cfg, embed, stacks["enc_groups"], enc_ln_f,
+                               stacks["dec_groups"], ln_f, head, trainable)
+    return DecoderLM(cfg, embed, stacks["groups"], ln_f, head,
+                     trainable=trainable)
+
+
+def _build_layer(cfg, leaf, key, kind, idx, cross, dt, device):
+    """One layer's tensors, ``{group: {name: tensor}}`` (:func:`_build`)."""
+    layer = {}
+    for grp, defs in transformer.layer_schema(cfg, kind=kind,
+                                              cross=cross).items():
+        layer[grp] = {}
+        for name, pd in defs.items():
+            path = (key, kind, grp, name) + idx
+            want = (dt if grp in _MATMUL and (grp, name) not in _FLOAT32
+                    else torch.float32)
+            if grp == "moe" and name in moe.EXPERT_STACKS:
+                t = torch.empty(pd.shape, dtype=want, device=device)
+                one = dataclasses.replace(pd, shape=pd.shape[1:],
+                                          axes=pd.axes[1:])
+                for e in range(pd.shape[0]):
+                    t[e] = leaf(path + (e,), one)
+            else:
+                t = leaf(path, pd).to(want)
+            layer[grp][name] = t
+    return layer
 
 
 def init_model_params(cfg, generator: torch.Generator = None,
@@ -115,13 +149,16 @@ def init_model_params(cfg, generator: torch.Generator = None,
 
 def params_from_numpy(tree: Dict, cfg, device="cuda",
                       trainable: bool = False) -> DecoderLM:
-    """DecoderLM from the reference's parameter tree as numpy arrays:
+    """The model from the reference's parameter tree as numpy arrays:
     ``embed``, ``groups`` (dense family: ``groups.dense.{ln1, attn.{wq, wk,
     wv, wo}, ln2, mlp.{wi, wo}}`` stacked over the layers; MoE family:
     ``groups.moe.{ln1, attn, ln2, moe.{router, wi, wo[, shared_wi,
     shared_wo]}}`` stacked over the groups and ``groups.dense`` over
-    (groups, moe_every - 1)), ``ln_f`` and ``head``.  ``trainable``
-    builds float32 masters that require gradients."""
+    (groups, moe_every - 1)), ``ln_f`` and ``head``; the audio family has
+    ``enc_groups.dense`` (stacked over the encoder layers) and
+    ``enc_ln_f`` and, in place of ``groups``, ``dec_groups.dense`` with
+    ``ln_x`` and ``xattn``.  ``trainable`` builds float32 masters that
+    require gradients."""
     dev = resolve_device(device)
     sch = model_schema(cfg)
 
@@ -147,8 +184,13 @@ def stack_dims(cfg, name: str) -> Tuple[int, ...]:
     """The stacked (leading) dims of the leaf ``name`` (keys joined by
     ``/``) of the reference's tree: ``(layers,)`` for the dense family's
     ``groups/dense``, ``(groups,)`` for ``groups/moe`` and ``(groups,
-    moe_every - 1)`` for the MoE family's ``groups/dense``; ``()`` for a
-    leaf outside ``groups``."""
+    moe_every - 1)`` for the MoE family's ``groups/dense``; the audio
+    family's ``(encoder layers,)`` for ``enc_groups`` and ``(layers,)``
+    for ``dec_groups``; ``()`` for a leaf outside the layer stacks."""
+    if name.startswith("enc_groups/"):
+        return (cfg.encoder_layers,)
+    if name.startswith("dec_groups/"):
+        return (cfg.num_layers,)
     if not name.startswith("groups/"):
         return ()
     n_groups, n_dense, has_moe = transformer._group_structure(cfg)
@@ -160,8 +202,9 @@ def stack_dims(cfg, name: str) -> Tuple[int, ...]:
 def train_leaves(model: DecoderLM) -> List[Tuple[str, List[torch.Tensor]]]:
     """The parameters by leaf of the reference's tree, in the order its
     checkpoints flatten it (keys sorted): ``(name, tensors)`` with the
-    name's keys joined by ``/`` and, for a leaf stacked under ``groups``,
-    one tensor per layer in the row-major order of its stacked dims
+    name's keys joined by ``/`` and, for a leaf of a layer stack
+    (``groups``; the audio family's ``enc_groups``, ``dec_groups``), one
+    tensor per layer in the row-major order of its stacked dims
     (:func:`stack_dims`), else one.  The optimizer state's lists follow
     the concatenated order."""
     out = []
@@ -169,11 +212,13 @@ def train_leaves(model: DecoderLM) -> List[Tuple[str, List[torch.Tensor]]]:
     def walk(node, path):
         if isinstance(node, ParamDef):
             name = "/".join(path)
-            if path[0] == "groups":
+            if path[0] in ("groups", "dec_groups", "enc_groups"):
+                layers = (model.enc_layers if path[0] == "enc_groups"
+                          else model.stacked_layers(path[1]))
                 out.append((name, [getattr(layer, path[2])[path[3]]
-                                   for layer in model.stacked_layers(path[1])]))
-            elif path[0] == "ln_f":
-                out.append((name, [model.ln_f[path[1]]]))
+                                   for layer in layers]))
+            elif path[0] in ("ln_f", "enc_ln_f"):
+                out.append((name, [getattr(model, path[0])[path[1]]]))
             else:
                 out.append((name, [getattr(model, path[0])]))
             return
@@ -192,7 +237,7 @@ def flat_leaves(model: DecoderLM) -> Tuple[List[torch.Tensor], List[bool]]:
     for name, ts in train_leaves(model):
         for t in ts:
             params.append(t)
-            decay.append(name.startswith("groups/") or t.ndim >= 2)
+            decay.append(bool(stack_dims(model.cfg, name)) or t.ndim >= 2)
     return params, decay
 
 
@@ -274,7 +319,7 @@ def forward_train(model: DecoderLM, batch: Dict[str, Any]
     times the MoE layers' summed load-balance loss.  Returns (loss,
     ``{"loss", "ce", "aux"}``); ``aux`` is 0 for the dense family."""
     cfg = model.cfg
-    _check_family(cfg)
+    _check_family(cfg, train=True)
     dt = getattr(torch, cfg.dtype)
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     labels = torch.as_tensor(batch["labels"], device=model.device)
@@ -290,7 +335,13 @@ def forward_train(model: DecoderLM, batch: Dict[str, Any]
 
 def init_serve_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                      device="cuda") -> Dict:
+    """The family's serving cache on ``device`` (the card unless the
+    caller asks for the CPU): the KV cache of :func:`transformer.init_cache`;
+    for the audio family ``{"self": that cache, "cross": (k, v)}``
+    (:func:`encdec.init_encdec_cache`)."""
     _check_family(cfg)
+    if cfg.family == "audio":
+        return encdec.init_encdec_cache(cfg, batch, max_len, dtype, device)
     return transformer.init_cache(cfg, batch, max_len, dtype, device)
 
 
@@ -300,17 +351,29 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def prefill(model: DecoderLM, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
     """Fill the cache from a prompt.  batch: ``tokens`` (B, S) and a
-    ``cache`` from :func:`init_serve_cache`, written in place.  Returns
-    (last-token float32 logits (B, 1, Vp), cache)."""
+    ``cache`` from :func:`init_serve_cache`, written in place; for the
+    audio family also ``frames`` (B, Se, d), run through the encoder once,
+    whose cross K/V go into ``cache["cross"]``.  Returns (last-token
+    float32 logits (B, 1, Vp), cache)."""
     cfg = model.cfg
     dt = getattr(torch, cfg.dtype)
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     cache = batch["cache"]
     B, S = tokens.shape
-    x = embed_lookup(model.embed, tokens).to(dt)
     pos = _positions(B, S, model.device)
-    x, cache, _ = transformer.apply_stack(model, x, positions=pos,
-                                          cache=cache)
+    if cfg.family == "audio":
+        frames = torch.as_tensor(batch["frames"], device=model.device)
+        enc_out = encdec.encode(model, frames.to(dt))
+        encdec.cross_kv_all_layers(model, enc_out, out=cache["cross"])
+        del enc_out
+        x = encdec.decoder_embed(model, tokens, pos).to(dt)
+        x, _, _ = encdec.decode_stack(model, x, positions=pos,
+                                      cross_kv=cache["cross"],
+                                      cache=cache["self"])
+    else:
+        x = embed_lookup(model.embed, tokens).to(dt)
+        x, cache, _ = transformer.apply_stack(model, x, positions=pos,
+                                              cache=cache)
     x_last = apply_norm(model.ln_f, x[:, -1:], cfg)
     logits = lm_head_logits(x_last, model.head, valid_vocab=cfg.vocab_size)
     return logits, cache
@@ -324,9 +387,16 @@ def decode_step(model: DecoderLM, batch: Dict[str, Any]) -> Tuple[torch.Tensor, 
     dt = getattr(torch, cfg.dtype)
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     pos = torch.as_tensor(batch["pos"], device=model.device)[:, None]
-    x = embed_lookup(model.embed, tokens).to(dt)
-    x, cache, _ = transformer.apply_stack(model, x, positions=pos,
-                                          cache=batch["cache"])
+    cache = batch["cache"]
+    if cfg.family == "audio":
+        x = encdec.decoder_embed(model, tokens, pos).to(dt)
+        x, _, _ = encdec.decode_stack(model, x, positions=pos,
+                                      cross_kv=cache["cross"],
+                                      cache=cache["self"])
+    else:
+        x = embed_lookup(model.embed, tokens).to(dt)
+        x, cache, _ = transformer.apply_stack(model, x, positions=pos,
+                                              cache=cache)
     x = apply_norm(model.ln_f, x, cfg)
     logits = lm_head_logits(x, model.head, valid_vocab=cfg.vocab_size)
     return logits, cache

@@ -1,4 +1,5 @@
-"""Decoder-only transformer stack, dense and MoE families (counterpart of
+"""Transformer layer stack, dense and MoE families, and the layers of
+whisper's encoder and decoder (counterpart of
 ``repro.models.transformer``).
 
 The reference stores the layers stacked and runs them under ``lax.scan``,
@@ -6,8 +7,9 @@ the MoE family over groups of ``moe_every - 1`` dense layers and one MoE
 layer; here each layer is a module in an ``nn.ModuleList``, in the order
 they run (:func:`layer_slots`), and the stack is a loop.  A layer keeps
 the reference's parameter names (``ln1``, ``attn``, ``ln2``, ``mlp`` or
-``moe``) as ``nn.ParameterDict``s, so the layer functions take them as
-the reference's take its dicts.
+``moe``, and a decoder layer of whisper's ``ln_x``, ``xattn``) as
+``nn.ParameterDict``s, so the layer functions take them as the
+reference's take its dicts.
 
 Two builds of :class:`DecoderLM`: for serving, matmul weights held in
 ``cfg.dtype`` with no gradient; trainable, every parameter a float32
@@ -33,7 +35,7 @@ from repro_torch.models.layers import (
     ParamDef, apply_mlp, apply_norm, mlp_schema, norm_schema, stacked)
 
 
-def layer_schema(cfg, *, kind: str = "dense") -> Dict:
+def layer_schema(cfg, *, kind: str = "dense", cross: bool = False) -> Dict:
     sch = {
         "ln1": norm_schema(cfg),
         "attn": attn.attn_schema(cfg),
@@ -43,6 +45,9 @@ def layer_schema(cfg, *, kind: str = "dense") -> Dict:
         sch["moe"] = moe_mod.moe_schema(cfg)
     else:
         sch["mlp"] = mlp_schema(cfg)
+    if cross:
+        sch["ln_x"] = norm_schema(cfg)
+        sch["xattn"] = attn.attn_schema(cfg, cross=True)
     return sch
 
 
@@ -59,10 +64,10 @@ def _group_structure(cfg) -> Tuple[int, int, bool]:
     return cfg.num_layers, 1, False
 
 
-def group_schema(cfg) -> Dict:
+def group_schema(cfg, *, cross: bool = False) -> Dict:
     _, n_dense, has_moe = _group_structure(cfg)
     if not has_moe:
-        return {"dense": layer_schema(cfg, kind="dense")}
+        return {"dense": layer_schema(cfg, kind="dense", cross=cross)}
     sch = {"moe": layer_schema(cfg, kind="moe")}
     if n_dense:
         sch["dense"] = stacked(layer_schema(cfg, kind="dense"), n_dense)
@@ -111,8 +116,9 @@ def _param_dict(tensors: Dict[str, torch.Tensor],
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm layer: ``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``,
-    or ``+ moe(ln2(x))`` for a MoE layer (``kind``)."""
+    """One pre-norm layer: ``x + attn(ln1(x))``, with cross-attention
+    (``xattn``, whisper's decoder) ``+ xattn(ln_x(x))``, then ``+
+    mlp(ln2(x))``, or ``+ moe(ln2(x))`` for a MoE layer (``kind``)."""
 
     def __init__(self, tensors: Dict[str, Dict[str, torch.Tensor]],
                  trainable: bool = False):
@@ -125,6 +131,10 @@ class DecoderLayer(nn.Module):
             self.moe = _param_dict(tensors["moe"], trainable)
         else:
             self.mlp = _param_dict(tensors["mlp"], trainable)
+        self.cross = "xattn" in tensors
+        if self.cross:
+            self.ln_x = _param_dict(tensors["ln_x"], trainable)
+            self.xattn = _param_dict(tensors["xattn"], trainable)
 
 
 class DecoderLM(nn.Module):
@@ -161,16 +171,26 @@ class DecoderLM(nn.Module):
 
 def apply_layer(layer: DecoderLayer, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, window: Optional[int],
-                layer_cache: Optional[Dict[str, torch.Tensor]]):
-    """One transformer layer.  Returns (x, updated layer cache (None
-    without a cache), a MoE layer's aux loss (float32 scalar) in training;
-    None for a dense layer and under a cache, where serving would discard
-    it, so that neither adds a launch)."""
+                layer_cache: Optional[Dict[str, torch.Tensor]],
+                causal: bool = True, cross_kv=None, cross_len=None):
+    """One transformer layer; with ``cross_kv`` (the encoder's (k, v) for
+    this layer) the cross-attention step after self-attention.  Returns
+    (x, updated layer cache (None without a cache), a MoE layer's aux loss
+    (float32 scalar) in training; None for a dense layer and under a
+    cache, where serving would discard it, so that neither adds a
+    launch)."""
     h = apply_norm(layer.ln1, x, cfg)
     a, layer_cache = attn.apply_attention(
         layer.attn, h, cfg, positions=positions, window=window,
-        layer_cache=layer_cache, rope=(cfg.pos_embed == "rope"))
+        layer_cache=layer_cache, rope=(cfg.pos_embed == "rope"),
+        causal=causal)
     x = x + a
+    if cross_kv is not None:
+        hx = apply_norm(layer.ln_x, x, cfg)
+        c, _ = attn.apply_attention(
+            layer.xattn, hx, cfg, positions=positions, layer_cache=None,
+            rope=False, cross_kv=cross_kv, cross_len=cross_len)
+        x = x + c
     h = apply_norm(layer.ln2, x, cfg)
     if layer.kind == "moe":
         m, aux = moe_mod.moe_apply(layer.moe, h, cfg,
@@ -207,12 +227,17 @@ def _remat(fn, cfg):
 
 
 def apply_stack(model: DecoderLM, x: torch.Tensor, *,
-                positions: torch.Tensor, cache: Optional[Dict] = None):
+                positions: torch.Tensor, cache: Optional[Dict] = None,
+                causal: bool = True, cross_kv=None, layers=None):
     """Run the layers in order (:func:`layer_slots`).  Serving: over a
-    cache nested as the reference's (``init_cache``), updated in place.
-    Training (no cache): every layer under the config's remat policy
-    (``_remat``).  Returns (x, cache, the layers' summed aux loss); the
-    aux loss only in training (None with a cache: serving discards it)."""
+    cache nested as the reference's (``init_cache``), updated in place,
+    with ``cross_kv`` (whisper's decoder) the encoder's (k, v) stacked
+    over the layers, each (L, B, Se, H, hd).  Without a cache (training,
+    or ``layers=model.enc_layers`` with ``causal=False``, whisper's
+    encoder), every layer under the config's remat policy (``_remat``)
+    where autograd records.  Returns (x, cache, the layers' summed aux
+    loss); the aux loss only without a cache (None with one: serving
+    discards it)."""
     cfg = model.cfg
     window = cfg.sliding_window or None
     if cache is None:
@@ -220,19 +245,28 @@ def apply_stack(model: DecoderLM, x: torch.Tensor, *,
 
         def one(layer, xc):
             y, _, a = apply_layer(layer, xc, cfg, positions=positions,
-                                  window=window, layer_cache=None)
+                                  window=window, layer_cache=None,
+                                  causal=causal)
             return y, a
 
-        fn = _remat(one, cfg)
-        for layer in model.layers:
+        fn = _remat(one, cfg) if torch.is_grad_enabled() else one
+        for layer in (model.layers if layers is None else layers):
             x, a = fn(layer, x)
             if a is not None:
                 aux = aux + a
         return x, None, aux
+    cross_len = None
+    if cross_kv is not None and x.shape[1] == 1:  # decode: all Se slots
+        B, Se = cross_kv[0].shape[1:3]
+        cross_len = torch.full((B,), Se, dtype=torch.int32, device=x.device)
     for layer, (kind, idx) in zip(model.layers, model.slots):
         layer_cache = {n: t[idx] for n, t in cache[kind].items()}
+        lcross = (None if cross_kv is None
+                  else (cross_kv[0][idx], cross_kv[1][idx]))
         x, _, _ = apply_layer(layer, x, cfg, positions=positions,
-                              window=window, layer_cache=layer_cache)
+                              window=window, layer_cache=layer_cache,
+                              causal=causal, cross_kv=lcross,
+                              cross_len=cross_len)
     return x, cache, None
 
 

@@ -1,6 +1,6 @@
 """Serving steps: prefill, single-token decode with greedy choice, and a
-generate loop (counterpart of ``repro.train.serve_step``), for the dense
-and MoE families.
+generate loop (counterpart of ``repro.train.serve_step``), for the dense,
+MoE and audio families.
 
 The reference compiles each step with ``jax.jit`` around ``(params,
 batch)``; PyTorch runs eagerly, so a step here is a closure over the
@@ -10,7 +10,7 @@ model.  Greedy decoding takes ``argmax`` (the first index on ties, as
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -58,13 +58,16 @@ def generate(
     max_len: Optional[int] = None,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    extra_inputs: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
-    """Greedy/temperature generation.  Returns (B, max_new_tokens) int32."""
+    """Greedy/temperature generation; ``extra_inputs`` go to the prefill
+    (the audio family's ``frames``).  Returns (B, max_new_tokens) int32."""
     prompt_tokens = torch.as_tensor(prompt_tokens, device=model.device)
     B, S = prompt_tokens.shape
     max_len = max_len or (S + max_new_tokens + 8)
     cache = init_serve_cache(model.cfg, B, max_len, device=model.device)
-    logits, cache = prefill(model, {"tokens": prompt_tokens, "cache": cache})
+    logits, cache = prefill(model, {"tokens": prompt_tokens, "cache": cache,
+                                    **(extra_inputs or {})})
     toks = [sample(logits, temperature, generator)]
     for i in range(max_new_tokens - 1):
         pos = torch.full((B,), S + i, dtype=torch.int32, device=model.device)

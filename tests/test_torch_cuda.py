@@ -411,6 +411,12 @@ def _cache_slices(cuda, B, Skv, K, d, dt, seed, spare=37):
     (1, 40, 1000, 9, 1, 128, True, 700, 960),  # one ragged query block
     (2, 300, 300, 48, 8, 128, True, 0, 0),  # G = 6 (dbrx-132b), no window
     (1, 257, 257, 40, 8, 128, True, 0, 0),  # G = 5 (llama4-maverick)
+    # whisper-medium: MHA (G = 1), d 64, non-causal over 1,500 frames (a
+    # ragged last block of 92 keys): the encoder, the cross prefill of a
+    # 224-token prompt and of the 4-token start prompt
+    (2, 1500, 1500, 16, 16, 64, False, 0, 0),
+    (2, 224, 1500, 16, 16, 64, False, 0, 0),
+    (3, 4, 1500, 16, 16, 64, False, 0, 0),
 ])
 def test_flash_wgmma_matches_plain(cuda, case):
     from repro_torch.kernels.flash_attention.kernel import (
@@ -514,6 +520,10 @@ def test_decode_kernel_matches_plain(cuda, case):
     (40, 200, 16, 4, 64, 0, None),  # B*K = 160 > SMs: one split
     (4, 3000, 48, 8, 128, 0, [3000, 2999, 1, 1700]),  # G = 6, no window
     (4, 2100, 40, 8, 128, 0, [2100, 65, 1, 2000]),  # G = 5, no window
+    # whisper-medium's cross decode: G = 1, d 64, every length 1,500 (not
+    # a whole number of 64-key blocks), and a split case
+    (8, 1500, 16, 16, 64, 0, [1500] * 8),
+    (2, 1500, 16, 16, 64, 0, [1500, 1499]),
 ])
 def test_decode_ring_matches_plain(cuda, case):
     from repro_torch.kernels.decode_attention.kernel import (
@@ -680,6 +690,60 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch, dtype, tol):
                                    atol=tol)
     assert flash_attention_cuda.launches == before[0] + cfg.num_layers
     assert decode_attention_cuda.launches == before[1] + 3 * cfg.num_layers
+
+
+def test_reduced_audio_serving_on_card_matches_cpu(cuda):
+    """whisper-medium's reduced config at head dim 64 (so that the bf16
+    calls take the serving routes): frames through the encoder, a prefill
+    and two decode steps on the card (kernel 3 non-causal in the encoder
+    and cross-attention, causal in self-attention; kernel 4 over the
+    self cache and the cross K/V) == the same model on the CPU (plain
+    versions) within 5e-2, with E + 2L kernel-3 launches on the wgmma
+    route and 2L kernel-4 launches a step on the ring route."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.models import (
+        decode_step, init_model_params, init_serve_cache, prefill)
+
+    cfg = get_config("whisper-medium").reduced().with_overrides(
+        head_dim=64, encoder_seq_len=150)
+    cpu = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = init_model_params(cfg, torch.Generator().manual_seed(0),
+                             "cpu").to(cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 2)).astype(np.int32)
+    frames = rng.normal(size=(2, 150, cfg.d_model)).astype(np.float32)
+    f0 = dict(flash_attention_cuda.launches_by_route)
+    d0 = dict(decode_attention_cuda.launches_by_route)
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        cache = init_serve_cache(cfg, 2, 30, device=dev)
+        logits, cache = prefill(model, {"tokens": toks, "cache": cache,
+                                        "frames": frames})
+        steps = [logits.cpu()]
+        for i in range(2):
+            logits, cache = decode_step(model, {
+                "tokens": nxt[:, i:i + 1], "pos": np.full(2, 20 + i,
+                                                          np.int32),
+                "cache": cache})
+            steps.append(logits.cpu())
+        out.append(steps)
+    for a, b in zip(*out):
+        assert torch.isfinite(b).all()
+        torch.testing.assert_close(b[..., :cfg.vocab_size],
+                                   a[..., :cfg.vocab_size], rtol=5e-2,
+                                   atol=5e-2)
+    f1 = flash_attention_cuda.launches_by_route
+    d1 = decode_attention_cuda.launches_by_route
+    assert {r: f1[r] - f0[r] for r in f1} == {
+        r: (cfg.encoder_layers + 2 * cfg.num_layers) * (r == "bf16_wgmma")
+        for r in f1}
+    assert {r: d1[r] - d0[r] for r in d1} == {
+        r: 4 * cfg.num_layers * (r == "bf16_ring") for r in d1}
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,8 @@ def _np(x):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["mistral-large-123b", "dbrx-132b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "whisper-medium"])
 def test_configs_match_reference(arch):
     ours, ref = configs.get_config(arch), j_configs.get_config(arch)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)

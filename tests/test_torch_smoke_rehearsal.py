@@ -237,3 +237,55 @@ def test_moe_train_phase_on_the_cpu(smoke, monkeypatch):
     # check, the op count
     assert sum(ln.startswith("phase moe_train_") for ln in log) == 5 * len(
         small)
+
+
+def test_audio_serve_phase_on_the_cpu(smoke, monkeypatch):
+    """The smoke's audio phase (``audio_serve``, phase 8c) at whisper's
+    reduced config on the CPU, with 150 frames so that the last key block
+    is ragged as the card's 1,500 are: the serve and its repeat (two
+    batches, the encoder timed once each), the five layer-0 calls against
+    the plain versions with their controls (a causal encoder, the ragged
+    block dropped, the causal edge, the newest key lost, the wrong KV
+    heads: MHA in cross-attention, G = 2 in the reduced self-attention),
+    the cross decode again with its last frame planted on the queries
+    and that frame or its ragged block lost, teacher forcing, the profile
+    windows; only the
+    launch counts and the timing (``audio_timing``) are left to the card,
+    whose run keeps whisper-medium's full width and depth."""
+    from repro_torch.configs import get_config
+
+    full = get_config(smoke.AUDIO_ARCH)
+    assert (full.encoder_layers, full.num_layers, full.encoder_seq_len) == (
+        24, 24, 1500)
+    assert (smoke.AUDIO_REQUESTS, smoke.AUDIO_BATCH, smoke.AUDIO_PROMPT,
+            smoke.AUDIO_NEW) == (8, 8, 224, 64)
+    assert smoke.AUDIO_PROMPT + smoke.AUDIO_NEW <= 448  # n_text_ctx
+    for name, value in (("AUDIO_REQUESTS", 3), ("AUDIO_BATCH", 2),
+                        ("AUDIO_PROMPT", 10), ("AUDIO_NEW", 3)):
+        monkeypatch.setattr(smoke, name, value)
+    cfg = full.reduced().with_overrides(encoder_seq_len=150)
+    log = []
+    rec = smoke.audio_serve(cfg, "cpu", device="cpu", log=log.append)
+    assert rec["tokens"] == 3 * 3 and rec["finite"]
+    assert rec["encoder_s"] > 0 and len(rec["profile"]) == 2
+    assert rec["repeat"]["identical_tokens"]
+    assert rec["teacher_forcing"]["max_abs_err"] <= smoke.PARITY_TOL
+    calls = rec["calls"]
+    assert list(calls) == list(smoke.AUDIO_CALLS)
+    B, H, K, d = 2, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    assert calls["encoder"]["q"] == calls["encoder"]["kv"][:2] + [H, d] == [
+        B, 150, H, d]
+    assert calls["cross prefill"]["q"] == [B, 10, H, d]
+    assert calls["cross prefill"]["kv"] == [B, 150, H, d]
+    assert calls["cross decode"]["lengths"] == [150] * B
+    assert calls["self decode"]["lengths"] == [11] * B
+    assert [calls[c]["group"] for c in smoke.AUDIO_CALLS] == [
+        H // K, H // K, 1, H // K, 1]
+    planted = calls["cross decode"]["planted"]
+    assert [len(c["controls_limit_used"]) for c in calls.values()] + [
+        len(planted["controls_limit_used"])] == [2, 2, 2, 2, 1, 3]
+    for c in list(calls.values()) + [planted]:
+        assert c["limit_used"] <= 1.0
+        assert min(c["controls_limit_used"].values()) > 1.0
+    # serve, the attention check, teacher forcing, two profile windows
+    assert sum(ln.startswith("phase audio_") for ln in log) == 5
