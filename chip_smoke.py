@@ -246,7 +246,10 @@ Phases (any failure exits non-zero before the result lines):
    for bit and deleted; NaN masters skipped with the state bitwise
    unchanged.  Then (``train_kernel_report``) the flash backward against
    its plain version over BWD_CASES within :func:`grad_limit` (its three
-   routes, each case on the route its dtype and head dim pick), each case
+   routes, each case on the route its dtype and head dim pick; causal
+   and windowed cases, and cases without the mask at whisper's shapes,
+   Sq = Skv = 1,500 and 448 or 9 over 1,500, and on the other routes),
+   each case
    launched twice bit for bit, kernel 3's ``lse`` output (the output bit
    for bit the output without it, ``lse`` within 1e-5 of the plain
    log-sum-exp), two wrong backwards (no window mask, no D term) that
@@ -278,12 +281,34 @@ Phases (any failure exits non-zero before the result lines):
    drops, with two wrong controls; and the policy's recompute by op
    count against ``remat="none"`` (under ``dots`` the experts' ``bmm``s
    and kernel 3 again, no ``mm``);
+11c. audio training (``audio_train_path``): whisper-medium at full width
+   and depth (24 encoder and 24 decoder layers, 811,323,392 parameters),
+   weights from seed 0, bf16 compute over float32 masters and moments,
+   ``remat="full"``, through ``make_train_step`` for 3 steps of 4 clips
+   of 1,500 seeded random frames with 448-token transcripts from
+   ``SyntheticLMDataset`` (AUDIO_TRAIN_*; the ``audio_train cuts`` line
+   is empty); every loss and gradient norm finite, no step skipped;
+   kernel 3 launched 144 times a step and the backward 72 (the encoder's
+   no-mask self-attention, the decoder's causal self-attention and its
+   cross-attention, 448 over 1,500 frames, in each of 24 layers; kernel
+   3 again in each layer's recompute), all on the bf16 wgmma route; one
+   more step under ``torch.profiler`` with peak memory; one
+   ``AsyncCheckpointer`` snapshot restored bit for bit and deleted; the
+   encoder's and the cross-attention's layer-0 calls (as the step gave
+   them to the backward) through kernel 3 with ``lse`` (bit for bit the
+   training forward's) and the backward against their plain versions,
+   with wrong controls (the causal mask applied, Skv taken as Sq, and,
+   with the last frame's key planted on every query, the ragged last
+   128-key block dropped); then (``audio_train_timing``) the backward at
+   both shapes timed beside its plain version, the bound and SDPA's
+   flash backward without a mask; the ``kernels`` line's kernel-3 and
+   backward rows gain ``audio_train_launches`` and ``audio_train_calls``;
 12. the card's line again and the last line: ``{"ok": true, "device":
     {...}}``.
 
 Each main path (graph, query, GoFS graph, the session within it, the
 stream phase, serving, MoE serving, audio serving, training, MoE
-training) runs with
+training, audio training) runs with
 every kernel's launch count
 set to 0
 just before it
@@ -4360,6 +4385,22 @@ AUDIO_CALLS = ("encoder", "self prefill", "cross prefill", "self decode",
 AUDIO_PLANT_SCORE = 8.0
 
 
+def schema_leaves(cfg) -> int:
+    """Parameters of ``cfg``'s schema (``models.model_schema``), leaf by
+    leaf."""
+    import numpy as np
+
+    from repro_torch.models import model_schema
+    from repro_torch.models.layers import ParamDef
+
+    def leaves(node):
+        if isinstance(node, ParamDef):
+            return int(np.prod(node.shape))
+        return sum(leaves(v) for v in node.values())
+
+    return leaves(model_schema(cfg))
+
+
 @contextlib.contextmanager
 def timed_encoder():
     """While the block runs, the device seconds of each ``encdec.encode``
@@ -4480,6 +4521,9 @@ def audio_calls(shapes, log=print):
                         if name == "self decode" else {})
         else:
             q, k, v, kw = shapes[name]
+            # the output is checked; the encoder's and the cross prefill's
+            # log-sum-exp (FlashAttentionFn) only in training (11c)
+            kw = {a: b for a, b in kw.items() if a != "return_lse"}
             causal, qoff = kw.get("causal", True), kw.get("q_offset", 0)
             need(causal == (name == "self prefill") and not kw.get("window"),
                  f"audio {name}: called with {kw}")
@@ -4542,9 +4586,11 @@ def audio_timing(calls, rate, log=print):
     and SDPA computing the same function (the flash backend, which takes
     MHA at d 64 without a mask: the prefill calls, and the decode calls
     over their one valid length), beside the bound: the larger of the
-    bytes (q and the output, each key's K and V once) over ``rate`` and
-    4·d operations a visible (query, key) pair a head over BF16_RATE.
-    Adds the numbers to each record and drops its ``args``."""
+    bytes (q and the output, each key's K and V once, and the
+    log-sum-exp where the call asks for it, as the encoder and the cross
+    prefill do) over ``rate`` and 4·d operations a visible (query, key)
+    pair a head over BF16_RATE.  Adds the numbers to each record and
+    drops its ``args``."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4570,6 +4616,7 @@ def audio_timing(calls, rate, log=print):
             need(bool((lens == n).all()), f"audio {name}: lengths "
                                           f"{lengths.tolist()} differ")
             pairs, keys = int(lens.sum()), int(lens.sum())
+            lse_bytes = 0
 
             def kfn():
                 return decode_k(q, k, v, lengths)
@@ -4590,6 +4637,7 @@ def audio_timing(calls, rate, log=print):
             pairs = B * (visible_pairs(Sq, Skv, 0, 0) if causal
                          else Sq * Skv)
             keys = B * Skv
+            lse_bytes = 4 * B * H * Sq if kw.get("return_lse") else 0
 
             def kfn():
                 return flash_k(q, k, v, **kw)
@@ -4602,10 +4650,12 @@ def audio_timing(calls, rate, log=print):
             timer = cuda_ms
         K = k.shape[2]
         moved = (2 * q.numel() * q.element_size()
-                 + 2 * keys * K * d * k.element_size())
+                 + 2 * keys * K * d * k.element_size() + lse_bytes)
         ops = 4 * d * H * pairs
-        attn_compare(lfn(), pfn(), ATTN_TOL["bfloat16"],
-                     f"audio {name} library call")
+        plain = pfn()  # with the log-sum-exp where the call asks for it
+        attn_compare(lfn(), plain[0] if lse_bytes else plain,
+                     ATTN_TOL["bfloat16"], f"audio {name} library call")
+        del plain
         t_bytes, t_ops = moved / rate, ops / BF16_RATE
         rec.update({"ms": timer(kfn), "plain_ms": timer(pfn),
                     "library_ms": timer(lfn), "library": "SDPA flash",
@@ -4644,9 +4694,7 @@ def audio_serve(cfg, card, device="cuda", log=print):
 
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models import (
-        decode_step, init_model_params, init_serve_cache, model_schema,
-        prefill)
-    from repro_torch.models.layers import ParamDef
+        decode_step, init_model_params, init_serve_cache, prefill)
 
     on_card = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
@@ -4657,11 +4705,6 @@ def audio_serve(cfg, card, device="cuda", log=print):
     if on_card:
         torch.cuda.synchronize()
 
-    def leaves(node):
-        if isinstance(node, ParamDef):
-            return int(np.prod(node.shape))
-        return sum(leaves(v) for v in node.values())
-
     n_params = sum(p.numel() for p in model.parameters())
     rec = {"arch": cfg.name, "encoder_layers": cfg.encoder_layers,
            "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -4671,9 +4714,9 @@ def audio_serve(cfg, card, device="cuda", log=print):
            time.perf_counter() - t0, "card": card}
     if on_card:
         rec["weights_GB"] = torch.cuda.memory_allocated() / 1e9
-    need(n_params == leaves(model_schema(cfg)),
+    need(n_params == schema_leaves(cfg),
          f"audio {cfg.name}: {n_params} parameters, its schema has "
-         f"{leaves(model_schema(cfg))}")
+         f"{schema_leaves(cfg)}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, AUDIO_PROMPT).astype(np.int32)
                for _ in range(AUDIO_REQUESTS)]
@@ -5038,17 +5081,25 @@ def attention_report(shapes, launches, routes, card, rate, device="cuda",
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS = "starcoder2-7b", 4, 4, 4
 TRAIN_PARAMS = 1_321_288_704  # 4 layers + embed + head + ln_f at full width
 TRAIN_FLASH_ROUTE, TRAIN_BWD_ROUTE = "bf16_wgmma", "bf16_wgmma"
-# (B, S, H, K, d, window, dtype) of the backward against its plain
-# version: the training layer's shape at batch 1 (window = S: the mask is
-# causal only), a windowed case where the controls run, d 32 and 64 with
-# S not a multiple of a block, a float32 case: the three routes (bf16 at
-# d 64 and 128 wgmma, at d 32 mma.sync; float32), each held to its own
+# (B, Sq, Skv, H, K, d, causal, window, dtype) of the backward against its
+# plain version: the training layer's shape at batch 1 (window = S: the
+# mask is causal only), a windowed case where the controls run, d 32 and
+# 64 with S not a multiple of a block, a float32 case: the three routes
+# (bf16 at d 64 and 128 wgmma, at d 32 mma.sync; float32), each held to
+# its own; then without the mask, on each route: whisper's encoder (Sq =
+# Skv = 1,500: a ragged last key block of 92 and query step of 28) and
+# cross-attention (448 and 9 text tokens over 1,500 frames), MHA at d 64
 BWD_CASES = [
-    (1, 4096, 36, 4, 128, 4096, "bfloat16"),
-    (1, 1000, 36, 4, 128, 256, "bfloat16"),
-    (2, 333, 8, 2, 64, 100, "bfloat16"),
-    (2, 201, 8, 4, 32, 0, "bfloat16"),
-    (1, 257, 9, 1, 128, 64, "float32"),
+    (1, 4096, 4096, 36, 4, 128, True, 4096, "bfloat16"),
+    (1, 1000, 1000, 36, 4, 128, True, 256, "bfloat16"),
+    (2, 333, 333, 8, 2, 64, True, 100, "bfloat16"),
+    (2, 201, 201, 8, 4, 32, True, 0, "bfloat16"),
+    (1, 257, 257, 9, 1, 128, True, 64, "float32"),
+    (4, 1500, 1500, 16, 16, 64, False, 0, "bfloat16"),
+    (4, 448, 1500, 16, 16, 64, False, 0, "bfloat16"),
+    (4, 9, 1500, 16, 16, 64, False, 0, "bfloat16"),
+    (2, 77, 200, 4, 4, 32, False, 0, "bfloat16"),
+    (2, 150, 61, 4, 4, 64, False, 0, "float32"),
 ]
 BWD_CONTROL_CASE = 1  # the windowed case: its window bites
 
@@ -5109,6 +5160,51 @@ def same_tensors(a, b) -> bool:
     return torch.equal(a.view(view), b.view(view))
 
 
+def checkpoint_round_trip(model, opt_state, what, log=print):
+    """One ``AsyncCheckpointer`` snapshot of the training state (the
+    reference's tree: masters and moments) into a temporary directory,
+    restored and compared bit for bit with the live state, then deleted.
+    Logs ``phase <what>_checkpoint`` with its seconds and bytes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.models import opt_state_to_numpy, params_to_numpy
+    from repro_torch.train import checkpoint as ckpt
+
+    root = tempfile.mkdtemp(prefix=f"{what}_ckpt_")
+    try:
+        saver = ckpt.AsyncCheckpointer(root, keep=1)
+        t0 = time.perf_counter()
+        state = {"params": params_to_numpy(model),
+                 "opt": opt_state_to_numpy(model, opt_state)}
+        saver.save(opt_state["step"], state)
+        t_snap = time.perf_counter() - t0
+        saver.wait()
+        t_write = time.perf_counter() - t0 - t_snap
+        n_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(root) for f in fs)
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore(root, state)
+        t_read = time.perf_counter() - t0
+        # ``state`` is the live state's host copy (nothing has run since)
+        names = [n for n, _ in ckpt._flatten_with_paths(state)]
+        same = all(np.array_equal(a, b) for (_, a), (_, b) in zip(
+            ckpt._flatten_with_paths(state),
+            ckpt._flatten_with_paths(restored)))
+        del state, restored
+        crec = {"seconds_snapshot": t_snap, "seconds_write": t_write,
+                "seconds_restore": t_read, "bytes": n_bytes,
+                "leaves": len(names), "step": step, "bitwise": same}
+        log(f"phase {what}_checkpoint: {json.dumps(crec)}")
+        need(same and step == opt_state["step"],
+             f"{what}: the restored checkpoint differs from the live state")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return crec
+
+
 def train_path(card, device="cuda", log=print):
     """The LM training path: starcoder2-7b at full width cut to
     TRAIN_LAYERS layers, ``train_loop`` for TRAIN_STEPS steps of
@@ -5121,9 +5217,6 @@ def train_path(card, device="cuda", log=print):
     directory, restored and compared bit for bit, and deleted; then a NaN
     control: NaN masters must give ``skipped = 1`` with parameters and
     moments bitwise unchanged."""
-    import shutil
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -5133,9 +5226,7 @@ def train_path(card, device="cuda", log=print):
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
     from repro_torch.launch.train import train_loop
-    from repro_torch.models import opt_state_to_numpy, params_to_numpy
     from repro_torch.models.model import flat_leaves
-    from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import make_train_step
 
@@ -5212,36 +5303,7 @@ def train_path(card, device="cuda", log=print):
     rec["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms",
                                            "idle_share")}
 
-    # one asynchronous snapshot, restored and compared bit for bit
-    root = tempfile.mkdtemp(prefix="train_ckpt_")
-    try:
-        saver = ckpt.AsyncCheckpointer(root, keep=1)
-        t0 = time.perf_counter()
-        state = {"params": params_to_numpy(model),
-                 "opt": opt_state_to_numpy(model, opt_state)}
-        saver.save(opt_state["step"], state)
-        t_snap = time.perf_counter() - t0
-        saver.wait()
-        t_write = time.perf_counter() - t0 - t_snap
-        n_bytes = sum(os.path.getsize(os.path.join(dp, f))
-                      for dp, _, fs in os.walk(root) for f in fs)
-        t0 = time.perf_counter()
-        restored, step = ckpt.restore(root, state)
-        t_read = time.perf_counter() - t0
-        # ``state`` is the live state's host copy (nothing has run since)
-        names = [n for n, _ in ckpt._flatten_with_paths(state)]
-        same = all(np.array_equal(a, b) for (_, a), (_, b) in zip(
-            ckpt._flatten_with_paths(state),
-            ckpt._flatten_with_paths(restored)))
-        del state, restored
-        crec = {"seconds_snapshot": t_snap, "seconds_write": t_write,
-                "seconds_restore": t_read, "bytes": n_bytes,
-                "leaves": len(names), "step": step, "bitwise": same}
-        log(f"phase train_checkpoint: {json.dumps(crec)}")
-        need(same and step == opt_state["step"],
-             "train: the restored checkpoint differs from the live state")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    checkpoint_round_trip(model, opt_state, "train", log)
 
     # the NaN guard on the same model: NaN masters, one step
     params = flat_leaves(model)[0]
@@ -5267,15 +5329,16 @@ def train_path(card, device="cuda", log=print):
                        "flash_attention_bwd_cuda": bwd_routes}}
 
 
-def bwd_inputs(gen, B, S, H, K, d, dt, device):
-    """q, k, v, dO of the backward's checks, from ``gen``."""
+def bwd_inputs(gen, B, S, H, K, d, dt, device, Skv=None):
+    """q, k, v, dO of the backward's checks, from ``gen``: Skv keys (S
+    when None)."""
     import torch
 
     dt = getattr(torch, dt)
     q, do = (torch.randn(B, S, H, d, generator=gen, device=device).to(dt)
              for _ in range(2))
-    k, v = (torch.randn(B, S, K, d, generator=gen, device=device).to(dt)
-            for _ in range(2))
+    k, v = (torch.randn(B, Skv or S, K, d, generator=gen,
+                        device=device).to(dt) for _ in range(2))
     return q, k, v, do
 
 
@@ -5295,9 +5358,9 @@ def bwd_sweep(gen, device="cuda", log=print):
 
     sweep = []
     for i, case in enumerate(BWD_CASES):
-        B, S, H, K, d, w, dt = case
-        q, k, v, do = bwd_inputs(gen, B, S, H, K, d, dt, device)
-        kw = dict(causal=True, window=w)
+        B, Sq, Skv, H, K, d, causal, w, dt = case
+        q, k, v, do = bwd_inputs(gen, B, Sq, H, K, d, dt, device, Skv)
+        kw = dict(causal=causal, window=w)
         o0 = flash_attention_cuda(q, k, v, **kw)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         need(same_tensors(o0, o), f"flash {case}: the output with lse "
@@ -5326,19 +5389,12 @@ def bwd_sweep(gen, device="cuda", log=print):
                "max_abs_err": err, "limit_used": used,
                "lse_err": lse_err, "repeat_bitwise": True}
         if i == BWD_CONTROL_CASE:
-            controls = {
-                "no window mask": mha_bwd_ref(*f, causal=True, window=0),
-                "no D term": mha_bwd_ref(f[0], f[1], f[2],
-                                         torch.zeros_like(f[3]), f[4], f[5],
-                                         **kw)}
-            rec["controls_limit_used"] = {}
-            for name, wrong in controls.items():
-                share = max(float(((a.float() - c).abs()
-                                   / grad_limit(c, ATTN_TOL[dt])).max())
-                            for a, c in zip(got, wrong))
-                need(share > 1.0, f"flash backward: the control '{name}' "
-                                  f"stays within the limit ({share:.3g}x)")
-                rec["controls_limit_used"][name] = share
+            rec["controls_limit_used"] = bwd_controls(got, {
+                "no window mask": lambda: mha_bwd_ref(*f, causal=True,
+                                                      window=0),
+                "no D term": lambda: mha_bwd_ref(
+                    f[0], f[1], f[2], torch.zeros_like(f[3]), f[4], f[5],
+                    **kw)}, ATTN_TOL[dt], f"flash backward {case}")
         sweep.append(rec)
         log(f"  flash backward {case}: {json.dumps(rec)}")
         del q, k, v, do, o, lse, got, again, want, f
@@ -5352,10 +5408,10 @@ def bwd_sweep(gen, device="cuda", log=print):
 BWD_LAUNCHES = {"D": "bwd_row_dot", "dK_dV": "bwd_dkdv_", "dQ": "bwd_dq_"}
 
 
-def bwd_launch_ms(fn, reps=10):
-    """Device milliseconds per call of each of the flash backward's three
-    launches (the D pre-pass, dK/dV, dQ) under ``torch.profiler`` over
-    ``reps`` calls of ``fn``, and their sum."""
+def profiled_device_ms(fn, reps=10):
+    """Device milliseconds per call of ``fn`` by kernel (or copy) name:
+    each one's device time under ``torch.profiler`` over ``reps`` calls,
+    over ``reps``.  No host time is counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5366,13 +5422,22 @@ def bwd_launch_ms(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    out = {e.key: e.self_device_time_total / 1e3 / reps
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    need(sum(out.values()) > 0, "the profiler saw no device time")
+    return out
+
+
+def bwd_launch_ms(fn, reps=10):
+    """Device milliseconds per call of each of the flash backward's three
+    launches (the D pre-pass, dK/dV, dQ) under ``torch.profiler`` over
+    ``reps`` calls of ``fn`` (:func:`profiled_device_ms`), and their
+    sum."""
     out = dict.fromkeys(BWD_LAUNCHES, 0.0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for key, ms in profiled_device_ms(fn, reps).items():
         for part, stem in BWD_LAUNCHES.items():
-            if stem in e.key:
-                out[part] += e.self_device_time_total / 1e3 / reps
+            if stem in key:
+                out[part] += ms
     need(all(out.values()), f"flash backward: the profiler saw no time for "
                             f"some launch ({out})")
     out["sum"] = sum(out.values())
@@ -5626,11 +5691,14 @@ def counted_attention():
 
 
 @contextlib.contextmanager
-def capture_train_layer0(n_layers):
+def capture_train_layer0(pick):
     """While a training run goes, record (copies of) what the flash
-    backward is given at layer 0 of the first micro-batch: its
-    ``n_layers``-th call, since the backward runs the layers last to
-    first.  ``got["bwd"]`` is (q, k, v, o, lse, dO, window, q_offset)."""
+    backward is given at the calls that ``pick(n, q, k, kw)`` names (``n``
+    counts the calls from 1; None names none, and a later call of a name
+    replaces the earlier).  The backward runs the layers last to first,
+    so layer 0 of the first micro-batch is call ``n_layers``, and the
+    last call of a kind is layer 0's of the last micro-batch.
+    ``got[name]`` is (q, k, v, o, lse, dO, the call's mask keywords)."""
     from repro_torch.models import attention
 
     got, calls = {}, [0]
@@ -5638,9 +5706,10 @@ def capture_train_layer0(n_layers):
 
     def rec(q, k, v, o, lse, do, **kw):
         calls[0] += 1
-        if calls[0] == n_layers:
-            got["bwd"] = tuple(t.clone() for t in (q, k, v, o, lse, do)) + (
-                kw["window"], kw["q_offset"])
+        name = pick(calls[0], q, k, kw)
+        if name is not None:
+            got[name] = tuple(t.detach().clone() for t in (
+                q, k, v, o, lse, do)) + (dict(kw),)
         return bwd(q, k, v, o, lse, do, **kw)
 
     attention.flash_attention_bwd_cuda = rec
@@ -5673,33 +5742,51 @@ def wrong_kv_heads_bwd(q, k, v, o, lse, do, **kw):
     return back(dq), dk, dv
 
 
-def moe_train_attention_check(shapes, cfg, log=print):
-    """Kernel 3 with ``lse`` and the flash backward at one MoE model's
-    training shapes: layer 0's q, k, v, o, lse and dO of the first
-    micro-batch as :func:`capture_train_layer0` recorded them (query
-    groups of G = H / K, causal, no window).  Kernel 3 relaunched on q, k,
-    v gives the training forward's o and lse bit for bit, its output is
-    within :func:`attn_limit` of ``mha_ref``'s and its lse within 1e-5 of
-    the plain log-sum-exp; the backward is within :func:`grad_limit` of
-    ``mha_bwd_ref`` in float32 on the same inputs, at the bf16 tolerance.
-    Wrong controls must exceed each limit: the causal edge one key off,
-    and the query heads read by the wrong KV heads (for the backward, dK
-    and dV summed over the wrong query heads).  Returns {kernel:
-    record}."""
+def bwd_shares(got, wrong, tol):
+    """The largest share of :func:`grad_limit` that each of the kernel's
+    (dq, dk, dv) uses against a wrong backward's: [dq, dk, dv]."""
+    return [float(((a.float() - c.float()).abs()
+                   / grad_limit(c.float(), tol)).max())
+            for a, c in zip(got, wrong)]
+
+
+def bwd_controls(got, controls, tol, what):
+    """Deliberately wrong backwards ({name: a thunk giving (dq, dk, dv)})
+    must each exceed :func:`grad_limit` against the kernel's ``got``:
+    proof that the check sees such defects at this shape.  Returns
+    {control: the largest share of the limit}."""
+    out = {}
+    for name, fn in controls.items():
+        out[name] = max(bwd_shares(got, fn(), tol))
+        need(out[name] > 1.0, f"{what}: the control '{name}' stays within "
+                              f"the limit ({out[name]:.3g}x)")
+    return out
+
+
+def train_attention_check(call, name, fwd_controls, bwd_wrong):
+    """Kernel 3 with ``lse`` and the flash backward at one training call,
+    as :func:`capture_train_layer0` recorded it (no window, no query
+    offset).  Kernel 3 relaunched on q, k, v gives the training forward's
+    o and lse bit for bit, its output is within :func:`attn_limit` of
+    ``mha_ref``'s and its lse within 1e-5 of the plain log-sum-exp; the
+    backward is within :func:`grad_limit` of ``mha_bwd_ref`` in float32
+    on the same inputs, at the bf16 tolerance.  Wrong controls must exceed
+    each limit: ``fwd_controls`` {name: fn(q, k, v) giving the output},
+    ``bwd_wrong`` {name: fn(f) giving (dq, dk, dv)}, ``f`` the plain
+    backward's float32 inputs (q, k, v, o, lse, dO).  Returns ({kernel:
+    record}, the kernel's (dq, dk, dv), f)."""
     from repro_torch.kernels.flash_attention.bwd import (
         flash_attention_bwd_cuda)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
 
-    q, k, v, o, lse, do, window, q_offset = shapes["bwd"]
-    need(not window and not q_offset, f"moe train {cfg.name}: layer 0 ran "
-                                      f"with window {window}, q_offset "
-                                      f"{q_offset}")
+    q, k, v, o, lse, do, kw = call
+    need(not kw.get("window") and not kw.get("q_offset"),
+         f"{name}: recorded with {kw}")
     H, K = q.shape[2], k.shape[2]
     tol = ATTN_TOL["bfloat16"]
-    kw = dict(causal=True, window=0)
-    name = f"{cfg.name} train layer 0"
+    kw = dict(causal=kw.get("causal", True), window=0)
     o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     need(same_tensors(o2, o) and same_tensors(lse2, lse),
          f"{name}: kernel 3 relaunched differs from the training forward")
@@ -5708,11 +5795,8 @@ def moe_train_attention_check(shapes, cfg, log=print):
     lse_err = float((lse2 - plse).abs().max())
     need(lse_err <= 1e-5 * max(1.0, float(plse.abs().max())),
          f"{name}: lse off by {lse_err}")
-    ctl = attn_controls(pout, {
-        "causal edge one key off": lambda: mha_ref(
-            q, k, v, causal=True, window=0, q_offset=-1),
-        "query heads on the wrong KV heads": lambda: wrong_kv_heads(
-            lambda q, k: mha_ref(q, k, v, **kw), q, k)}, tol, name)
+    ctl = attn_controls(pout, {c: (lambda fn=fn: fn(q, k, v))
+                               for c, fn in fwd_controls.items()}, tol, name)
     out = {"flash_attention_cuda": {
         "call": name + ", with lse", "q": list(q.shape), "kv": list(k.shape),
         "group": H // K, "max_abs_err": err, "limit_used": used,
@@ -5723,23 +5807,34 @@ def moe_train_attention_check(shapes, cfg, log=print):
     f = [t.float() for t in (q, k, v, o)] + [lse, do.float()]
     err, used = grad_compare(got, mha_bwd_ref(*f, **kw), tol,
                              f"{name} backward")
-    controls = {
-        "causal edge one key off": lambda: mha_bwd_ref(
-            *f, causal=True, window=0, q_offset=-1),
-        "dK/dV over the wrong query heads": lambda: wrong_kv_heads_bwd(
-            *f, **kw)}
-    ctl = {}
-    for cname, fn in controls.items():
-        ctl[cname] = max(float(((a.float() - c).abs()
-                                / grad_limit(c, tol)).max())
-                         for a, c in zip(got, fn()))
-        need(ctl[cname] > 1.0, f"{name} backward: the control '{cname}' "
-                               f"stays within the limit ({ctl[cname]:.3g}x)")
     out["flash_attention_bwd_cuda"] = {
         "call": name, "q": list(q.shape), "kv": list(k.shape),
         "group": H // K, "max_abs_err": err, "limit_used": used,
-        "controls_limit_used": ctl}
-    return out
+        "controls_limit_used": bwd_controls(
+            got, {c: (lambda fn=fn: fn(f)) for c, fn in bwd_wrong.items()},
+            tol, f"{name} backward")}
+    return out, got, f
+
+
+def moe_train_attention_check(shapes, cfg):
+    """:func:`train_attention_check` at one MoE model's layer 0 of the
+    first micro-batch (query groups of G = H / K, causal, no window).
+    Wrong controls: the causal edge one key off, and the query heads read
+    by the wrong KV heads (for the backward, dK and dV summed over the
+    wrong query heads).  Returns {kernel: record}."""
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    kw = dict(causal=True, window=0)
+    return train_attention_check(shapes["causal"], f"{cfg.name} train "
+                                 f"layer 0", {
+        "causal edge one key off": lambda q, k, v: mha_ref(
+            q, k, v, q_offset=-1, **kw),
+        "query heads on the wrong KV heads": lambda q, k, v: wrong_kv_heads(
+            lambda q, k: mha_ref(q, k, v, **kw), q, k)}, {
+        "causal edge one key off": lambda f: mha_bwd_ref(
+            *f, q_offset=-1, **kw),
+        "dK/dV over the wrong query heads": lambda f: wrong_kv_heads_bwd(
+            *f, **kw)})[0]
 
 
 def moe_layer_grads(fn, p, x, cot, names):
@@ -5993,8 +6088,11 @@ def moe_train_one(cfg, run, card, device="cuda", log=print, seq_len=None):
         torch.cuda.reset_peak_memory_stats()
     reset_attn_launches()
     t0 = time.perf_counter()
+    def layer0(n, *_):  # of the first micro-batch
+        return "causal" if n == cfg.num_layers else None
+
     with counted_attention() as calls, moe_dispatches() as dispatches, \
-            capture_train_layer0(cfg.num_layers) as shapes:
+            capture_train_layer0(layer0) as shapes:
         out = train_loop(cfg, steps=steps, global_batch=B, seq_len=S,
                          device=device, oc=oc, accum_steps=accum,
                          log_every=1, seed=0)
@@ -6081,7 +6179,7 @@ def moe_train_one(cfg, run, card, device="cuda", log=print, seq_len=None):
     del batch
 
     t1 = time.perf_counter()
-    rec["attention_check"] = moe_train_attention_check(shapes, cfg, log)
+    rec["attention_check"] = moe_train_attention_check(shapes, cfg)
     shapes.clear()
     log(f"phase moe_train_attention_check_{cfg.name}: "
         f"{json.dumps(rec['attention_check'])}")
@@ -6124,6 +6222,363 @@ def moe_train_path(runs, card, device="cuda", log=print, seq_len=None):
     log(f"moe_train cuts: {json.dumps(cuts)}")
     return {cfg.name: moe_train_one(cfg, run, card, device, log, seq_len)
             for cfg, run in runs}
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: whisper-medium training at full width and depth
+# ---------------------------------------------------------------------------
+
+# whisper-medium (AUDIO_ARCH) trained through ``make_train_step``: 24
+# encoder and 24 decoder layers at d_model 1,024, 16 heads of 64, weights
+# from seed 0, bf16 compute over float32 masters and moments, the config's
+# full remat; a step takes AUDIO_TRAIN_CLIPS clips of 1,500 frames (random
+# from a seed) with transcripts of AUDIO_TRAIN_TEXT tokens (whisper's
+# n_text_ctx) from ``SyntheticLMDataset``; AUDIO_TRAIN_STEPS steps, then
+# one more under the profiler
+AUDIO_TRAIN_CLIPS, AUDIO_TRAIN_TEXT, AUDIO_TRAIN_STEPS = 4, 448, 3
+AUDIO_TRAIN_ROUTE = "bf16_wgmma"
+#: phase 11c's depth cuts by name, [planned, run]; empty: nothing is cut
+AUDIO_TRAIN_CUTS = {}
+#: the no-mask attention calls of a training step, by kind: the encoder's
+#: self-attention (Sq = Skv) and the decoder's cross-attention (Sq text
+#: tokens over Skv frames)
+AUDIO_TRAIN_KINDS = ("encoder", "cross")
+
+
+def audio_train_launches(cfg):
+    """(kernel 3's, the backward's) launches a step: per encoder layer one
+    no-mask call, per decoder layer a causal and a cross call; under full
+    remat kernel 3 runs again in each layer's recompute."""
+    n = cfg.encoder_layers + 2 * cfg.num_layers
+    return (1 if cfg.remat == "none" else 2) * n, n
+
+
+def audio_train_kind(n, q, k, kw):
+    """For :func:`capture_train_layer0`: the kind (AUDIO_TRAIN_KINDS) of a
+    no-mask backward call, None for the decoder's causal self-attention.
+    The backward runs the decoder's layers and then the encoder's, last to
+    first, so the last call of a kind is layer 0's."""
+    if kw.get("causal", True):
+        return None
+    return "encoder" if q.shape[1] == k.shape[1] else "cross"
+
+
+def plant_last_frame(q, k, gen, score=AUDIO_PLANT_SCORE):
+    """(q', k'): the last frame's key of each (batch, KV head) set to a
+    unit vector u of that head times a, and a u added to each query of the
+    heads that read it, a^2 / sqrt(d) = ``score``: every query then gives
+    the last frame about ``score`` above the near-uniform rest of its
+    row."""
+    import torch
+
+    B, _, H, d = q.shape
+    K = k.shape[2]
+    u = torch.randn(B, 1, K, d, generator=gen, device=q.device)
+    u = u / u.norm(dim=-1, keepdim=True)
+    a = (score * d ** 0.5) ** 0.5
+    qp = (q.float() + a * u.repeat_interleave(H // K, dim=2)).to(q.dtype)
+    kp = k.clone()
+    kp[:, -1:] = (a * u).to(k.dtype)
+    return qp, kp
+
+
+def padded_keys_bwd(q, k, v, do, keep, **kw):
+    """Wrong control: the plain forward and backward over the first
+    ``keep`` keys only, dK and dV 0 on the keys past them."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    o, lse = mha_ref(q, k[:, :keep], v[:, :keep], return_lse=True, **kw)
+    dq, dk, dv = mha_bwd_ref(q, k[:, :keep], v[:, :keep], o, lse, do, **kw)
+    pad = torch.zeros_like(k[:, keep:], dtype=dk.dtype)
+    return dq, torch.cat([dk, pad], 1), torch.cat([dv, pad], 1)
+
+
+def audio_train_attention_check(shapes, gen, log=print):
+    """:func:`train_attention_check` at whisper's training layer 0, no
+    mask, as :func:`capture_train_layer0` recorded it
+    (:func:`audio_train_kind`): the encoder's self-attention and the
+    cross-attention.  Wrong controls: the causal mask applied; for the
+    cross-attention Skv taken as Sq (the first Sq frames only); and the
+    ragged last 128-key block dropped.  Attention over 1,500 random frames
+    is near uniform, so the last control runs on the same inputs with the
+    last frame planted on every query (:func:`plant_last_frame`), where
+    the kernel is held again and the control must fail in dq too; the
+    unplanted share of dq is recorded.  Returns {kind: {kernel:
+    record}}."""
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    tol = ATTN_TOL["bfloat16"]
+    kw = dict(causal=False, window=0)
+    out = {}
+    for kind in AUDIO_TRAIN_KINDS:
+        need(kind in shapes, f"audio train: no {kind} backward recorded")
+        q, k, v, o, lse, do, _ = call = shapes[kind]
+        Sq, Skv = q.shape[1], k.shape[1]
+        need((Sq == Skv) == (kind == "encoder"),
+             f"audio train {kind}: q {tuple(q.shape)}, k {tuple(k.shape)}")
+        name = f"audio train {kind}, layer 0"
+        fwd_controls = {"the causal mask applied": lambda q, k, v: mha_ref(
+            q, k, v, causal=True)}
+        bwd_wrong = {"the causal mask applied": lambda f: mha_bwd_ref(
+            *f, causal=True)}
+        if kind == "cross":
+            fwd_controls["Skv taken as Sq"] = lambda q, k, v: mha_ref(
+                q, k[:, :Sq], v[:, :Sq], **kw)
+            bwd_wrong["Skv taken as Sq"] = lambda f: padded_keys_bwd(
+                f[0], f[1], f[2], f[5], Sq, **kw)
+        rec, got, f = train_attention_check(call, name, fwd_controls,
+                                            bwd_wrong)
+        keep = Skv - (Skv % 128 or 128)
+        need(keep > 0, f"{name}: {Skv} frames leave no whole 128-key block")
+        unplanted_dq = bwd_shares(got, padded_keys_bwd(
+            f[0], f[1], f[2], f[5], keep, **kw), tol)[0]
+        # the last frame planted on every query: the kernel held again,
+        # and the ragged last key block dropped must fail there, in dq too
+        qp, kp = plant_last_frame(q, k, gen)
+        op, lsep = flash_attention_cuda(qp, kp, v, return_lse=True, **kw)
+        gotp = flash_attention_bwd_cuda(qp, kp, v, op, lsep, do, **kw)
+        fp = [t.float() for t in (qp, kp, v, op)] + [lsep, do.float()]
+        perr, pused = grad_compare(gotp, mha_bwd_ref(*fp, **kw), tol,
+                                   f"{name} backward, last frame planted")
+        cname = f"the ragged last key block (keys past {keep}) dropped"
+        shares = bwd_shares(gotp, padded_keys_bwd(
+            fp[0], fp[1], fp[2], fp[5], keep, **kw), tol)
+        need(max(shares) > 1.0 and shares[0] > 1.0,
+             f"{name} backward, last frame planted: the control '{cname}' "
+             f"stays within the limit ({max(shares):.3g}x, dq "
+             f"{shares[0]:.3g}x)")
+        b = rec["flash_attention_bwd_cuda"]
+        b["controls_limit_used"][cname + ", last frame planted"] = max(shares)
+        b.update(max_abs_err=max(b["max_abs_err"], perr),
+                 limit_used=max(b["limit_used"], pused),
+                 planted_limit_used=pused,
+                 planted_dq_control_limit_used=shares[0],
+                 unplanted_dq_control_limit_used=unplanted_dq)
+        log(f"  audio train {kind} layer 0: {json.dumps(rec)}")
+        out[kind] = rec
+        del got, gotp, f, fp, qp, kp, op, lsep
+    return out
+
+
+def audio_train_path(cfg, card, device="cuda", log=print):
+    """Phase 11c: whisper-medium training at full width and depth through
+    ``make_train_step`` (AUDIO_TRAIN_STEPS steps of AUDIO_TRAIN_CLIPS
+    clips and AUDIO_TRAIN_TEXT-token transcripts; a ``cuts`` line names
+    what is cut).  Every loss and gradient norm finite, no step skipped;
+    the attention wrappers called as :func:`audio_train_launches` implies
+    and, on the card, every launch of kernel 3 and of the backward on
+    AUDIO_TRAIN_ROUTE.  Then one more step under ``torch.profiler`` with
+    the peak memory, one ``AsyncCheckpointer`` snapshot of the state
+    restored bit for bit (:func:`checkpoint_round_trip`), and the no-mask
+    calls at layer 0 against their plain versions
+    (:func:`audio_train_attention_check`).  Returns the run's record, its
+    launches by route and the layer-0 records."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.models import init_model_params
+    from repro_torch.models.model import flat_leaves
+    from repro_torch.train.data import SyntheticLMDataset
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    need(cfg.family == "audio" and cfg.dtype == "bfloat16"
+         and cfg.param_dtype == "float32" and cfg.remat == "full",
+         f"audio train: {cfg.name} is not bf16 compute over float32 "
+         f"masters with full remat")
+    B, S, F = AUDIO_TRAIN_CLIPS, AUDIO_TRAIN_TEXT, cfg.encoder_seq_len
+    log("audio_train cuts: " + json.dumps(AUDIO_TRAIN_CUTS) + f" ({cfg.name}"
+        f": {cfg.encoder_layers} encoder and {cfg.num_layers} decoder "
+        f"layers at d_model {cfg.d_model}, {B} clips of {F} frames and "
+        f"{S} tokens a step, {AUDIO_TRAIN_STEPS} steps)")
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=AUDIO_TRAIN_STEPS)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model_params(cfg, torch.Generator(device=device).manual_seed(
+        0), device=device, trainable=True)
+    opt_state = init_opt_state(flat_leaves(model)[0], oc)
+    n_params = sum(p.numel() for p in flat_leaves(model)[0])
+    step_fn = make_train_step(cfg, oc)
+    data = SyntheticLMDataset(cfg.vocab_size, S, B, seed=0)
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def batch_at(step):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in data.batch_at(step).items()}
+        batch["frames"] = torch.randn(B, F, cfg.d_model, generator=gen,
+                                      device=device)
+        return batch
+
+    t_init = time.perf_counter() - t0
+    reset_attn_launches()
+    steps, shapes = [], {}
+    with counted_attention() as calls:
+        for step in range(AUDIO_TRAIN_STEPS):
+            batch = batch_at(step)
+            t = time.perf_counter()
+            if step == 0:
+                with capture_train_layer0(audio_train_kind) as shapes:
+                    model, opt_state, m = step_fn(model, opt_state, batch)
+            else:
+                model, opt_state, m = step_fn(model, opt_state, batch)
+            m = {k: float(m[k]) for k in ("loss", "ce", "grad_norm", "lr",
+                                          "skipped")}
+            steps.append({"step": step, **m,
+                          "seconds": time.perf_counter() - t})
+    if cuda:
+        torch.cuda.synchronize()
+    flash_routes = dict(flash_attention_cuda.launches_by_route)
+    bwd_routes = dict(flash_attention_bwd_cuda.launches_by_route)
+    launches = {"flash_attention_cuda": flash_attention_cuda.launches,
+                "flash_attention_bwd_cuda": flash_attention_bwd_cuda.launches}
+    for s_ in steps:
+        s_["tokens_per_s"] = B * S / s_["seconds"]
+    rec = {"arch": cfg.name, "encoder_layers": cfg.encoder_layers,
+           "decoder_layers": cfg.num_layers, "params": n_params,
+           "clips": B, "frames": F, "text_tokens": S,
+           "seconds_init": t_init, "steps": steps,
+           "wrapper_calls": dict(calls), "launches": launches,
+           "flash_launches_by_route": flash_routes,
+           "bwd_launches_by_route": bwd_routes, "card": card}
+    if cuda:
+        rec["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase audio_train: {json.dumps(rec)}")
+    need(n_params == schema_leaves(cfg), f"audio train: {n_params} "
+         f"parameters, not the schema's {schema_leaves(cfg)}")
+    need(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+             for h in steps), "audio train: a non-finite loss or gradient "
+                              "norm")
+    need(not any(h["skipped"] for h in steps),
+         "audio train: a step was skipped")
+    n_fwd, n_bwd = (n * AUDIO_TRAIN_STEPS for n in audio_train_launches(cfg))
+    need(dict(calls) == {"flash_attention_cuda": n_fwd,
+                         "flash_attention_bwd_cuda": n_bwd},
+         f"audio train: the attention wrappers were called {dict(calls)}, "
+         f"not {n_fwd} and {n_bwd} times")
+    if cuda:
+        need(flash_routes == {r: n_fwd * (r == AUDIO_TRAIN_ROUTE)
+                              for r in flash_routes},
+             f"audio train: kernel 3's launches took the routes "
+             f"{flash_routes}, not {n_fwd} {AUDIO_TRAIN_ROUTE}")
+        need(bwd_routes == {r: n_bwd * (r == AUDIO_TRAIN_ROUTE)
+                            for r in bwd_routes},
+             f"audio train: the backward's launches took the routes "
+             f"{bwd_routes}, not {n_bwd} {AUDIO_TRAIN_ROUTE}")
+
+    # where a step's time goes, and its peak memory
+    batch = batch_at(AUDIO_TRAIN_STEPS)
+    prof = profile_window("step", lambda: step_fn(model, opt_state, batch),
+                          log, phase="audio_train_profile")
+    rec["profile"] = {k: prof.get(k) for k in ("wall_ms", "device_ms",
+                                               "idle_share", "peak_GB")}
+    rec["checkpoint"] = checkpoint_round_trip(model, opt_state,
+                                              "audio_train", log)
+    del model, opt_state, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["attention_check"] = audio_train_attention_check(shapes, gen, log)
+    log(f"phase audio_train_attention_check: "
+        f"{json.dumps({'seconds': time.perf_counter() - t0})}")
+    return {"train": rec, "launches": launches, "shapes": shapes,
+            "routes": {"flash_attention_cuda": flash_routes,
+                       "flash_attention_bwd_cuda": bwd_routes}}
+
+
+def audio_train_timing(shapes, rate, card, log=print):
+    """The backward at whisper's two no-mask training shapes (layer 0's
+    inputs, :func:`capture_train_layer0`), on the card, beside SDPA's
+    flash backward without a mask (d 64, MHA;
+    ``aten._scaled_dot_product_flash_attention_backward`` over its own
+    forward's output and log-sum-exp), which computes the same function
+    and is first held within :func:`grad_limit` against the plain
+    version on those inputs.  Both sides by the same three methods:
+    CUDA-graph replay (``ms`` and ``library_ms``), eager calls (``eager_ms``,
+    ``library_eager_ms``) and their kernels' device time under the
+    profiler (``launch_ms``, the kernel's three launches apart,
+    :func:`bwd_launch_ms`, and ``library_device_ms``).  Also the plain
+    version's ms and the bound: the larger of the bytes moved over
+    ``rate`` and 10·d operations a visible pair over BF16_RATE.  Returns
+    {kind: record}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+
+    aten = torch.ops.aten
+    out = {}
+    for kind in AUDIO_TRAIN_KINDS:
+        q, k, v, o, lse, do, _ = shapes[kind]
+        B, Sq, H, d = q.shape
+        Skv = k.shape[1]
+        pairs = B * H * Sq * Skv
+        moved = sum(t.numel() * t.element_size()
+                    for t in (q, k, v, o, lse, do, q, k, v))
+        t_bytes, t_ops = moved / rate, 10 * d * pairs / BF16_RATE
+
+        def kern():
+            return flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                            causal=False)
+
+        # SDPA's layout (B, H, S, d): views of the same tensors
+        qx, kx, vx, dox = (t.transpose(1, 2) for t in (q, k, v, do))
+        (sd_o, sd_lse, cum_q, cum_k, max_q, max_k, seed, offset,
+         _) = aten._scaled_dot_product_flash_attention(qx, kx, vx, 0.0,
+                                                       False)
+
+        def sdpa_bwd():
+            return aten._scaled_dot_product_flash_attention_backward(
+                dox, qx, kx, vx, sd_o, sd_lse, cum_q, cum_k, max_q, max_k,
+                0.0, False, seed, offset)
+
+        # held on its own forward's output and log-sum-exp: dQ hangs on
+        # D = rowsum(dO o), so another o's bf16 rounding moves it
+        want = mha_bwd_ref(*[t.float() for t in (
+            q, k, v, sd_o.transpose(1, 2))], sd_lse[..., :Sq].float(),
+            do.float(), causal=False)
+        grad_compare([g.transpose(1, 2) for g in sdpa_bwd()], want,
+                     ATTN_TOL["bfloat16"], f"audio train {kind}: SDPA's "
+                                           f"flash backward")
+        del want
+        rec = {"call": f"audio train {kind}, layer 0 (B={B}, Sq={Sq}, "
+                       f"Skv={Skv}, H={H}, d={d}, no mask)",
+               "ms": cuda_ms(kern, reps=10),
+               "launch_ms": bwd_launch_ms(kern),
+               "eager_ms": cuda_ms(kern, reps=10, graph=False),
+               "plain_ms": cuda_ms(lambda: mha_bwd_ref(
+                   q, k, v, o, lse, do, causal=False), reps=2, warm=1,
+                   graph=False),
+               "library_ms": cuda_ms(sdpa_bwd, reps=10),
+               "library_eager_ms": cuda_ms(sdpa_bwd, reps=10, graph=False),
+               "library_device_ms": sum(profiled_device_ms(
+                   sdpa_bwd).values()),
+               "library": "SDPA flash backward "
+                          "(aten._scaled_dot_product_flash_attention_"
+                          "backward), no mask",
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": moved, "flop": 10 * d * pairs, "pairs": pairs,
+               "card": card}
+        log(f"  flash_attention_bwd_cuda audio train {kind}: "
+            f"{json.dumps(rec)}")
+        out[kind] = rec
+        del sd_o, sd_lse
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -6418,6 +6873,28 @@ def main() -> int:
                 c["max_abs_err"] for c in rec["moe_train_calls"].values()])
             rec["limit_used"] = max([rec["limit_used"]] + [
                 c["limit_used"] for c in rec["moe_train_calls"].values()])
+    # 11c. whisper-medium training, launches counted (inside
+    # audio_train_path), then the backward at its no-mask shapes timed
+    t0 = time.perf_counter()
+    audio_train = audio_train_path(get_config(AUDIO_ARCH), card, "cuda")
+    audio_train["timing"] = audio_train_timing(audio_train.pop("shapes"),
+                                               rate, card)
+    print(f"phase audio_train_path: {json.dumps({'seconds': time.perf_counter() - t0, 'card': card})}")
+    for rec in report:  # the audio training launches and layer-0 calls
+        if rec["name"] in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
+            rec["audio_train_launches"] = {
+                "launches": audio_train["launches"][rec["name"]],
+                "by_route": audio_train["routes"][rec["name"]]}
+            calls = {kind: dict(c[rec["name"]]) for kind, c in
+                     audio_train["train"]["attention_check"].items()}
+            if rec["name"] == "flash_attention_bwd_cuda":
+                for kind, t in audio_train["timing"].items():
+                    calls[kind].update(t)
+            rec["audio_train_calls"] = calls
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                c["max_abs_err"] for c in calls.values()])
+            rec["limit_used"] = max([rec["limit_used"]] + [
+                c["limit_used"] for c in calls.values()])
     for rec in report:  # the examples phase's launches of each kernel
         rec.setdefault("mesh_launches", 0)  # attention: not on the mesh
         rec["examples_launches"] = {

@@ -20,15 +20,18 @@ same function:
   (``kernels/flash_attention/bwd.py``), the gradient the reference takes
   by differentiating ``chunked_attention``.  On CPU tensors both
   directions run the plain versions;
-* non-causal, no cache (whisper's encoder, ``causal=False``): the flash
-  kernel over the layer's own K/V with no mask, no log-sum-exp and no
-  gradient (the audio family serves only; its training is ROADMAP.md
-  queue 1, item 9c);
+* non-causal, no cache (whisper's encoder, ``causal=False``):
+  :class:`FlashAttentionFn` without the mask over the layer's own K/V,
+  in serving and training alike; its backward runs the flash backward
+  kernel without the mask;
 * cross-attention (``cross_kv``, whisper's decoder): q over the encoder's
-  K/V with no mask, MHA; the flash kernel for a prompt (``Sq > 1``), the
-  decode kernel for one token, with every ``lengths`` the encoder length
-  (its mask ``slot < length`` then keeps every slot).  The cross K/V come
-  from :func:`make_cross_kv` once a prompt and stay in the serving cache.
+  K/V with no mask, MHA, through :class:`FlashAttentionFn` over K/V of
+  their own length (Sq text tokens over Skv frames): in serving a
+  prompt over the bfloat16 cross K/V that :func:`make_cross_kv` wrote
+  into the cache once a prompt, in training the K/V in ``cfg.dtype``
+  with their gradient.  Serving's one-token steps run the decode kernel
+  instead, with every ``lengths`` the encoder length (its mask
+  ``slot < length`` then keeps every slot).
 
 The serving kernels take slot index as position, which holds in dense
 serving: slot i holds the token at position i, and the reference masks
@@ -197,26 +200,35 @@ def cache_update(
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Causal (optionally windowed) self-attention of q over k/v at
-    positions ``arange(S)``, with a gradient: the forward is the flash
-    kernel with its log-sum-exp, the backward the flash backward kernel.
-    q (B, S, H, d), k/v (B, S, K, d); returns (B, S, H, d)."""
+    """Attention of q over k/v with a gradient: the forward is the flash
+    kernel with its log-sum-exp, the backward the flash backward kernel
+    with the same mask.  q (B, Sq, H, d), k/v (B, Skv, K, d); with
+    ``causal`` (the default) a causal, optionally windowed mask at
+    positions ``arange(Sq)`` over ``arange(Skv)``, without it no mask
+    (whisper's encoder, Sq = Skv, and cross-attention, Sq != Skv in
+    general).  Returns (B, Sq, H, d)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int):
+    def forward(ctx, q, k, v, window: int, causal: bool = True):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention_cuda(q, k, v, causal=True, window=window,
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                       q_offset=0, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.window = window
+        ctx.window, ctx.causal = window, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal=True, window=ctx.window, q_offset=0)
-        return dq, dk, dv, None
+            q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window,
+            q_offset=0)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``ts`` (training)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def apply_attention(
@@ -240,7 +252,10 @@ def apply_attention(
     encoder); cross-attention over ``cross_kv``, the encoder's (k, v),
     each (B, Se, H, hd) (whisper's decoder; ``layer_cache`` is then None,
     and ``cross_len``, the (B,) int32 encoder lengths for one-token
-    decode, is made here when not given).  Returns (output (B, Sq, d),
+    decode, is made here when not given).  With no cache, the causal,
+    non-causal and cross branches run :class:`FlashAttentionFn`, which
+    has a gradient where autograd records (training); only serving's
+    one-token steps run the decode kernel.  Returns (output (B, Sq, d),
     the updated layer cache, None without one).  Of the reference's
     options, the logit softcap, the bidirectional prefix and the
     tensor-parallel decode wait in ROADMAP.md queue 1."""
@@ -257,13 +272,13 @@ def apply_attention(
         # the reference's chunked_attention(q, k, v, causal=False) over
         # the stored cross K/V (bfloat16, whatever cfg.dtype is)
         k, v = cross_kv
-        if Sq == 1:
+        if Sq == 1 and not _needs_grad(q, k, v):  # serving's decode step
             if cross_len is None:
                 cross_len = torch.full((B,), k.shape[1], dtype=torch.int32,
                                        device=q.device)
             out = decode_attention_cuda(q[:, 0], k, v, cross_len)[:, None]
         else:
-            out = flash_attention_cuda(q, k, v, causal=False)
+            out = FlashAttentionFn.apply(q, k, v, 0, False)
         y = out.reshape(B, Sq, H * hd) @ p["wo"].to(dt)
         return y, None
     k = _split_heads(x @ p["wk"].to(dt), K, hd)
@@ -275,10 +290,7 @@ def apply_attention(
         if layer_cache is not None or win:
             raise ValueError("non-causal attention takes no cache and no "
                              "window (whisper's encoder)")
-        if q.requires_grad:
-            raise _not_ported("the non-causal attention's gradient",
-                              "9c: the audio family's training")
-        out = flash_attention_cuda(q, k, v, causal=False)
+        out = FlashAttentionFn.apply(q, k, v, 0, False)
     elif layer_cache is None:
         out = FlashAttentionFn.apply(q, k, v, win)
     elif Sq == 1:

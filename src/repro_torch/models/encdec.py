@@ -10,9 +10,16 @@ sides.
 Serving: ``models.model.prefill`` runs the encoder once, writes every
 decoder layer's cross K/V into the serving cache (bfloat16, as the
 reference stores them) and fills the decoder's self-attention cache;
-``decode_step`` runs one token through the decoder over both.  The
-encoder runs with no remat and no autograd: the audio family serves
-only (its training is ROADMAP.md queue 1, item 9c).
+``decode_step`` runs one token through the decoder over both.  A serving
+model's parameters require no gradient, so its encoder records nothing
+and runs without remat.
+
+Training: ``models.model.forward_train`` runs the encoder under the
+config's remat policy (the reference's ``encode`` runs ``mode="train"``),
+keeps every decoder layer's cross K/V in ``cfg.dtype`` with autograd (the
+reference's training does not round them to bfloat16), and runs the
+decoder without a cache; the non-causal and cross-attention take their
+gradient from the flash backward kernel.
 """
 from __future__ import annotations
 
@@ -66,15 +73,14 @@ class EncDecLM(DecoderLM):
 def encode(model: EncDecLM, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, F, d), already in ``cfg.dtype`` -> the encoder's hidden
     states (B, F, d): the float32 positions cast to the frames' type and
-    added, the encoder layers without a mask, ``enc_ln_f``."""
+    added, the encoder layers without a mask (under the config's remat
+    policy where autograd records), ``enc_ln_f``."""
     B, F, d = frames.shape
     pe = sinusoidal_positions(F, d, frames.device).to(frames.dtype)
     x = frames + pe[None]
     pos = torch.arange(F, device=frames.device)[None].expand(B, F)
-    with torch.no_grad():
-        x, _, _ = transformer.apply_stack(model, x, positions=pos,
-                                          causal=False,
-                                          layers=model.enc_layers)
+    x, _, _ = transformer.apply_stack(model, x, positions=pos, causal=False,
+                                      layers=model.enc_layers)
     return apply_norm(model.enc_ln_f, x, model.cfg)
 
 
@@ -82,9 +88,9 @@ def cross_kv_all_layers(model: EncDecLM, enc_out: torch.Tensor,
                         out: Optional[Tuple[torch.Tensor, torch.Tensor]]
                         = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer's cross-attention K/V, stacked: (k, v), each
-    (L, B, Se, H, hd), in ``enc_out``'s type, or written into ``out`` (the
-    serving cache's ``cross`` pair, cast to its type) one layer at a
-    time."""
+    (L, B, Se, H, hd), in ``enc_out``'s type with autograd (training), or
+    written into ``out`` (the serving cache's ``cross`` pair, cast to its
+    type) one layer at a time."""
     kvs = None if out is not None else ([], [])
     for i, layer in enumerate(model.layers):
         k, v = attn.make_cross_kv(layer.xattn, enc_out, model.cfg)
@@ -122,9 +128,12 @@ def decoder_embed(model: EncDecLM, tokens: torch.Tensor,
 
 
 def decode_stack(model: EncDecLM, x: torch.Tensor, *,
-                 positions: torch.Tensor, cross_kv, cache: Dict):
-    """The decoder layers, causal, over the self-attention ``cache``
-    (updated in place) and the stacked cross K/V."""
+                 positions: torch.Tensor, cross_kv,
+                 cache: Optional[Dict] = None):
+    """The decoder layers, causal, over the stacked cross K/V and the
+    self-attention ``cache`` (serving; updated in place), or without a
+    cache over the tokens' own K/V (training, positions ``arange(S)``,
+    every layer under the config's remat policy)."""
     return transformer.apply_stack(model, x, positions=positions,
                                    cache=cache, cross_kv=cross_kv)
 

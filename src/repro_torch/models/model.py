@@ -1,7 +1,7 @@
 """Family dispatcher: parameters, the training forward, cache, prefill and
 decode (counterpart of ``repro.models.model``): the dense and MoE
-families (a :class:`DecoderLM`) serve and train, the audio family (an
-:class:`~repro_torch.models.encdec.EncDecLM`, whisper) serves.
+families (a :class:`DecoderLM`) and the audio family (an
+:class:`~repro_torch.models.encdec.EncDecLM`, whisper) serve and train.
 
 Public surface:
   model_schema(cfg)                        -> the reference's param schema
@@ -13,7 +13,8 @@ Public surface:
   train_leaves(model)                      -> the masters, by reference leaf
   opt_state_from_numpy / opt_state_to_numpy -> optimizer state <-> the
                                               reference's ``{mu, nu, step}``
-  forward_train(model, batch)              -> (loss, metrics)
+  forward_train(model, batch)              -> (loss, metrics); audio:
+                                              ``batch["frames"]``
   init_serve_cache(cfg, batch, max_len, dtype, device) -> KV cache (audio:
                                               ``{"self", "cross"}``)
   prefill(model, batch)                    -> (last-token logits, cache);
@@ -27,8 +28,8 @@ values; embed, head, norm parameters and the MoE router stay float32
 (routing runs in float32), and the head is applied in float32 as the
 reference's ``_masked_logits`` does.  A trainable model keeps every
 parameter a float32 master and casts at every use, as the reference
-does.  The mesh, the other families and the audio family's training are
-not ported (ROADMAP.md queue 1).
+does.  The mesh and the other families are not ported (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -49,20 +50,14 @@ from repro_torch.models.transformer import DecoderLM
 # all but the MoE router, which stays float32
 _MATMUL = ("attn", "xattn", "mlp", "moe")
 _FLOAT32 = (("moe", "router"),)
-_FAMILIES = ("dense", "moe", "audio")  # serving
-_TRAIN_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "audio")  # serving and training
 
 
-def _check_family(cfg, train: bool = False) -> None:
+def _check_family(cfg) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md queue 1, item 9: other LM families)")
-    if train and cfg.family not in _TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's training is not ported "
-            f"yet (ROADMAP.md queue 1, item 9c: the audio family's "
-            f"training)")
 
 
 def model_schema(cfg) -> Any:
@@ -316,17 +311,29 @@ def forward_train(model: DecoderLM, batch: Dict[str, Any]
     """The training forward: mean next-token cross-entropy of
     ``batch["labels"]`` given ``batch["tokens"]`` (both (B, S) ints),
     every layer under ``cfg.remat``, plus ``cfg.moe.aux_loss_weight``
-    times the MoE layers' summed load-balance loss.  Returns (loss,
-    ``{"loss", "ce", "aux"}``); ``aux`` is 0 for the dense family."""
+    times the MoE layers' summed load-balance loss.  The audio family also
+    takes ``batch["frames"]`` (B, Se, d): cast to ``cfg.dtype``, through
+    the encoder, every decoder layer's cross K/V from its output in
+    ``cfg.dtype``, then the decoder over the embedded tokens plus their
+    sinusoidal positions.  Returns (loss, ``{"loss", "ce", "aux"}``);
+    ``aux`` is 0 for the dense and audio families."""
     cfg = model.cfg
-    _check_family(cfg, train=True)
+    _check_family(cfg)
     dt = getattr(torch, cfg.dtype)
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     labels = torch.as_tensor(batch["labels"], device=model.device)
     B, S = tokens.shape
-    x = embed_lookup(model.embed, tokens).to(dt)
-    x, _, aux = transformer.apply_stack(
-        model, x, positions=_positions(B, S, model.device))
+    pos = _positions(B, S, model.device)
+    if cfg.family == "audio":
+        frames = torch.as_tensor(batch["frames"], device=model.device)
+        enc_out = encdec.encode(model, frames.to(dt))
+        cross_kv = encdec.cross_kv_all_layers(model, enc_out)
+        x = encdec.decoder_embed(model, tokens, pos).to(dt)
+        x, _, aux = encdec.decode_stack(model, x, positions=pos,
+                                        cross_kv=cross_kv)
+    else:
+        x = embed_lookup(model.embed, tokens).to(dt)
+        x, _, aux = transformer.apply_stack(model, x, positions=pos)
     x = apply_norm(model.ln_f, x, cfg)
     loss_ce = lm_head_loss(x, model.head, labels, valid_vocab=cfg.vocab_size)
     loss = loss_ce + cfg.moe.aux_loss_weight * aux

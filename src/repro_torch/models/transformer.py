@@ -229,29 +229,37 @@ def _remat(fn, cfg):
 def apply_stack(model: DecoderLM, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[Dict] = None,
                 causal: bool = True, cross_kv=None, layers=None):
-    """Run the layers in order (:func:`layer_slots`).  Serving: over a
-    cache nested as the reference's (``init_cache``), updated in place,
-    with ``cross_kv`` (whisper's decoder) the encoder's (k, v) stacked
-    over the layers, each (L, B, Se, H, hd).  Without a cache (training,
-    or ``layers=model.enc_layers`` with ``causal=False``, whisper's
-    encoder), every layer under the config's remat policy (``_remat``)
-    where autograd records.  Returns (x, cache, the layers' summed aux
-    loss); the aux loss only without a cache (None with one: serving
-    discards it)."""
+    """Run the layers in order (:func:`layer_slots`), with ``cross_kv``
+    (whisper's decoder) over the encoder's (k, v) stacked over the layers,
+    each (L, B, Se, H, hd).  Serving: over a cache nested as the
+    reference's (``init_cache``), updated in place.  Without a cache
+    (training, or ``layers=model.enc_layers`` with ``causal=False``,
+    whisper's encoder, in training and serving alike), every layer under
+    the config's remat policy (``_remat``) where autograd records: the
+    model is trainable, or ``x`` requires a gradient.  So a serving
+    model's encoder runs plain and records nothing.  Returns (x, cache,
+    the layers' summed aux loss); the aux loss only without a cache (None
+    with one: serving discards it)."""
     cfg = model.cfg
     window = cfg.sliding_window or None
     if cache is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def one(layer, xc):
+        def one(layer, xc, *kv):
             y, _, a = apply_layer(layer, xc, cfg, positions=positions,
                                   window=window, layer_cache=None,
-                                  causal=causal)
+                                  causal=causal, cross_kv=kv or None)
             return y, a
 
-        fn = _remat(one, cfg) if torch.is_grad_enabled() else one
-        for layer in (model.layers if layers is None else layers):
-            x, a = fn(layer, x)
+        records = torch.is_grad_enabled() and (model.trainable
+                                               or x.requires_grad)
+        fn = _remat(one, cfg) if records else one
+        run = model.layers if layers is None else layers
+        # one unbind a side: its backward stacks the layers' gradients once
+        kvs = ([()] * len(run) if cross_kv is None else
+               list(zip(cross_kv[0].unbind(0), cross_kv[1].unbind(0))))
+        for layer, kv in zip(run, kvs):
+            x, a = fn(layer, x, *kv)
             if a is not None:
                 aux = aux + a
         return x, None, aux

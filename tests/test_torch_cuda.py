@@ -768,22 +768,38 @@ def grad_limit(ref, tol):
 
 
 BWD_CASES = [
-    # (B, S, H, K, d, window, dtype); bf16 at d 64 and 128 takes the wgmma
-    # route, bf16 at d 16 and 32 the mma.sync one, float32 the CUDA cores
-    (1, 300, 36, 4, 128, 128, torch.bfloat16),  # G = 9, the training d
-    (2, 100, 8, 2, 64, 0, torch.bfloat16),
-    (1, 1000, 36, 4, 128, 256, torch.bfloat16),  # G = 9, a window that bites
-    (2, 333, 8, 2, 64, 100, torch.bfloat16),  # ragged, windowed
-    (1, 77, 9, 1, 128, 0, torch.bfloat16),  # one ragged block, G = 9
-    (3, 130, 4, 4, 64, 64, torch.bfloat16),  # G = 1, two query steps a key
-    (1, 77, 4, 2, 32, 20, torch.bfloat16),  # S not a multiple of a block
-    (2, 50, 4, 1, 16, 0, torch.bfloat16),
-    (2, 300, 48, 8, 128, 0, torch.bfloat16),  # G = 6 (dbrx-132b), no window
-    (1, 257, 40, 8, 128, 0, torch.bfloat16),  # G = 5 (llama4-maverick)
-    (1, 129, 4, 2, 128, 50, torch.float32),
-    (2, 37, 4, 4, 64, 0, torch.float32),
-    (1, 45, 9, 1, 32, 7, torch.float32),
-    (1, 33, 2, 2, 16, 0, torch.float32),
+    # (B, Sq, Skv, H, K, d, causal, window, dtype); bf16 at d 64 and 128
+    # takes the wgmma route, bf16 at d 16 and 32 the mma.sync one, float32
+    # the CUDA cores
+    # G = 9, the training d
+    (1, 300, 300, 36, 4, 128, True, 128, torch.bfloat16),
+    (2, 100, 100, 8, 2, 64, True, 0, torch.bfloat16),
+    # G = 9, a window that bites
+    (1, 1000, 1000, 36, 4, 128, True, 256, torch.bfloat16),
+    (2, 333, 333, 8, 2, 64, True, 100, torch.bfloat16),  # ragged, windowed
+    # one ragged block, G = 9
+    (1, 77, 77, 9, 1, 128, True, 0, torch.bfloat16),
+    # G = 1, two query steps a key
+    (3, 130, 130, 4, 4, 64, True, 64, torch.bfloat16),
+    # S not a multiple of a block
+    (1, 77, 77, 4, 2, 32, True, 20, torch.bfloat16),
+    (2, 50, 50, 4, 1, 16, True, 0, torch.bfloat16),
+    # G = 6 (dbrx-132b), no window
+    (2, 300, 300, 48, 8, 128, True, 0, torch.bfloat16),
+    # G = 5 (llama4-maverick)
+    (1, 257, 257, 40, 8, 128, True, 0, torch.bfloat16),
+    (1, 129, 129, 4, 2, 128, True, 50, torch.float32),
+    (2, 37, 37, 4, 4, 64, True, 0, torch.float32),
+    (1, 45, 45, 9, 1, 32, True, 7, torch.float32),
+    (1, 33, 33, 2, 2, 16, True, 0, torch.float32),
+    # no mask (whisper's encoder and cross-attention, MHA): Sq = Skv with a
+    # ragged last key block (1,500 = 11 x 128 + 92) and query step
+    # (1,500 = 23 x 64 + 28), and Sq != Skv
+    (4, 1500, 1500, 16, 16, 64, False, 0, torch.bfloat16),
+    (4, 448, 1500, 16, 16, 64, False, 0, torch.bfloat16),
+    (4, 9, 1500, 16, 16, 64, False, 0, torch.bfloat16),
+    (2, 150, 61, 4, 4, 64, False, 0, torch.float32),
+    (2, 77, 200, 4, 4, 32, False, 0, torch.bfloat16),
 ]
 
 
@@ -807,18 +823,19 @@ def _bwd_route(dt, d):
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_lse_and_backward_match_plain(cuda, case):
     """Kernel 3 with ``return_lse`` gives the output without it bit for bit
-    and the plain log-sum-exp within 1e-5; the backward kernel's dq, dk,
-    dv are within :func:`grad_limit` of the plain backward in float32 on
-    the same inputs, and a second launch gives the same bits."""
+    and the plain log-sum-exp within 1e-5 (with the mask and without it);
+    the backward kernel's dq, dk, dv are within :func:`grad_limit` of the
+    plain backward in float32 on the same inputs, and a second launch
+    gives the same bits."""
     from repro_torch.kernels.flash_attention.bwd import (
         flash_attention_bwd_cuda)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
 
-    B, S, H, K, d, w, dt = case
-    q, k, v, do = _bwd_inputs(cuda, B, S, H, K, d, dt, S)
-    kw = dict(causal=True, window=w)
+    B, Sq, Skv, H, K, d, causal, w, dt = case
+    q, k, v, do = _bwd_inputs(cuda, B, Sq, H, K, d, dt, Sq, Skv=Skv)
+    kw = dict(causal=causal, window=w)
     o0 = flash_attention_cuda(q, k, v, **kw)
     o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     assert torch.equal(o0, o)
@@ -995,6 +1012,59 @@ def test_reduced_train_step_on_card_matches_cpu(cuda):
     assert flash_attention_cuda.launches == before[0] + 2 * cfg.num_layers
     assert flash_attention_bwd_cuda.launches == before[1] + cfg.num_layers
     for key in ("loss", "grad_norm", "lr", "skipped"):
+        np.testing.assert_allclose(float(out[1][0][key]),
+                                   float(out[0][0][key]), rtol=1e-4)
+    for a, b in zip(out[1][1], out[0][1]):
+        tol = 1e-4 * max(float(a.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= tol
+
+
+def test_reduced_audio_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step of reduced whisper-medium (150 frames: a
+    ragged key block) on the card, two micro-batches (frames split with
+    the tokens) under ``remat="full"``: the encoder's non-causal
+    attention, the decoder's causal self-attention and its cross-attention
+    (Sq 24 over Skv 150) through kernel 3 and the backward kernel == the
+    same step on the CPU (plain versions) within 1e-4: metrics, masters
+    and moments.  Per micro-batch kernel 3 runs twice a layer and kind
+    (the recompute) and the backward once, E + 2 L kinds, on the float32
+    route."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.bwd import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.models import init_model_params, params_to_numpy
+    from repro_torch.models.model import flat_leaves, params_from_numpy
+    from repro_torch.train.data import SyntheticLMDataset
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("whisper-medium").reduced().with_overrides(
+        dtype="float32", remat="full", encoder_seq_len=150)
+    oc = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4, eps=1.0)
+    tree = params_to_numpy(init_model_params(
+        cfg, torch.Generator().manual_seed(0), "cpu", trainable=True))
+    batch = SyntheticLMDataset(cfg.vocab_size, 24, 4).batch_at(0)
+    batch["frames"] = np.random.default_rng(0).normal(
+        size=(4, 150, cfg.d_model)).astype(np.float32)
+    f0 = dict(flash_attention_cuda.launches_by_route)
+    b0 = dict(flash_attention_bwd_cuda.launches_by_route)
+    out = []
+    for dev in ("cpu", cuda):
+        m = params_from_numpy(tree, cfg, device=dev, trainable=True)
+        st = init_opt_state(flat_leaves(m)[0], oc)
+        m, st, met = make_train_step(cfg, oc, accum_steps=2)(m, st, batch)
+        out.append((met, [t.detach().cpu() for t in flat_leaves(m)[0]
+                          + st["mu"] + st["nu"]]))
+    n = (cfg.encoder_layers + 2 * cfg.num_layers) * 2
+    f1 = flash_attention_cuda.launches_by_route
+    b1 = flash_attention_bwd_cuda.launches_by_route
+    assert {r: f1[r] - f0[r] for r in f1} == {
+        r: 2 * n * (r == "f32") for r in f1}
+    assert {r: b1[r] - b0[r] for r in b1} == {
+        r: n * (r == "f32") for r in b1}
+    for key in ("loss", "ce", "grad_norm", "lr", "skipped"):
         np.testing.assert_allclose(float(out[1][0][key]),
                                    float(out[0][0][key]), rtol=1e-4)
     for a, b in zip(out[1][1], out[0][1]):

@@ -3,11 +3,17 @@
 Same inputs, made from a seed with numpy, through the reference's functions
 and the port's, at whisper-medium's reduced config (``cfg.reduced()``: 2
 encoder and 4 decoder layers, d_model 128, 4 query heads over 2 KV heads in
-self-attention, MHA in cross-attention, 32 frames):
+self-attention, MHA in cross-attention, 32 frames).  The float32 cases'
+weights are drawn from seed 0 through the port's ``init_model_params``
+(:func:`seeded_params`), the same in every process: the reference's
+``init_params`` folds each leaf's key with Python's ``hash`` of its path,
+which is salted per process, so its weights would make each run of the
+suite check another model.
 
 * ``sinusoidal_positions`` and ``sinusoidal_at`` within 1e-6;
-* the reference's parameter tree through ``params_from_numpy`` and back
-  through ``params_to_numpy``, bit for bit;
+* the reference's own parameter tree (its ``init_model_params``) through
+  ``params_from_numpy`` and back through ``params_to_numpy``, bit for bit
+  and in the same structure;
 * ``encode`` and ``cross_kv_all_layers`` within 1e-5 at float32, and the
   encoder non-causal (the last frame moves position 0's output);
 * the cross-attention branch of ``apply_attention`` for a prompt and for
@@ -29,10 +35,13 @@ self-attention, MHA in cross-attention, 32 frames):
   one bfloat16 step apart (or within the 1e-5 the float32 values may
   differ by) at a value that lies within 1e-5 of the midpoint of the
   two;
+  A control must fail the 1e-4: the port's cross-attention dropping the
+  last frame moves the prefill logits past it;
 * ``BatchedServer`` and ``generate`` with ``frames``: the reference's
   greedy tokens at float32;
-* ``forward_train`` on the audio family raises, naming the roadmap item;
 * the serving CLI at the reduced config on the CPU.
+
+The audio family's training is held in ``tests/test_torch_audio_train.py``.
 """
 import dataclasses
 
@@ -90,16 +99,27 @@ def _close(got, want, tol):
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
+def seeded_params(cfg, seed=0):
+    """The reference's parameter tree (numpy) drawn from one explicit seed,
+    through the port's ``init_model_params`` on a seeded CPU generator.
+    The reference's own ``init_params`` folds each leaf's key with
+    Python's ``hash`` of its path, which is salted per process, so its
+    weights would change from one run of the suite to the next."""
+    model = init_model_params(cfg, torch.Generator().manual_seed(seed),
+                              device="cpu", trainable=True)
+    return params_to_numpy(model)
+
+
 @pytest.fixture(scope="module")
 def both():
     """(reference cfg, reference params, port model) at float32, reduced;
-    the port's weights are the reference's."""
+    the same weights in both, drawn from seed 0 (:func:`seeded_params`)."""
     ref = j_configs.get_config(ARCH).reduced().with_overrides(
         dtype="float32")
-    params = j_init(jax.random.key(0), ref)
     cfg = configs.get_config(ARCH).reduced().with_overrides(dtype="float32")
-    return ref, params, params_from_numpy(jax.tree.map(np.asarray, params),
-                                          cfg, device="cpu")
+    tree = seeded_params(cfg)
+    return ref, jax.tree.map(jnp.asarray, tree), params_from_numpy(
+        tree, cfg, device="cpu")
 
 
 def _frames(ref, B, seed):
@@ -134,8 +154,13 @@ def test_sinusoidal_at_matches_jax():
 
 
 def test_params_round_trip_is_exact(both):
-    ref, params, model = both
-    want = jax.tree.map(np.asarray, params)
+    """The reference's own tree (``init_model_params``; its hash-salted
+    values do not matter to an exact round trip) through
+    ``params_from_numpy`` and back, bit for bit and in the same
+    structure; the port's model holds every leaf of the schema."""
+    ref, _, seeded = both
+    want = jax.tree.map(np.asarray, j_init(jax.random.key(0), ref))
+    model = params_from_numpy(want, seeded.cfg, device="cpu")
     got = params_to_numpy(model)
     assert jax.tree.structure(got) == jax.tree.structure(want)
     for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
@@ -297,6 +322,37 @@ def test_prefill_decode_float32_match_jax(both, monkeypatch):
             assert np.array_equal(_np(got), _np(want))
 
 
+def test_prefill_float32_control_dropping_the_last_frame_fails(
+        both, monkeypatch):
+    """The 1e-4 of :func:`test_prefill_decode_float32_match_jax` has teeth:
+    a port whose cross-attention drops the last of the 32 frames (the
+    prompt's flash call over the cross K/V sees 31 keys) moves the prefill
+    logits past it, while the same comparison passes without the fault."""
+    from repro_torch.models import attention
+
+    ref, params, model = both
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, ref.vocab_size, (2, 9)).astype(np.int32)
+    frames = _frames(ref, 2, 5)
+
+    def used():
+        (jl, tl, _, _), = _run_both(ref, params, model, tokens, frames, 0,
+                                    "float32")
+        w = _np(jl)
+        return float((np.abs(_np(tl) - w) / (1e-4 + 1e-4 * np.abs(w))).max())
+
+    assert used() <= 1.0
+    flash = attention.flash_attention_cuda
+
+    def drop_last_frame(q, k, v, **kw):
+        if not kw.get("causal", True) and q.shape[1] != k.shape[1]:
+            k, v = k[:, :-1], v[:, :-1]  # the cross call: 31 of 32 frames
+        return flash(q, k, v, **kw)
+
+    monkeypatch.setattr(attention, "flash_attention_cuda", drop_last_frame)
+    assert used() > 1.0
+
+
 def test_prefill_decode_bf16_match_jax():
     """At the config's bfloat16, from the same float32 weights, logits
     within 5e-2 (``tests/test_torch_models.py``'s bf16 tolerance)."""
@@ -356,15 +412,6 @@ def test_server_and_generate_tokens_match_jax(both):
     assert np.array_equal(got.numpy(), want)
 
 
-def test_audio_training_raises_naming_the_roadmap(both):
-    _, _, model = both
-    batch = {"tokens": np.zeros((1, 4), np.int32),
-             "labels": np.zeros((1, 4), np.int32),
-             "frames": np.zeros((1, 32, 128), np.float32)}
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        forward_train(model, batch)
-
-
 def test_serve_cache_and_non_causal_attention_guards():
     cfg = configs.get_config(ARCH).reduced()
     cache = init_serve_cache(cfg, 3, 12, device="cpu")
@@ -379,15 +426,19 @@ def test_serve_cache_and_non_causal_attention_guards():
     if not torch.cuda.is_available():  # the cache defaults to the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_serve_cache(cfg, 1, 4)
-    # a non-causal call takes no cache, and has no gradient yet (9c)
+    # a non-causal call takes no cache; on a trainable model it has a
+    # gradient (the flash backward's plain version on the CPU)
     model = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu",
                               trainable=True)
     layer = model.enc_layers[0]
     x = torch.randn(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        apply_attention(layer.attn, x, cfg, positions=pos, layer_cache=None,
-                        rope=False, causal=False)
+    y, none = apply_attention(layer.attn, x, cfg, positions=pos,
+                              layer_cache=None, rope=False, causal=False)
+    assert none is None and y.shape == x.shape and y.grad_fn is not None
+    y.sum().backward()
+    assert layer.attn["wk"].grad is not None
+    assert float(layer.attn["wk"].grad.abs().max()) > 0
     one = {n: t[0] for n, t in cache["self"]["dense"].items()}
     with pytest.raises(ValueError, match="non-causal"):
         apply_attention(model.layers[0].attn, x.bfloat16(), cfg,

@@ -76,25 +76,30 @@ def test_flash_backward_sweep_on_the_cpu(smoke, monkeypatch):
     from repro_torch.kernels.flash_attention.bwd import ROUTES
 
     cases = list(smoke.BWD_CASES)
-    assert {smoke.bwd_route(c[-1], c[4]) for c in cases} == set(ROUTES)
-    assert smoke.bwd_route(cases[0][-1], cases[0][4]) == \
+    assert {smoke.bwd_route(c[-1], c[5]) for c in cases} == set(ROUTES)
+    assert smoke.bwd_route(cases[0][-1], cases[0][5]) == \
         smoke.TRAIN_BWD_ROUTE == "bf16_wgmma"
+    # without the mask, on every route, at Sq = Skv and Sq != Skv
+    no_mask = [c for c in cases if not c[6]]
+    assert {smoke.bwd_route(c[-1], c[5]) for c in no_mask} == set(ROUTES)
+    assert {c[1:3] for c in no_mask} >= {(1500, 1500), (448, 1500)}
     monkeypatch.setattr(smoke, "BWD_CASES", [
-        (1, 40, 4, 2, 64, 0, "bfloat16"),
-        (1, 70, 9, 1, 128, 16, "bfloat16"),
-        (2, 33, 4, 4, 32, 0, "bfloat16"),
-        (1, 30, 4, 1, 16, 8, "float32"),
+        (1, 40, 40, 4, 2, 64, True, 0, "bfloat16"),
+        (1, 70, 70, 9, 1, 128, True, 16, "bfloat16"),
+        (2, 33, 33, 4, 4, 32, True, 0, "bfloat16"),
+        (1, 30, 30, 4, 1, 16, True, 8, "float32"),
+        (1, 20, 150, 4, 4, 64, False, 0, "bfloat16"),
     ])
     monkeypatch.setattr(smoke, "BWD_CONTROL_CASE", 1)
     log = []
     sweep = smoke.bwd_sweep(torch.Generator().manual_seed(3), "cpu",
                             log=log.append)
     assert [r["route"] for r in sweep] == [
-        "bf16_wgmma", "bf16_wgmma", "bf16_mma_sync", "f32"]
+        "bf16_wgmma", "bf16_wgmma", "bf16_mma_sync", "f32", "bf16_wgmma"]
     assert all(r["repeat_bitwise"] and r["limit_used"] <= 1.0
                for r in sweep)
     assert min(sweep[1]["controls_limit_used"].values()) > 1.0
-    assert len(log) == 4
+    assert len(log) == 5
 
 
 def test_moe_serve_phase_on_the_cpu(smoke, monkeypatch):
@@ -289,3 +294,63 @@ def test_audio_serve_phase_on_the_cpu(smoke, monkeypatch):
         assert min(c["controls_limit_used"].values()) > 1.0
     # serve, the attention check, teacher forcing, two profile windows
     assert sum(ln.startswith("phase audio_") for ln in log) == 5
+
+
+def test_audio_train_phase_on_the_cpu(smoke, monkeypatch):
+    """The smoke's audio training phase (``audio_train_path``, phase 11c)
+    at whisper's reduced config on the CPU, with 150 frames so that the
+    last key block is ragged as the card's 1,500 are, 2 clips of 10
+    tokens a step and the config's full remat: the cuts line, every step
+    finite and none skipped, the attention wrappers called as a step
+    implies (on the CPU they run their plain versions and launch nothing),
+    the profile window, the checkpoint restored bit for bit, and the
+    layer-0 checks of the encoder's and the cross-attention's no-mask
+    calls with every control over its limit (the causal mask, Skv taken
+    as Sq, the ragged block dropped with the last frame planted); the
+    launch counts by route and the timing (``audio_train_timing``) are
+    left to the card, whose run keeps whisper-medium's full width and
+    depth."""
+    from repro_torch.configs import get_config
+
+    full = get_config(smoke.AUDIO_ARCH)
+    assert (full.encoder_layers, full.num_layers, full.d_model,
+            full.num_heads, full.head_dim, full.remat) == (
+        24, 24, 1024, 16, 64, "full")
+    assert (smoke.AUDIO_TRAIN_CLIPS, smoke.AUDIO_TRAIN_TEXT,
+            smoke.AUDIO_TRAIN_STEPS, smoke.AUDIO_TRAIN_CUTS) == (
+        4, 448, 3, {})
+    assert smoke.audio_train_launches(full) == (144, 72)
+    for name, value in (("AUDIO_TRAIN_CLIPS", 2), ("AUDIO_TRAIN_TEXT", 10),
+                        ("AUDIO_TRAIN_STEPS", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    cfg = full.reduced().with_overrides(encoder_seq_len=150, remat="full")
+    log = []
+    out = smoke.audio_train_path(cfg, "cpu", device="cpu", log=log.append)
+    assert log[0].startswith("audio_train cuts: {} ")
+    rec = out["train"]
+    assert rec["params"] == smoke.schema_leaves(cfg)
+    assert len(rec["steps"]) == 2
+    assert all(h["skipped"] == 0 for h in rec["steps"])
+    n_fwd, n_bwd = smoke.audio_train_launches(cfg)
+    assert rec["wrapper_calls"] == {"flash_attention_cuda": 2 * n_fwd,
+                                    "flash_attention_bwd_cuda": 2 * n_bwd}
+    assert rec["checkpoint"]["bitwise"]
+    # the reduced encoder has G = 2 (whisper-medium's is MHA); the
+    # cross-attention is MHA
+    B, H, K, d = 2, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {kind: [list(t.shape) for t in out["shapes"][kind][:2]]
+              for kind in smoke.AUDIO_TRAIN_KINDS}
+    assert shapes == {"encoder": [[B, 150, H, d], [B, 150, K, d]],
+                      "cross": [[B, 10, H, d], [B, 150, H, d]]}
+    check = rec["attention_check"]
+    for kind, n_ctl in (("encoder", (1, 2)), ("cross", (2, 3))):
+        for k, n in zip(("flash_attention_cuda", "flash_attention_bwd_cuda"),
+                        n_ctl):
+            c = check[kind][k]
+            assert c["limit_used"] <= 1.0
+            assert len(c["controls_limit_used"]) == n
+            assert min(c["controls_limit_used"].values()) > 1.0
+        assert check[kind]["flash_attention_bwd_cuda"][
+            "planted_dq_control_limit_used"] > 1.0
+    # the run, its profile, the checkpoint, the attention check
+    assert sum(ln.startswith("phase audio_train") for ln in log) == 4
